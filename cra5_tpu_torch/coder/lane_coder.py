@@ -1,0 +1,422 @@
+"""Interleaved-lane rANS coder, container format v2 (CRX2).
+
+Counterpart of ``cra5_tpu/coder/rans_tpu.py``. Given the same symbols,
+indexes, lane count and flags it writes the same bytes as the JAX
+``LaneCoder``, and it reads every stream that coder writes
+(``docs/FORMATS.md`` section 3 is normative):
+
+  - K lanes; symbol g goes to lane g % K at step g // K. Out-of-range
+    symbols are coded as the top bin and their values ride a zigzag-varint
+    side channel.
+  - Sorted mode (header bits 31/29): symbols are coded in index order
+    (stable by position) after tiny cdf buckets are merged into their
+    nearest bucket of >= K symbols; bit 30 records the encoder's verdict
+    that every step spans at most two cdf rows. The port writes sorted
+    streams when K >= 2048 and K % 128 == 0, which is what the JAX package
+    writes on its accelerator, on the CPU and on the card alike.
+
+Routing follows the format, not a chip: a sorted stream with bit 30 goes
+to K3 (``rans_decode_sorted``); an unsorted stream whose caller promises a
+channel-broadcast index grid with K <= symbols per channel goes to K2
+(``rans_decode_rowplan``); encode always goes to K1 (``rans_encode``). On
+the CPU those wrappers run their plain versions, and any other stream
+decodes with the plain per-lane decode. On the card any other stream
+raises: its kernel, the TPU's ``decode_scan_pallas``, is not ported yet.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..entropy.cdf import CdfTable
+from .rans_kernels import (
+    lane_decode_plain,
+    rans_decode_rowplan,
+    rans_decode_sorted,
+    rans_encode,
+)
+
+PRECISION = 16
+MAGIC = 0x32585243  # "CRX2" little-endian
+SORTED_FLAG = 1 << 31  # K bit 31: index-sorted lane assignment
+KERNEL_SAFE_FLAG = 1 << 30  # K bit 30: every step spans <= 2 cdf rows
+MERGED_FLAG = 1 << 29  # K bit 29: tiny cdf buckets merged
+
+
+def default_num_lanes(n_symbols: int) -> int:
+    """Power of two targeting >= 512 symbols per lane up to 4096 lanes,
+    then >= 320 symbols per lane up to 16384 (part of the format's
+    defaults: the same n gives the same K in both packages)."""
+    k = 1
+    while k * 2 <= max(1, n_symbols // 512) and k < 4096:
+        k *= 2
+    if k == 4096:
+        while k * 2 <= max(1, n_symbols // 320) and k < 16384:
+            k *= 2
+    return k
+
+
+def padded_search_table(table: CdfTable) -> np.ndarray:
+    """Rows padded with 2**16 beyond cdf_length, so that a search for
+    cum < 2**16 never selects a padding bin."""
+    cdf = table.quantized_cdf.astype(np.int32)
+    cols = np.arange(cdf.shape[1])[None, :]
+    return np.where(cols < table.cdf_length[:, None], cdf, 1 << PRECISION).astype(np.int32)
+
+
+def zigzag_varint_encode(values: np.ndarray) -> bytes:
+    """LEB128 varints of zigzag-mapped int32s (the escape side channel)."""
+    if values.size == 0:
+        return b""
+    v = values.astype(np.int64)
+    u = np.where(v >= 0, v << 1, ((-v - 1) << 1) | 1).astype(np.uint64)
+    nbytes = np.ones(u.shape, np.int64)
+    for k in range(1, 5):
+        nbytes += (u >= (np.uint64(1) << np.uint64(7 * k))).astype(np.int64)
+    out = np.zeros(int(nbytes.sum()), np.uint8)
+    pos = np.concatenate([[0], np.cumsum(nbytes)[:-1]])
+    for k in range(5):
+        mask = nbytes > k
+        if not mask.any():
+            break
+        byte = ((u[mask] >> np.uint64(7 * k)) & np.uint64(0x7F)).astype(np.uint8)
+        cont = (nbytes[mask] > k + 1).astype(np.uint8)
+        out[pos[mask] + k] = byte | (cont << 7)
+    return out.tobytes()
+
+
+def zigzag_varint_decode(data: bytes, count: int) -> np.ndarray:
+    if count == 0:
+        return np.zeros(0, np.int32)
+    b = np.frombuffer(data, np.uint8)
+    ends = np.flatnonzero((b & 0x80) == 0)
+    if ends.size < count:
+        raise ValueError("truncated escape side channel")
+    ends = ends[:count]
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    u = np.zeros(count, np.uint64)
+    for k in range(5):
+        idx = starts + k
+        valid = idx <= ends
+        if not valid.any():
+            break
+        u[valid] |= (b[idx[valid]].astype(np.uint64) & np.uint64(0x7F)) << np.uint64(7 * k)
+    return np.where(
+        u & np.uint64(1),
+        -((u >> np.uint64(1)).astype(np.int64)) - 1,
+        (u >> np.uint64(1)).astype(np.int64),
+    ).astype(np.int32)
+
+
+def assemble_container(n, K, nw, ne, sorted_mode, safe, states, stream, escs) -> bytes:
+    """Pack a v2 container from host arrays: states (K,) u32, the first
+    ``nw`` stream words (u16) and the first ``ne`` escape values."""
+    kf = K
+    if sorted_mode:
+        kf |= SORTED_FLAG | MERGED_FLAG | (KERNEL_SAFE_FLAG if safe else 0)
+    return b"".join([
+        struct.pack("<IIIII", MAGIC, n, kf, ne, nw),
+        np.asarray(states, np.uint32).astype("<u4").tobytes(),
+        np.asarray(stream[:nw], np.uint16).astype("<u2").tobytes(),
+        zigzag_varint_encode(np.asarray(escs[:ne], np.int32)),
+    ])
+
+
+def parse_v2_header(data: bytes):
+    """Validate a v2 header. Returns (n, K, n_esc, n_words, sorted_mode,
+    kernel_safe, merged); raises ValueError on any malformed field."""
+    if len(data) < 20:
+        raise ValueError("truncated CRX2 stream: missing header")
+    magic, n, K, n_esc, n_words = struct.unpack_from("<IIIII", data, 0)
+    if magic != MAGIC:
+        raise ValueError("not a CRX2 (format v2) stream")
+    sorted_mode = bool(K & SORTED_FLAG)
+    kernel_safe = bool(K & KERNEL_SAFE_FLAG)
+    merged = bool(K & MERGED_FLAG)
+    K &= ~(SORTED_FLAG | KERNEL_SAFE_FLAG | MERGED_FLAG)
+    if not 1 <= K <= (1 << 20):
+        raise ValueError(f"implausible lane count K={K}")
+    if n > (1 << 30) or n_esc > n + K:
+        raise ValueError("implausible symbol/escape counts")
+    need = 20 + 4 * K + 2 * n_words
+    if len(data) < need:
+        raise ValueError(f"truncated CRX2 stream: header promises {need} bytes, got {len(data)}")
+    return n, K, n_esc, n_words, sorted_mode, kernel_safe, merged
+
+
+def merge_tiny_buckets(idx_sorted: torch.Tensor, ncdfs: int, K: int) -> torch.Tensor:
+    """Remap every cdf index holding fewer than K symbols to the nearest
+    index holding >= K (ties toward the smaller index); the identity when
+    no index reaches K. ``idx_sorted`` must be nondecreasing; the remap is
+    monotone, so the result is too."""
+    ids = torch.arange(ncdfs, dtype=torch.int64, device=idx_sorted.device)
+    bounds = torch.searchsorted(idx_sorted.contiguous(), torch.arange(
+        ncdfs + 1, dtype=idx_sorted.dtype, device=idx_sorted.device))
+    valid = torch.diff(bounds) >= K
+    dist = (ids[:, None] - ids[None, :]).abs()
+    dist = torch.where(valid[None, :], dist, ncdfs + 1)
+    nearest = torch.argmin(dist, dim=1)  # first minimum: ties go low
+    remap = torch.where(valid | ~valid.any(), ids, nearest).to(idx_sorted.dtype)
+    return remap[idx_sorted.long()]
+
+
+def _sort_by_index(idx_flat: torch.Tensor):
+    """The stable index sort both coder sides derive: unique int64 keys
+    (index << pos_bits) | position."""
+    n = idx_flat.numel()
+    pos_bits = max((n - 1).bit_length(), 1)
+    key = (idx_flat.to(torch.int64) << pos_bits) | torch.arange(n, device=idx_flat.device)
+    skey, order = torch.sort(key)
+    return (skey >> pos_bits).to(torch.int32), order
+
+
+def sorted_rows(idx2: torch.Tensor):
+    """(r0, r1, split) of a sorted (M, K) index grid: each step's first and
+    last cdf row, and the first lane that uses the last row."""
+    r1 = idx2[:, -1].contiguous()
+    split = (idx2.shape[1] - (idx2 == r1[:, None]).sum(1)).to(torch.int32)
+    return idx2[:, 0].contiguous(), r1, split
+
+
+def _apply_escapes(values, sentinel, escs, n):
+    """Replace the sentinel-coded positions of the first n values with the
+    side-channel values, in order. Returns (values, sentinel count)."""
+    values = values.reshape(-1)[:n]
+    sentinel = sentinel.reshape(-1)[:n]
+    rank = torch.cumsum(sentinel.to(torch.int64), 0) - 1
+    if escs.numel():
+        values = torch.where(sentinel, escs[rank.clamp(0, escs.numel() - 1)], values)
+    return values, rank[-1] + 1
+
+
+class LaneCoder:
+    """Encode/decode int32 symbol tensors against a CdfTable with the
+    interleaved-lane rANS (format v2), on ``device`` (default: the card).
+
+    New streams are index-sorted when K >= 2048 and K % 128 == 0 (the
+    format default); ``sorted_lanes=True`` sorts whenever K % 128 == 0,
+    which small streams such as the sorted golden need."""
+
+    def __init__(self, table: CdfTable, num_lanes: Optional[int] = None,
+                 device=None, sorted_lanes: bool = False):
+        self.device = resolve_device(device)
+        self.table = table
+        self.num_lanes = num_lanes
+        self.sorted_lanes = sorted_lanes
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=self.device)
+        self._cdf = as_t(padded_search_table(table))
+        self._max_values = as_t(table.cdf_length - 2)
+        self._offsets = as_t(table.offset)
+        self._rowplan_checked: set = set()
+
+    @property
+    def num_indexes(self) -> int:
+        return self.table.num_indexes
+
+    def _sorted_ok(self, n: int, K: int) -> bool:
+        pos_bits = max((n - 1).bit_length(), 1)
+        idx_bits = max(int(self.num_indexes - 1).bit_length(), 1)
+        if pos_bits + idx_bits > 31 or K % 128:
+            return False
+        return self.sorted_lanes or K >= 2048
+
+    # -- encode -----------------------------------------------------------
+    def encode(self, symbols: np.ndarray, indexes: np.ndarray) -> bytes:
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=self.device)
+        return self.encode_finalize_many([self.encode_dispatch(as_t(symbols), as_t(indexes))])[0]
+
+    def encode_dispatch_batch(self, symbols: torch.Tensor, indexes: torch.Tensor) -> list:
+        """One encode per sample of a (B, ...) batch."""
+        return [self.encode_dispatch(symbols[b], indexes[b]) for b in range(symbols.shape[0])]
+
+    def encode_dispatch(self, symbols: torch.Tensor, indexes: torch.Tensor):
+        """Prep, K1 scan and compaction on the coder's device; returns a
+        handle for ``encode_finalize_many`` (None for an empty tensor)."""
+        grids = self.encode_grids(symbols, indexes)
+        if grids is None:
+            return None
+        n, K, sort, starts, freqs, sym, escape, safe = grids
+        states, emit, words = rans_encode(starts, freqs)
+        # boolean selection keeps (step, lane) order: the stream layout
+        return (n, K, sort, states, words[emit], sym[escape], safe)
+
+    def encode_grids(self, symbols: torch.Tensor, indexes: torch.Tensor):
+        """The encode prep: lane count, optional index sort and bucket
+        merge, padding, escape mapping and the (M, K) start/frequency grids
+        that K1 consumes. Returns (n, K, sorted, starts, freqs, padded
+        symbols, escape mask, kernel-safe verdict), or None when empty."""
+        sym = symbols.reshape(-1).to(self.device, torch.int32)
+        idx = indexes.reshape(-1).to(self.device, torch.int32)
+        n = sym.numel()
+        if idx.numel() != n:
+            raise ValueError(f"symbol count {n} != index count {idx.numel()}")
+        if n == 0:
+            return None
+        K = self.num_lanes or default_num_lanes(n)
+        M = -(-n // K)
+        pad = M * K - n
+        sort = self._sorted_ok(n, K)
+        if sort:
+            idx, order = _sort_by_index(idx)
+            sym = sym[order]
+            idx = merge_tiny_buckets(idx, self.num_indexes, K)
+        if pad:
+            # sorted streams pad with the last index so the grid stays
+            # nondecreasing, unsorted ones with index 0; both at the
+            # index's offset (bin 0)
+            pidx = idx[n - 1:] if sort else torch.zeros(1, dtype=torch.int32, device=self.device)
+            idx = torch.cat([idx, pidx.expand(pad)])
+            sym = torch.cat([sym, self._offsets[pidx.long()].expand(pad)])
+        il = idx.long()
+        mv = self._max_values[il]
+        v = sym - self._offsets[il]
+        escape = (v < 0) | (v >= mv)
+        bins = torch.where(escape, mv, v)
+        cdf_flat = self._cdf.reshape(-1)
+        pos = il * self._cdf.shape[1] + bins
+        starts = cdf_flat[pos]
+        freqs = cdf_flat[pos + 1] - starts
+        idx2 = idx.reshape(M, K)
+        safe = (
+            (idx2[:, 1:] != idx2[:, :-1]).sum(1).max() <= 1 if sort
+            else torch.zeros((), dtype=torch.bool, device=self.device)
+        )
+        return n, K, sort, starts.reshape(M, K), freqs.reshape(M, K), sym, escape, safe
+
+    @staticmethod
+    def encode_finalize_many(handles) -> List[bytes]:
+        """Move each dispatched encode's compacted buffers to the host and
+        pack its container."""
+        out = []
+        for h in handles:
+            if h is None:
+                out.append(struct.pack("<IIIII", MAGIC, 0, 1, 0, 0) + struct.pack("<I", 1 << 16))
+                continue
+            n, K, sort, states, stream, escs, safe = h
+            states = states.cpu().numpy().view(np.uint32)
+            stream = stream.cpu().numpy().view(np.uint16)
+            escs = escs.cpu().numpy()
+            out.append(assemble_container(
+                n, K, stream.size, escs.size, sort, bool(safe.item()), states, stream, escs
+            ))
+        return out
+
+    # -- decode -----------------------------------------------------------
+    def upload_batch(self, datas, n: Optional[int] = None):
+        """Parse B containers and copy their buffers to the device now,
+        before the caller's indexes exist."""
+        ups = []
+        for d in datas:
+            d = _unwrap_bytes(d)
+            hdr = parse_v2_header(d)
+            if n is not None and hdr[0] != n:
+                raise ValueError(f"symbol count mismatch: stream {hdr[0]}, indexes {n}")
+            ups.append(self._upload(d, hdr))
+        return ups
+
+    def _upload(self, data: bytes, hdr):
+        n, K, n_esc, n_words, sorted_mode, kernel_safe, merged = hdr
+        off = 20
+        states = np.frombuffer(data, "<u4", K, off).view(np.int32)
+        off += 4 * K
+        stream = np.frombuffer(data, "<u2", n_words, off).view(np.int16)
+        off += 2 * n_words
+        escs = zigzag_varint_decode(data[off:], n_esc)
+        dev = lambda a: torch.from_numpy(a.copy()).to(self.device)
+        return hdr, dev(states), dev(stream), dev(escs)
+
+    def decode_uploaded_batch(self, handle, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
+        """Decode the streams of ``upload_batch`` against (B, ...) indexes."""
+        return torch.stack([
+            self._decode(up, indexes[b], row_plan)[0] for b, up in enumerate(handle)
+        ])
+
+    def decode_batch_to_device(self, datas, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
+        """Decode B streams against (B, ...) indexes. ``row_plan=<symbols
+        per channel>`` promises a channel-broadcast index grid (the z
+        stream), which routes to K2 when K <= that count."""
+        n = int(np.prod(indexes.shape[1:]))
+        return self.decode_uploaded_batch(self.upload_batch(datas, n), indexes, row_plan)
+
+    def decode_to_device(self, data: bytes, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
+        return self._decode(self._upload(data, parse_v2_header(data)), indexes, row_plan)[0]
+
+    def decode(self, data: bytes, indexes: np.ndarray, row_plan=False) -> np.ndarray:
+        """numpy-facing decode; also checks the escape count."""
+        idx = torch.as_tensor(np.ascontiguousarray(indexes, np.int32), device=self.device)
+        up = self._upload(data, parse_v2_header(data))
+        out, n_sent = self._decode(up, idx, row_plan)
+        if int(n_sent) != up[0][2]:
+            raise ValueError(
+                f"escape count mismatch: decoded {int(n_sent)} sentinels, stream has {up[0][2]}"
+            )
+        return out.cpu().numpy()
+
+    def _decode(self, up, indexes: torch.Tensor, row_plan):
+        (n, K, n_esc, _, sorted_mode, kernel_safe, merged), states, stream, escs = up
+        indexes = indexes.to(self.device)
+        if n != indexes.numel():
+            raise ValueError(f"symbol count mismatch: stream {n}, indexes {tuple(indexes.shape)}")
+        if n == 0:
+            return torch.zeros(indexes.shape, dtype=torch.int32, device=self.device), 0
+        M = -(-n // K)
+        pad = M * K - n
+        idx = indexes.reshape(-1).to(torch.int32)
+        perm = None
+        if sorted_mode:
+            idx, perm = _sort_by_index(idx)
+            if merged:
+                idx = merge_tiny_buckets(idx, self.num_indexes, K)
+            pidx = idx[n - 1:]
+        else:
+            pidx = torch.zeros(1, dtype=torch.int32, device=self.device)
+        idx2 = torch.cat([idx, pidx.expand(pad)]).reshape(M, K) if pad else idx.reshape(M, K)
+        tabs = (self._max_values, self._offsets)
+        if sorted_mode and kernel_safe:
+            values, sentinel = rans_decode_sorted(self._cdf, *sorted_rows(idx2), states, stream, *tabs)
+        elif not sorted_mode and row_plan and K <= int(row_plan):
+            self._validate_rowplan(indexes, K)
+            values, sentinel = rans_decode_rowplan(self._cdf, idx2, states, stream, *tabs)
+        elif self.device.type == "cpu":
+            values, sentinel = lane_decode_plain(self._cdf, idx2, states, stream, *tabs)
+        else:
+            raise NotImplementedError(
+                "this v2 stream needs the generic lane decode, the TPU's "
+                "decode_scan_pallas (queue B6), which is not ported to CUDA yet; "
+                "decode it with device='cpu'"
+            )
+        values, n_sent = _apply_escapes(values, sentinel, escs, n)
+        if perm is not None:
+            values = torch.empty_like(values).index_copy_(0, perm, values)
+        return values.reshape(indexes.shape), n_sent
+
+    def _validate_rowplan(self, indexes: torch.Tensor, K: int) -> None:
+        """Check the caller's row-plan promise once per index shape: every
+        K-lane step draws from at most two cdf rows, its first and its max
+        (one copy of the index grid to the host)."""
+        key = (tuple(indexes.shape), K)
+        if key in self._rowplan_checked:
+            return
+        idx = indexes.reshape(-1).cpu().numpy().astype(np.int64)
+        M = -(-idx.size // K)
+        g = np.concatenate([idx, np.full(M * K - idx.size, -1)]).reshape(M, K)
+        c0, c1 = g[:, 0], g.max(axis=1)
+        if not ((g < 0) | (g == c0[:, None]) | (g == c1[:, None])).all():
+            raise ValueError(
+                "row_plan promise violated: a K-lane decode step contains a cdf "
+                "index outside {step-first, step-max}. Pass row_plan=False for "
+                "index grids that are not channel-broadcast."
+            )
+        self._rowplan_checked.add(key)
+
+
+def _unwrap_bytes(s):
+    """Accept both ``bytes`` and the ``[bytes]`` nesting."""
+    if isinstance(s, (list, tuple)):
+        return s[0]
+    return s

@@ -1,0 +1,164 @@
+"""ViT building blocks: MLP, global and window attention, the pre-norm block.
+
+Counterpart of ``cra5_tpu/nn/blocks.py``. Linear layers hold their weights
+in the model dtype, as the flax Dense layers compute in it; LayerNorm keeps
+float32 parameters and statistics and casts its output to the model dtype,
+as flax does. Attention logits and softmax are float32.
+
+``_attend`` routes to the flash kernel (K4) exactly where the JAX package
+routes to its Pallas kernel on its accelerator: on the card, for sequences
+of 2048 tokens or more, or when the (B*H, N, N) float32 logits would reach
+1 GiB. On the 268v main path that selects the seven global blocks and no
+window or hyperprior block. Elsewhere attention is plain matmul + softmax,
+as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import flash_attention_forward
+from .init import init_linear_
+
+FLASH_MIN_SEQ = 2048
+FLASH_MIN_LOGIT_BYTES = 1 << 30
+
+
+def _use_flash(n: int, batch_heads: int, device: torch.device) -> bool:
+    if device.type != "cuda":
+        return False
+    return n >= FLASH_MIN_SEQ or batch_heads * n * n * 4 >= FLASH_MIN_LOGIT_BYTES
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """q, k, v: (B, H, N, D)."""
+    if _use_flash(q.shape[2], q.shape[0] * q.shape[1], q.device):
+        return flash_attention_forward(q.contiguous(), k.contiguous(), v.contiguous(), scale)[0]
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 out_init_scale: float = 1.0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.out_init_scale = out_init_scale
+        self.fc1 = nn.Linear(in_features, hidden_features, dtype=dtype, device=device)
+        self.fc2 = nn.Linear(hidden_features, out_features, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator=None) -> None:
+        init_linear_(self.fc1, generator)
+        init_linear_(self.fc2, generator, self.out_init_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class Attention(nn.Module):
+    """Global multi-head self attention over all tokens."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_init_scale: float = 1.0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.proj_init_scale = proj_init_scale
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype, device=device)
+        self.proj = nn.Linear(dim, dim, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator=None) -> None:
+        init_linear_(self.qkv, generator)
+        init_linear_(self.proj, generator, self.proj_init_scale)
+
+    def _mha(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        hd = C // self.num_heads
+        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        out = _attend(qkv[0], qkv[1], qkv[2], hd ** -0.5)
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        return self._mha(x)
+
+
+def window_partition(x: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B * nWh * nWw, wh*ww, C); H % wh == 0, W % ww == 0."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // wh, wh, W // ww, ww, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, wh * ww, C)
+
+
+def window_reverse(windows: torch.Tensor, wh: int, ww: int, H: int, W: int) -> torch.Tensor:
+    """(B * nW, wh*ww, C) -> (B, H, W, C)."""
+    C = windows.shape[-1]
+    B = windows.shape[0] // ((H // wh) * (W // ww))
+    x = windows.reshape(B, H // wh, W // ww, wh, ww, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+class WindowAttention(Attention):
+    """Rectangular-window attention: zero-pad bottom/right to a window
+    multiple, attend within each window, crop. The padded tokens are not
+    masked: they carry qkv = bias and take part in every softmax of their
+    window, exactly as in the JAX package."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: Tuple[int, int],
+                 qkv_bias: bool = True, proj_init_scale: float = 1.0,
+                 dtype=torch.float32, device=None):
+        super().__init__(dim, num_heads, qkv_bias, proj_init_scale, dtype, device)
+        self.window_size = tuple(window_size)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        B, N, C = x.shape
+        wh, ww = self.window_size
+        x = x.reshape(B, H, W, C)
+        pad_b, pad_r = (wh - H % wh) % wh, (ww - W % ww) % ww
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        out = self._mha(window_partition(x, wh, ww))
+        x = window_reverse(out, wh, ww, H + pad_b, W + pad_r)[:, :H, :W]
+        return x.reshape(B, H * W, C)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block; window attention when ``window_size``
+    is set, global attention otherwise. At init the attention projection
+    and fc2 are scaled by 1/sqrt(2 * (layer_id + 1))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 window_size: Optional[Tuple[int, int]] = None, layer_id: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        rescale = (2.0 * (layer_id + 1)) ** -0.5 if layer_id is not None else 1.0
+        self.window_size = window_size
+        if window_size is not None:
+            self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias, rescale, dtype, device)
+        else:
+            self.attn = Attention(dim, num_heads, qkv_bias, rescale, dtype, device)
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, rescale, dtype, device)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), H, W)
+        return x + self.mlp(self.norm2(x))

@@ -1,0 +1,170 @@
+"""VAEformer ViT towers: encoder, decoder, hyperprior encoder/decoder.
+
+Counterpart of ``cra5_tpu/nn/vit.py``; token layout is row-major (H-major)
+NLC inside, NCHW at the module boundaries.
+
+  - Block i uses window ``window_sizes[min(i % interval, len - 1)]`` and
+    goes global every ``interval``-th block ((i + 1) % interval == 0).
+  - The encoder's dual final block: ``blocks[n_seq - 1]`` (mean) and
+    ``blocks[n_seq]`` (logvar) both read the same activations.
+  - The decoder's window pattern uses i = depth // 2 + j, while its block
+    index and layer_id use j.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .blocks import Block, LayerNorm, Mlp
+from .init import init_linear_
+from .patch_embed import PatchEmbed, PatchUnembed
+from .pos_embed import get_2d_sincos_pos_embed
+
+
+def _win_for_block(i: int, window: bool, interval: int,
+                   window_sizes: Sequence[Tuple[int, int]]) -> Optional[Tuple[int, int]]:
+    """None -> global attention; else the rectangular window for block i."""
+    if not window or (i + 1) % interval == 0:
+        return None
+    return tuple(window_sizes[min(i % interval, len(window_sizes) - 1)])
+
+
+def _mlp_hidden(embed_dim: int, z_dim: int) -> int:
+    return int(np.sqrt(embed_dim // z_dim)) * z_dim
+
+
+class _PosEmbed(nn.Module):
+    """Holds a float32 ``pos_embed`` parameter (1, N, D), initialised to
+    the 2-D sin-cos table and cast to the tokens' dtype where it is added."""
+
+    def __init__(self, grid: Tuple[int, int], dim: int, device=None):
+        super().__init__()
+        self.grid, self.dim = tuple(grid), dim
+        self.pos_embed = nn.Parameter(torch.empty(1, grid[0] * grid[1], dim, device=device))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.pos_embed.copy_(torch.from_numpy(get_2d_sincos_pos_embed(self.dim, self.grid))[None])
+
+
+class ViTEncoder(_PosEmbed):
+    """g_a: patch embed + windowed ViT with dual mean/logvar final blocks.
+    Output: (B, 2*embed_dim, Hp, Wp) moments."""
+
+    def __init__(self, img_size, patch_size, patch_stride, in_chans: int, embed_dim: int,
+                 depth: int, num_heads: int, window_sizes, interval: int,
+                 mlp_ratio: float = 4.0, dtype=torch.float32, device=None):
+        grid = (img_size[0] // patch_stride[0], img_size[1] // patch_stride[1])
+        super().__init__(grid, embed_dim, device)
+        self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, patch_stride, dtype, device)
+        self.n_seq = depth // 2
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio,
+                  window_size=_win_for_block(min(i, self.n_seq - 1), True, interval, window_sizes),
+                  layer_id=i, dtype=dtype, device=device)
+            for i in range(self.n_seq + 1)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tokens, (Hp, Wp) = self.patch_embed(x)
+        h = tokens + self.pos_embed.to(tokens.dtype)
+        for blk in self.blocks[: self.n_seq - 1]:
+            h = blk(h, Hp, Wp)
+        mean = self.blocks[self.n_seq - 1](h, Hp, Wp)
+        logvar = self.blocks[self.n_seq](h, Hp, Wp)
+        out = torch.cat([mean, logvar], dim=2)
+        B, N, C = out.shape
+        return out.reshape(B, Hp, Wp, C).permute(0, 3, 1, 2)
+
+
+class ViTDecoder(nn.Module):
+    """g_s: ViT decoder ending in LayerNorm + the exact ConvTranspose."""
+
+    def __init__(self, img_size, patch_size, patch_stride, out_chans: int, embed_dim: int,
+                 depth: int, num_heads: int, window_sizes, interval: int,
+                 mlp_ratio: float = 4.0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio,
+                  window_size=_win_for_block(depth // 2 + j, True, interval, window_sizes),
+                  layer_id=j, dtype=dtype, device=device)
+            for j in range(depth - depth // 2)
+        )
+        self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
+        self.final = PatchUnembed(embed_dim, out_chans, patch_size, patch_stride, dtype, device)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        """feat: (B, C, Hp, Wp) -> (B, out_chans, H, W)."""
+        B, C, Hp, Wp = feat.shape
+        x = feat.contiguous().reshape(B, C, Hp * Wp).transpose(1, 2)
+        for blk in self.blocks:
+            x = blk(x, Hp, Wp)
+        return self.final(self.norm(x), (Hp, Wp))
+
+
+class HyperEncoder(_PosEmbed):
+    """h_a: global-attention ViT over the latent grid + quantization MLP."""
+
+    def __init__(self, img_size, patch_size, patch_stride, in_chans: int, z_dim: int,
+                 embed_dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype=torch.float32, device=None):
+        grid = (img_size[0] // patch_stride[0], img_size[1] // patch_stride[1])
+        super().__init__(grid, embed_dim, device)
+        self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, patch_stride, dtype, device)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, layer_id=i, dtype=dtype, device=device)
+            for i in range(depth // 2)
+        )
+        self.quan_mlp = Mlp(embed_dim, _mlp_hidden(embed_dim, z_dim), z_dim, dtype=dtype, device=device)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        tokens, (Hp, Wp) = self.patch_embed(y)
+        x = tokens + self.pos_embed.to(tokens.dtype)
+        for blk in self.blocks:
+            x = blk(x, Hp, Wp)
+        x = self.quan_mlp(x)
+        B, N, C = x.shape
+        return x.reshape(B, Hp, Wp, C).permute(0, 3, 1, 2)
+
+
+class HyperDecoder(nn.Module):
+    """h_s: ViT over the hyper-latent grid; a final linear expands to
+    2*out_chans per pixel (scales, means)."""
+
+    def __init__(self, patch_size, out_chans: int, z_dim: int, embed_dim: int, depth: int,
+                 num_heads: int, mlp_ratio: float = 4.0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.patch_size = tuple(patch_size)
+        self.post_quan_mlp = Mlp(z_dim, _mlp_hidden(embed_dim, z_dim), embed_dim,
+                                 dtype=dtype, device=device)
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, layer_id=j, dtype=dtype, device=device)
+            for j in range(depth - depth // 2)
+        )
+        self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
+        p1, p2 = self.patch_size
+        self.final = nn.Linear(embed_dim, 2 * out_chans * p1 * p2, bias=False,
+                               dtype=dtype, device=device)
+
+    def reset_parameters(self, generator=None) -> None:
+        init_linear_(self.final, generator)
+
+    def forward(self, z_hat: torch.Tensor) -> torch.Tensor:
+        """z_hat: (B, z_dim, Hz, Wz) -> (B, 2*out_chans, Hz*p1, Wz*p2)."""
+        B, C, Hp, Wp = z_hat.shape
+        # one memory layout whatever the caller's strides: the decoder
+        # re-derives the GC indexes from this tower, and a layout-dependent
+        # matmul kernel would break their bit-equality with the encoder's
+        x = z_hat.contiguous().reshape(B, C, Hp * Wp).transpose(1, 2).to(self.dtype)
+        x = self.post_quan_mlp(x)
+        for blk in self.blocks:
+            x = blk(x, Hp, Wp)
+        x = self.final(self.norm(x))
+        p1, p2 = self.patch_size
+        x = x.reshape(B, Hp, Wp, p1, p2, -1).permute(0, 5, 1, 3, 2, 4)
+        return x.reshape(B, -1, Hp * p1, Wp * p2)

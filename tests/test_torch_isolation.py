@@ -1,0 +1,99 @@
+"""The port stands alone: it imports without JAX, its entry points default
+to the card and never fall back to the CPU, and chip_smoke.py gives no
+result without a card. This file imports no JAX."""
+
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cra5_tpu_torch.coder.lane_coder import LaneCoder
+from cra5_tpu_torch.entropy import gc_update, get_scale_table
+from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268, vaeformer_tiny
+from cra5_tpu_torch.nn.blocks import _use_flash
+from cra5_tpu_torch.nn.vit import _win_for_block
+from cra5_tpu_torch.ops.attention import flash_attention_forward
+
+ROOT = Path(__file__).resolve().parents[1]
+NO_CARD = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "cra5_tpu"):
+            sys.modules[name] = None  # any import of these now raises
+        import cra5_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(cra5_tpu_torch.__path__, "cra5_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        import chip_smoke
+        print(len(mods))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=NO_CARD,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_gives_no_result_without_a_card(tmp_path, alone):
+    """Without a card (and, alone in a directory, without the package)
+    the script exits non-zero and prints no ok line."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    r = subprocess.run([sys.executable, str(script)], cwd=script.parent, env=NO_CARD,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = gc_update(get_scale_table())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VAEformer(vaeformer_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LaneCoder(table)
+    assert VAEformer(vaeformer_tiny(), device="cpu").device.type == "cpu"
+    assert LaneCoder(table, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_take_no_other_route():
+    """A tensor neither on the CPU nor on the card is refused, not
+    computed some other way."""
+    q = torch.empty((1, 1, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_forward(q, q, q)
+
+
+def test_flash_routing_selects_the_seven_global_blocks_of_268v():
+    """Every attention of the 268v roundtrip, as (tokens, batch*heads):
+    on the card exactly the 4 global blocks of g_a and the 3 of g_s take
+    the flash kernel; windows and the hyperprior stay plain."""
+    cfg = vaeformer_268()
+    Hp, Wp = cfg.latent_grid
+    n_seq, cuda, cpu = cfg.depth // 2, torch.device("cuda"), torch.device("cpu")
+    blocks = [min(i, n_seq - 1) for i in range(n_seq + 1)]  # g_a, dual final pair
+    blocks += [cfg.depth // 2 + j for j in range(cfg.depth - cfg.depth // 2)]  # g_s
+    flash = 0
+    for i in blocks:
+        win = _win_for_block(i, True, cfg.interval, cfg.window_sizes)
+        if win is None:
+            n, bh = Hp * Wp, cfg.num_heads
+        else:
+            nw = -(-Hp // win[0]) * -(-Wp // win[1])
+            n, bh = win[0] * win[1], nw * cfg.num_heads
+        flash += _use_flash(n, bh, cuda)
+        assert not _use_flash(n, bh, cpu)
+    hz = cfg.hyper_grid[0] * cfg.hyper_grid[1]
+    assert not _use_flash(hz, cfg.hyper_num_heads, cuda)
+    assert flash == 7
