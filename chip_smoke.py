@@ -18,7 +18,11 @@ result line is printed then:
   5. main path: the 268-variable VAEformer in bf16 at full width with
      seeded random weights compresses a (1, 268, 721, 1440) field to bytes
      and decompresses it; the launch counters are zeroed just before the
-     timed roundtrip and read just after.
+     timed roundtrip and read just after;
+  6. profile: where the main path's time goes, from the codec's own stage
+     ranges: one roundtrip with every stage ending in a synchronize (host
+     ms per stage), then one unsynchronised roundtrip under torch.profiler
+     (device ms by kernel name, and the device's busy share of the wall).
 
 The line before the last is a JSON object listing every kernel; the last
 is {"ok": true, "device": {...}}. It needs one card and no network.
@@ -30,6 +34,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -37,8 +42,13 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, published
-FLASH_OUT_ATOL = 2e-2  # bf16 output: a few bf16 ulps at |out| <= 2
-FLASH_LSE_ATOL = 2e-3  # f32 statistics; summation order differs
+# K4 against its plain version. out is an average of N rows of v, so its
+# size falls with N (about sqrt(e / N) for unit logits: ~0.016 typical and
+# ~0.09 at most at N = 10368); the bound scales with the reference,
+# max |out - ref| <= FLASH_OUT_RTOL * max |ref|, a few bf16 ulps of the
+# largest output. lse is f32 statistics whose summation order differs.
+FLASH_OUT_RTOL = 2e-2
+FLASH_LSE_ATOL = 2e-3
 
 
 def log(msg: str) -> None:
@@ -216,9 +226,11 @@ def phase_kernels(dev) -> dict:
         out, lse = flash_attention_forward(q, k, v, scale)
         ref, ref_lse = flash_attention_plain(q, k, v, scale)
         err = (out.float() - ref.float()).abs().max().item()
+        out_tol = FLASH_OUT_RTOL * ref.float().abs().max().item()
         lerr = (lse - ref_lse).abs().max().item()
-        if not (err <= FLASH_OUT_ATOL and lerr <= FLASH_LSE_ATOL and torch.isfinite(out).all()):
-            raise RuntimeError(f"K4 flash_attn_fwd at N={N}: out err {err}, lse err {lerr}")
+        if not (err <= out_tol and lerr <= FLASH_LSE_ATOL and torch.isfinite(out).all()):
+            raise RuntimeError(f"K4 flash_attn_fwd at N={N}: out err {err} (bound {out_tol}), "
+                               f"lse err {lerr}")
         ms = timed_ms(lambda: flash_attention_forward(q, k, v, scale), 10)
         plain = timed_ms(lambda: flash_attention_plain(q, k, v, scale), 2)
         lib = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -226,7 +238,8 @@ def phase_kernels(dev) -> dict:
         flops = 4 * B * H * N * N * 64
         bound = max(flops / BF16_FLOPS * 1e3, bytes_bound_ms(4 * B * H * N * 64 * 2 + B * H * N * 4))
         log(f"[K4 flash_attn_fwd] (B, H, N, D) = ({B}, {H}, {N}, 64): out err {err:.3g} "
-            f"(atol {FLASH_OUT_ATOL}), lse err {lerr:.3g} (atol {FLASH_LSE_ATOL}); "
+            f"(bound {out_tol:.3g} = {FLASH_OUT_RTOL} x max|ref|), lse err {lerr:.3g} "
+            f"(atol {FLASH_LSE_ATOL}); "
             f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.2f} ms, "
             f"sdpa {lib:.4f} ms, bound {bound:.4f} ms (operations)")
         del q, k, v, out, lse, ref, ref_lse
@@ -320,7 +333,51 @@ def phase_main_path(dev) -> dict:
         f"{t2 - t0:.4f} s; y {len(y_str)} B ({yh[2]} escapes of {yh[0]}), z {len(z_str)} B; "
         f"peak {peak / 2**30:.2f} GiB; symbols roundtrip exactly")
     log(f"[main] launches per roundtrip {launches}")
-    return res
+    return res, codec, x
+
+
+def phase_profile(codec, x) -> None:
+    """Stage split and device-time breakdown of the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    codec.stage_times = {}
+    out = codec.compress(x)
+    codec.decompress(out["strings"], out["z_shape"])
+    stages, codec.stage_times = codec.stage_times, None
+    for name, sec in stages.items():
+        log(f"[stage] {name:24s} {sec * 1e3:10.3f} ms")
+    log(f"[stage] sum {sum(stages.values()) * 1e3:.3f} ms (each stage ends in a synchronize)")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = codec.compress(x)
+        codec.decompress(out["strings"], out["z_shape"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    acts = [e for e in dev_events if not e.is_user_annotation]
+    busy, cur_s, cur_e = 0.0, None, None  # union of device intervals, us
+    for s, e in sorted((a.time_range.start, a.time_range.end) for a in acts):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + (0.0 if cur_e is None else cur_e - cur_s)) * 1e-6
+    by_name = defaultdict(lambda: [0.0, 0])
+    for a in acts:
+        by_name[a.name][0] += (a.time_range.end - a.time_range.start) * 1e-3
+        by_name[a.name][1] += 1
+    log(f"[profile] wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+        f"({len(acts)} device activities), busy share {busy / wall}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        log(f"[profile] {ms:10.3f} ms {n:5d}x  {name[:100]}")
+    for e in dev_events:  # the codec's stage ranges on the device timeline
+        if e.is_user_annotation:
+            log(f"[profile] stage {e.name:24s} device span "
+                f"{(e.time_range.end - e.time_range.start) * 1e-3:10.3f} ms")
 
 
 def main() -> int:
@@ -333,7 +390,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     phase_reference(dev)
-    main_res = phase_main_path(dev)
+    main_res, codec, x = phase_main_path(dev)
+    phase_profile(codec, x)
+    del codec, x
 
     sources = {
         "rans_encode": ("cra5_tpu_torch/csrc/rans_encode.cu",

@@ -52,6 +52,15 @@ def _same_device(*ts: torch.Tensor) -> torch.device:
     return dev
 
 
+def _check_rows(rows: torch.Tensor, ncdfs: int, name: str) -> None:
+    """Raise unless every cdf row index lies in [0, ncdfs): the kernels
+    read rows unchecked, and the plain versions would wrap a negative one."""
+    lo, hi = torch.aminmax(rows)
+    if int(lo) < 0 or int(hi) >= ncdfs:
+        raise IndexError(f"{name}: cdf row indexes span [{int(lo)}, {int(hi)}], "
+                         f"the table has {ncdfs} rows")
+
+
 def _lanes_per_thread(K: int) -> int:
     lpt = 1
     while K > 1024 * lpt:
@@ -164,12 +173,13 @@ def rans_decode_rowplan(cdf, idx, states, words, max_values, offsets):
     if M == 0 or K != states.numel():
         raise ValueError("idx must be (M >= 1, K) with K = len(states)")
     dev = _same_device(cdf, idx, states, words, max_values, offsets)
+    _check_rows(idx, cdf.shape[0], "idx")
     if dev.type == "cpu":
         return lane_decode_plain(cdf, idx, states, words, max_values, offsets)
     values = torch.empty((M, K), dtype=torch.int32, device=dev)
     sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
     status = kernels.lib().cra5_rans_decode_rowplan(
-        cdf.data_ptr(), cdf.shape[1], cdf.shape[0], idx.data_ptr(),
+        cdf.data_ptr(), cdf.shape[1], idx.data_ptr(),
         max_values.data_ptr(), offsets.data_ptr(), states.data_ptr(),
         words.data_ptr(), words.numel(), M, K, _lanes_per_thread(K),
         values.data_ptr(), sentinel.data_ptr(), _stream_args(dev),
@@ -230,6 +240,7 @@ def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets):
     if M == 0 or r1.numel() != M or split.numel() != M or K == 0:
         raise ValueError("r0, r1 and split must share a length M >= 1")
     dev = _same_device(cdf, r0, r1, split, states, words, max_values, offsets)
+    _check_rows(torch.cat([r0, r1]), cdf.shape[0], "r0/r1")
     if dev.type == "cpu":
         return rans_decode_sorted_plain(cdf, r0, r1, split, states, words, max_values, offsets)
     L = cdf.shape[1]
@@ -238,7 +249,7 @@ def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets):
     values = torch.empty((M, K), dtype=torch.int32, device=dev)
     sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
     status = kernels.lib().cra5_rans_decode_sorted(
-        cdf.data_ptr(), L, cdf.shape[0], r0.data_ptr(), r1.data_ptr(),
+        cdf.data_ptr(), L, r0.data_ptr(), r1.data_ptr(),
         split.data_ptr(), max_values.data_ptr(), offsets.data_ptr(),
         states.data_ptr(), words.data_ptr(), words.numel(), M, K,
         _lanes_per_thread(K), values.data_ptr(), sentinel.data_ptr(),

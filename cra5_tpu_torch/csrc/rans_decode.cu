@@ -21,7 +21,7 @@ namespace {
 // channel-broadcast z stream). The table is small and stays in L1.
 template <int LPT>
 __global__ void __launch_bounds__(1024) rans_decode_rowplan_kernel(
-    const int* __restrict__ cdf, int L, int ncdfs, const int* __restrict__ idx,
+    const int* __restrict__ cdf, int L, const int* __restrict__ idx,
     const int* __restrict__ mv_tab, const int* __restrict__ off_tab,
     const uint32_t* __restrict__ states, const uint16_t* __restrict__ words,
     long long W, int M, int K, int* __restrict__ values,
@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(1024) rans_decode_rowplan_kernel(
       const int lane = base + j;
       if (lane < K) {
         const size_t o = (size_t)t * K + lane;
-        const int r = min(max(__ldg(idx + o), 0), ncdfs - 1);
+        const int r = __ldg(idx + o);
         const int* row = cdf + (size_t)r * L;
         const uint32_t cum = x[j] & 0xffffu;
         const int s = cra5::cdf_search(row, L, cum);
@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(1024) rans_decode_rowplan_kernel(
 // whenever they change (sorted streams change rows a few dozen times).
 template <int LPT>
 __global__ void __launch_bounds__(1024) rans_decode_sorted_kernel(
-    const int* __restrict__ cdf, int L, int ncdfs, const int* __restrict__ r0s,
+    const int* __restrict__ cdf, int L, const int* __restrict__ r0s,
     const int* __restrict__ r1s, const int* __restrict__ splits,
     const int* __restrict__ mv_tab, const int* __restrict__ off_tab,
     const uint32_t* __restrict__ states, const uint16_t* __restrict__ words,
@@ -89,8 +89,8 @@ __global__ void __launch_bounds__(1024) rans_decode_sorted_kernel(
   long long ptr = 0;
   int cur0 = -1, cur1 = -1;
   for (int t = 0; t < M; ++t) {
-    const int r0 = min(max(__ldg(r0s + t), 0), ncdfs - 1);
-    const int r1 = min(max(__ldg(r1s + t), 0), ncdfs - 1);
+    const int r0 = __ldg(r0s + t);
+    const int r1 = __ldg(r1s + t);
     const int split = __ldg(splits + t);
     if (r0 != cur0 || r1 != cur1) {  // uniform across the block
       __syncthreads();
@@ -148,7 +148,8 @@ int threads_for(int K, int lpt) {
 }  // namespace
 
 // lpt: lanes per thread, one of 1, 2, 4, 8, 16, with K <= 1024 * lpt.
-extern "C" int cra5_rans_decode_rowplan(const void* cdf, int L, int ncdfs,
+// Every cdf row index must lie in the table: the wrappers check it.
+extern "C" int cra5_rans_decode_rowplan(const void* cdf, int L,
                                         const void* idx, const void* mv_tab,
                                         const void* off_tab, const void* states,
                                         const void* words, long long W, int M,
@@ -158,7 +159,7 @@ extern "C" int cra5_rans_decode_rowplan(const void* cdf, int L, int ncdfs,
   cudaStream_t s = (cudaStream_t)stream;
 #define CRA5_ROWPLAN(N)                                                        \
   rans_decode_rowplan_kernel<N><<<1, block, 0, s>>>(                           \
-      (const int*)cdf, L, ncdfs, (const int*)idx, (const int*)mv_tab,          \
+      (const int*)cdf, L, (const int*)idx, (const int*)mv_tab,                 \
       (const int*)off_tab, (const uint32_t*)states, (const uint16_t*)words, W, \
       M, K, (int*)values, (uint8_t*)sentinel)
   switch (lpt) {
@@ -173,7 +174,7 @@ extern "C" int cra5_rans_decode_rowplan(const void* cdf, int L, int ncdfs,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cra5_rans_decode_sorted(const void* cdf, int L, int ncdfs,
+extern "C" int cra5_rans_decode_sorted(const void* cdf, int L,
                                        const void* r0s, const void* r1s,
                                        const void* splits, const void* mv_tab,
                                        const void* off_tab, const void* states,
@@ -192,7 +193,7 @@ extern "C" int cra5_rans_decode_sorted(const void* cdf, int L, int ncdfs,
       if (e != cudaSuccess) return (int)e;                                      \
     }                                                                           \
     rans_decode_sorted_kernel<N><<<1, block, smem, s>>>(                        \
-        (const int*)cdf, L, ncdfs, (const int*)r0s, (const int*)r1s,            \
+        (const int*)cdf, L, (const int*)r0s, (const int*)r1s,                   \
         (const int*)splits, (const int*)mv_tab, (const int*)off_tab,            \
         (const uint32_t*)states, (const uint16_t*)words, W, M, K, (int*)values, \
         (uint8_t*)sentinel);                                                    \

@@ -34,8 +34,8 @@ NVCC_FLAGS = [
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "cra5_rans_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
-    "cra5_rans_decode_rowplan": [_P, _I, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
-    "cra5_rans_decode_sorted": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "cra5_rans_decode_rowplan": [_P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "cra5_rans_decode_sorted": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     "cra5_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 

@@ -16,7 +16,9 @@ are built from float32 scales.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -188,7 +190,13 @@ class VAEformer(nn.Module):
 class VAEformerCodec:
     """compress / decompress around a VAEformer: owns the CDF tables and
     the v2 lane coders, on the model's device. Strings come back in the
-    [[y_string, ...], [z_string, ...]] nesting."""
+    [[y_string, ...], [z_string, ...]] nesting.
+
+    Every stage of compress and decompress is a ``torch.profiler`` range
+    named ``compress/<stage>`` or ``decompress/<stage>``. When
+    ``stage_times`` is a dict, each stage also ends in a device synchronize
+    and records its host seconds there under that name (stages then no
+    longer overlap, so their sum exceeds an unsynchronised roundtrip)."""
 
     def __init__(self, model: VAEformer, scale_table: Optional[np.ndarray] = None):
         self.model = model
@@ -199,6 +207,17 @@ class VAEformerCodec:
         self._scale_table_dev = torch.as_tensor(self.scale_table, device=self.device)
         self._eb_table: Optional[CdfTable] = None
         self._gc_table: Optional[CdfTable] = None
+        self.stage_times: Optional[Dict[str, float]] = None
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        with torch.profiler.record_function(name):
+            t0 = time.perf_counter()
+            yield
+            if self.stage_times is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.stage_times[name] = time.perf_counter() - t0
 
     def update(self, force: bool = False) -> bool:
         """(Re)build the CDF tables from the EB params and the scale table."""
@@ -225,13 +244,21 @@ class VAEformerCodec:
     def compress(self, x) -> Dict[str, Any]:
         if self._eb_table is None:
             self.update()
-        x = torch.as_tensor(x, device=self.device)
-        out = self.model.encode_symbols(x)
+        with self._stage("compress/h2d_input"):
+            x = torch.as_tensor(x, device=self.device)
+        with self._stage("compress/g_a"):  # g_a + quant_conv
+            y = self.model.encode_latent(x)
+        with self._stage("compress/hyper"):  # h_a, z symbols, h_s, y symbols
+            out = self.model.symbols_from_latent(y)
         z_sym = out["z_sym"]
-        z_idx = self._z_indexes(z_sym.shape).to(self.device)
-        handles = self._eb_coder.encode_dispatch_batch(z_sym, z_idx)
-        handles += self._gc_coder.encode_dispatch_batch(out["y_sym"], self._gc_indexes(out["scales"]))
-        streams = LaneCoder.encode_finalize_many(handles)
+        with self._stage("compress/encode_z"):
+            z_idx = self._z_indexes(z_sym.shape).to(self.device)
+            handles = self._eb_coder.encode_dispatch_batch(z_sym, z_idx)
+        with self._stage("compress/encode_y"):  # GC indexes, sort, merge, K1
+            gc_idx = self._gc_indexes(out["scales"])
+            handles += self._gc_coder.encode_dispatch_batch(out["y_sym"], gc_idx)
+        with self._stage("compress/finalize"):  # to the host, containers, varints
+            streams = LaneCoder.encode_finalize_many(handles)
         B = z_sym.shape[0]
         zs = tuple(int(s) for s in z_sym.shape[-2:])
         return {"strings": [streams[B:], streams[:B]], "z_shape": zs, "shape": zs}
@@ -244,12 +271,18 @@ class VAEformerCodec:
         B = len(z_strings)
         cfg = self.model.cfg
         g = cfg.latent_grid
-        y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
+        with self._stage("decompress/upload_y"):  # varints, to the card
+            y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
         full_z = (B, cfg.z_channels, int(z_shape[0]), int(z_shape[1]))
-        z_sym = self._eb_coder.decode_batch_to_device(
-            list(z_strings), self._z_indexes(full_z).to(self.device),
-            row_plan=full_z[2] * full_z[3],
-        )
-        scales, means = self.model.scales_from_z_symbols(z_sym)
-        y_sym = self._gc_coder.decode_uploaded_batch(y_up, self._gc_indexes(scales))
-        return {"x_hat": self.model.reconstruct_from_y_symbols(y_sym, means)}
+        with self._stage("decompress/decode_z"):  # row-plan check, K2
+            z_sym = self._eb_coder.decode_batch_to_device(
+                list(z_strings), self._z_indexes(full_z).to(self.device),
+                row_plan=full_z[2] * full_z[3],
+            )
+        with self._stage("decompress/h_s"):
+            scales, means = self.model.scales_from_z_symbols(z_sym)
+        with self._stage("decompress/decode_y"):  # GC indexes, sort, merge, K3
+            y_sym = self._gc_coder.decode_uploaded_batch(y_up, self._gc_indexes(scales))
+        with self._stage("decompress/g_s"):  # post_quant_conv + g_s
+            x_hat = self.model.reconstruct_from_y_symbols(y_sym, means)
+        return {"x_hat": x_hat}

@@ -34,9 +34,12 @@ pytestmark = pytest.mark.cuda
 
 # K4: the kernel accumulates P V over 64-key tiles with a running maximum,
 # the plain version over the whole row, and both round P to bf16 before
-# the product: out (bf16, |out| <= ~3) within a few bf16 ulps, lse (f32)
-# within the f32 summation-order noise of the row sums
-FLASH_OUT_ATOL = 2e-2
+# the product. The size of out depends on the shape (an average of N rows
+# of v: about sqrt(e / N) for unit logits), so its bound scales with the
+# reference: max |out - ref| <= 2e-2 * max |ref|, a few bf16 ulps of the
+# largest output. lse (f32) within the f32 summation-order noise of
+# the row sums.
+FLASH_OUT_RTOL = 2e-2
 FLASH_LSE_ATOL = 2e-3
 
 
@@ -144,6 +147,28 @@ def test_rans_decode_sorted_equals_plain(card, rng, gc_table, K, steps, rows):
     np.testing.assert_array_equal(coder.decode(data, idx), sym)
 
 
+@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])
+def test_decode_rejects_cdf_rows_outside_the_table(card, eb_table, kernel):
+    """The wrapper raises on a row index past the table, and launches
+    nothing: the kernels read rows unchecked."""
+    coder = LaneCoder(eb_table, num_lanes=64, device=card)
+    states = torch.full((64,), 1 << 16, dtype=torch.int32, device=card)
+    words = torch.zeros(8, dtype=torch.int16, device=card)
+    tabs = (coder._max_values, coder._offsets)
+    fn = rk.rans_decode_rowplan if kernel == "rowplan" else rk.rans_decode_sorted
+    before = fn.launches
+    with pytest.raises(IndexError, match="16 rows"):
+        if kernel == "rowplan":
+            idx = torch.zeros((3, 64), dtype=torch.int32, device=card)
+            idx[2, 63] = 16
+            fn(coder._cdf, idx, states, words, *tabs)
+        else:
+            r = torch.tensor([0, 16], dtype=torch.int32, device=card)
+            split = torch.tensor([10, 0], dtype=torch.int32, device=card)
+            fn(coder._cdf, r, r.clone(), split, states, words, *tabs)
+    assert fn.launches == before
+
+
 @pytest.mark.parametrize("B,H,N", [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
 def test_flash_attn_fwd_close_to_plain(card, rng, B, H, N):
     q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32) * 1.5)
@@ -153,7 +178,8 @@ def test_flash_attn_fwd_close_to_plain(card, rng, B, H, N):
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-    assert (out.float() - ref.float()).abs().max().item() <= FLASH_OUT_ATOL
+    bound = FLASH_OUT_RTOL * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= bound
     assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_ATOL
 
 

@@ -139,6 +139,23 @@ def test_bf16_codec_roundtrip_is_exact(setup):
     assert x_hat.dtype == torch.bfloat16 and torch.equal(x_hat, want)
 
 
+def test_codec_stage_times_leave_the_bytes_and_output_unchanged(setup):
+    """With ``stage_times`` set, every stage of compress and decompress
+    records its seconds, and the streams and x_hat equal an untimed run's."""
+    x, _, codec = _pair(setup, "float32")
+    out = codec.compress(x)
+    x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    codec.stage_times = {}
+    timed = codec.compress(x)
+    timed_x_hat = codec.decompress(timed["strings"], timed["z_shape"])["x_hat"]
+    assert timed["strings"] == out["strings"] and torch.equal(timed_x_hat, x_hat)
+    assert list(codec.stage_times) == [
+        "compress/h2d_input", "compress/g_a", "compress/hyper", "compress/encode_z",
+        "compress/encode_y", "compress/finalize", "decompress/upload_y", "decompress/decode_z",
+        "decompress/h_s", "decompress/decode_y", "decompress/g_s"]
+    assert all(t >= 0 for t in codec.stage_times.values())
+
+
 def test_seeded_init_is_deterministic_and_mirrors_flax():
     a = VAEformer(vaeformer_tiny(), device="cpu").reset_parameters(5)
     b = VAEformer(vaeformer_tiny(), device="cpu").reset_parameters(5)

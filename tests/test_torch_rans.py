@@ -253,3 +253,24 @@ def test_empty_stream_matches_jax(eb_table):
     data = LaneCoder(eb_table, device="cpu").encode(empty, empty)
     assert data == rt.LaneCoder(_jax_table(eb_table)).encode(empty, empty)
     assert LaneCoder(eb_table, device="cpu").decode(data, empty).shape == (0,)
+
+
+@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])
+@pytest.mark.parametrize("bad", [-1, 16])
+def test_decode_rejects_cdf_rows_outside_the_table(eb_table, kernel, bad):
+    """A row index outside [0, ncdfs) raises in the wrapper, on every
+    device, before any decode: the kernels read rows unchecked."""
+    coder = LaneCoder(eb_table, num_lanes=8, device="cpu")
+    states = torch.full((8,), 1 << 16, dtype=torch.int32)
+    words = torch.zeros(4, dtype=torch.int16)
+    tabs = (coder._max_values, coder._offsets)
+    with pytest.raises(IndexError, match="16 rows"):
+        if kernel == "rowplan":
+            idx = torch.zeros((3, 8), dtype=torch.int32)
+            idx[1, 5] = bad
+            rk.rans_decode_rowplan(coder._cdf, idx, states, words, *tabs)
+        else:
+            r0 = torch.tensor([0, 2, 3], dtype=torch.int32)
+            r1 = torch.tensor([1, bad, 3], dtype=torch.int32)
+            split = torch.tensor([4, 8, 0], dtype=torch.int32)
+            rk.rans_decode_sorted(coder._cdf, r0, r1, split, states, words, *tabs)
