@@ -16,12 +16,11 @@ indexes, lane count and flags it writes the same bytes as the JAX
     writes on its accelerator, on the CPU and on the card alike.
 
 Routing follows the format, not a chip: a sorted stream with bit 30 goes
-to K3 (``rans_decode_sorted``); an unsorted stream whose caller promises a
-channel-broadcast index grid with K <= symbols per channel goes to K2
-(``rans_decode_rowplan``); encode always goes to K1 (``rans_encode``). On
-the CPU those wrappers run their plain versions, and any other stream
-decodes with the plain per-lane decode. On the card any other stream
-raises: its kernel, the TPU's ``decode_scan_pallas``, is not ported yet.
+to K3 (``rans_decode_sorted``); every other stream, the channel-broadcast
+z stream included, goes to the lane decode K2 (``rans_decode_generic``,
+the counterpart of the TPU's ``decode_scan_pallas`` and
+``decode_rowplan_pallas``); encode always goes to K1 (``rans_encode``). On
+the CPU those wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -35,8 +34,7 @@ import torch
 from ..device import resolve_device
 from ..entropy.cdf import CdfTable
 from .rans_kernels import (
-    lane_decode_plain,
-    rans_decode_rowplan,
+    rans_decode_generic,
     rans_decode_sorted,
     rans_encode,
 )
@@ -212,7 +210,6 @@ class LaneCoder:
         self._cdf = as_t(padded_search_table(table))
         self._max_values = as_t(table.cdf_length - 2)
         self._offsets = as_t(table.offset)
-        self._rowplan_checked: set = set()
 
     @property
     def num_indexes(self) -> int:
@@ -330,34 +327,30 @@ class LaneCoder:
         dev = lambda a: torch.from_numpy(a.copy()).to(self.device)
         return hdr, dev(states), dev(stream), dev(escs)
 
-    def decode_uploaded_batch(self, handle, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
+    def decode_uploaded_batch(self, handle, indexes: torch.Tensor) -> torch.Tensor:
         """Decode the streams of ``upload_batch`` against (B, ...) indexes."""
-        return torch.stack([
-            self._decode(up, indexes[b], row_plan)[0] for b, up in enumerate(handle)
-        ])
+        return torch.stack([self._decode(up, indexes[b])[0] for b, up in enumerate(handle)])
 
-    def decode_batch_to_device(self, datas, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
-        """Decode B streams against (B, ...) indexes. ``row_plan=<symbols
-        per channel>`` promises a channel-broadcast index grid (the z
-        stream), which routes to K2 when K <= that count."""
+    def decode_batch_to_device(self, datas, indexes: torch.Tensor) -> torch.Tensor:
+        """Decode B streams against (B, ...) indexes."""
         n = int(np.prod(indexes.shape[1:]))
-        return self.decode_uploaded_batch(self.upload_batch(datas, n), indexes, row_plan)
+        return self.decode_uploaded_batch(self.upload_batch(datas, n), indexes)
 
-    def decode_to_device(self, data: bytes, indexes: torch.Tensor, row_plan=False) -> torch.Tensor:
-        return self._decode(self._upload(data, parse_v2_header(data)), indexes, row_plan)[0]
+    def decode_to_device(self, data: bytes, indexes: torch.Tensor) -> torch.Tensor:
+        return self._decode(self._upload(data, parse_v2_header(data)), indexes)[0]
 
-    def decode(self, data: bytes, indexes: np.ndarray, row_plan=False) -> np.ndarray:
+    def decode(self, data: bytes, indexes: np.ndarray) -> np.ndarray:
         """numpy-facing decode; also checks the escape count."""
         idx = torch.as_tensor(np.ascontiguousarray(indexes, np.int32), device=self.device)
         up = self._upload(data, parse_v2_header(data))
-        out, n_sent = self._decode(up, idx, row_plan)
+        out, n_sent = self._decode(up, idx)
         if int(n_sent) != up[0][2]:
             raise ValueError(
                 f"escape count mismatch: decoded {int(n_sent)} sentinels, stream has {up[0][2]}"
             )
         return out.cpu().numpy()
 
-    def _decode(self, up, indexes: torch.Tensor, row_plan):
+    def _decode(self, up, indexes: torch.Tensor):
         (n, K, n_esc, _, sorted_mode, kernel_safe, merged), states, stream, escs = up
         indexes = indexes.to(self.device)
         if n != indexes.numel():
@@ -379,40 +372,12 @@ class LaneCoder:
         tabs = (self._max_values, self._offsets)
         if sorted_mode and kernel_safe:
             values, sentinel = rans_decode_sorted(self._cdf, *sorted_rows(idx2), states, stream, *tabs)
-        elif not sorted_mode and row_plan and K <= int(row_plan):
-            self._validate_rowplan(indexes, K)
-            values, sentinel = rans_decode_rowplan(self._cdf, idx2, states, stream, *tabs)
-        elif self.device.type == "cpu":
-            values, sentinel = lane_decode_plain(self._cdf, idx2, states, stream, *tabs)
         else:
-            raise NotImplementedError(
-                "this v2 stream needs the generic lane decode, the TPU's "
-                "decode_scan_pallas (queue B6), which is not ported to CUDA yet; "
-                "decode it with device='cpu'"
-            )
+            values, sentinel = rans_decode_generic(self._cdf, idx2, states, stream, *tabs)
         values, n_sent = _apply_escapes(values, sentinel, escs, n)
         if perm is not None:
             values = torch.empty_like(values).index_copy_(0, perm, values)
         return values.reshape(indexes.shape), n_sent
-
-    def _validate_rowplan(self, indexes: torch.Tensor, K: int) -> None:
-        """Check the caller's row-plan promise once per index shape: every
-        K-lane step draws from at most two cdf rows, its first and its max
-        (one copy of the index grid to the host)."""
-        key = (tuple(indexes.shape), K)
-        if key in self._rowplan_checked:
-            return
-        idx = indexes.reshape(-1).cpu().numpy().astype(np.int64)
-        M = -(-idx.size // K)
-        g = np.concatenate([idx, np.full(M * K - idx.size, -1)]).reshape(M, K)
-        c0, c1 = g[:, 0], g.max(axis=1)
-        if not ((g < 0) | (g == c0[:, None]) | (g == c1[:, None])).all():
-            raise ValueError(
-                "row_plan promise violated: a K-lane decode step contains a cdf "
-                "index outside {step-first, step-max}. Pass row_plan=False for "
-                "index grids that are not channel-broadcast."
-            )
-        self._rowplan_checked.add(key)
 
 
 def _unwrap_bytes(s):

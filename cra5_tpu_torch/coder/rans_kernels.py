@@ -159,12 +159,13 @@ def _refill(x, w_all, W, ptr):
 
 
 @kernels.counted
-def rans_decode_rowplan(cdf, idx, states, words, max_values, offsets):
-    """Decode a stream whose lanes read their cdf rows from an (M, K)
-    index grid (the channel-broadcast z stream). ``cdf`` (ncdfs, L) int32
-    padded search table, ``idx`` (M, K) int32, ``states`` (K,) int32 [u32],
-    ``words`` (W,) int16 [u16], ``max_values``/``offsets`` (ncdfs,) int32.
-    Returns (values (M, K) int32, sentinel (M, K) bool)."""
+def rans_decode_generic(cdf, idx, states, words, max_values, offsets):
+    """The lane decode K2 (counterpart of ``decode_scan_pallas`` and of
+    ``decode_rowplan_pallas``): any (M, K) index grid, each lane searching
+    its own cdf row. ``cdf`` (ncdfs, L) int32 padded search table, ``idx``
+    (M, K) int32, ``states`` (K,) int32 [u32], ``words`` (W,) int16 [u16],
+    ``max_values``/``offsets`` (ncdfs,) int32. Returns (values (M, K)
+    int32, sentinel (M, K) bool)."""
     for t, name, nd in ((cdf, "cdf", 2), (idx, "idx", 2), (states, "states", 1),
                         (max_values, "max_values", 1), (offsets, "offsets", 1)):
         _require(t, name, torch.int32, nd)
@@ -178,14 +179,14 @@ def rans_decode_rowplan(cdf, idx, states, words, max_values, offsets):
         return lane_decode_plain(cdf, idx, states, words, max_values, offsets)
     values = torch.empty((M, K), dtype=torch.int32, device=dev)
     sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
-    status = kernels.lib().cra5_rans_decode_rowplan(
+    status = kernels.lib().cra5_rans_decode_lanes(
         cdf.data_ptr(), cdf.shape[1], idx.data_ptr(),
         max_values.data_ptr(), offsets.data_ptr(), states.data_ptr(),
         words.data_ptr(), words.numel(), M, K, _lanes_per_thread(K),
         values.data_ptr(), sentinel.data_ptr(), _stream_args(dev),
     )
-    kernels.check(status, "rans_decode_rowplan")
-    rans_decode_rowplan.launches += 1
+    kernels.check(status, "rans_decode_generic")
+    rans_decode_generic.launches += 1
     return values, sentinel
 
 

@@ -1,12 +1,16 @@
-// K2 rans_decode_rowplan and K3 rans_decode_sorted: interleaved-lane rANS
+// K2 rans_decode_lanes and K3 rans_decode_sorted: interleaved-lane rANS
 // decode of one stream by one thread block.
 //
-// Both replace gather-free TPU kernels from cra5_tpu/coder/rans_pallas.py
-// (decode_rowplan_pallas and decode_sorted_pallas). Those build every
-// lookup from one-hot matmuls and coarse/chunk tables because Mosaic has no
-// vector gather; Hopper has gathers, so each lane binary-searches its cdf
-// row directly. The steps are a serial chain: step t+1 needs the word
-// pointer after step t, which is the block-wide sum of the refill flags.
+// K2 (wrapper rans_decode_generic) replaces two gather-free TPU kernels
+// from cra5_tpu/coder/rans_pallas.py: decode_rowplan_pallas (the
+// channel-broadcast z stream) and the generic decode_scan_pallas (:705; any
+// index grid). K3 replaces decode_sorted_pallas.
+// The TPU kernels build every lookup from one-hot matmuls and coarse/chunk
+// tables because Mosaic has no vector gather; Hopper has gathers, so each
+// lane binary-searches its cdf row directly, and the one K2 body covers
+// both the row-plan and the generic case. The steps are a serial chain:
+// step t+1 needs the word pointer after step t, which is the block-wide
+// sum of the refill flags.
 // So one block decodes the whole stream; thread i owns the LPT consecutive
 // lanes [i*LPT, (i+1)*LPT), and an exclusive scan over threads gives every
 // refilling lane its rank in (step, lane) order. The bound is the latency
@@ -17,10 +21,10 @@
 
 namespace {
 
-// K2: each lane reads its cdf row from the (M, K) index grid (the
-// channel-broadcast z stream). The table is small and stays in L1.
+// K2: each lane reads its cdf row from the (M, K) index grid. The table is
+// small and stays in L1.
 template <int LPT>
-__global__ void __launch_bounds__(1024) rans_decode_rowplan_kernel(
+__global__ void __launch_bounds__(1024) rans_decode_lanes_kernel(
     const int* __restrict__ cdf, int L, const int* __restrict__ idx,
     const int* __restrict__ mv_tab, const int* __restrict__ off_tab,
     const uint32_t* __restrict__ states, const uint16_t* __restrict__ words,
@@ -149,28 +153,28 @@ int threads_for(int K, int lpt) {
 
 // lpt: lanes per thread, one of 1, 2, 4, 8, 16, with K <= 1024 * lpt.
 // Every cdf row index must lie in the table: the wrappers check it.
-extern "C" int cra5_rans_decode_rowplan(const void* cdf, int L,
-                                        const void* idx, const void* mv_tab,
-                                        const void* off_tab, const void* states,
-                                        const void* words, long long W, int M,
-                                        int K, int lpt, void* values,
-                                        void* sentinel, void* stream) {
+extern "C" int cra5_rans_decode_lanes(const void* cdf, int L,
+                                      const void* idx, const void* mv_tab,
+                                      const void* off_tab, const void* states,
+                                      const void* words, long long W, int M,
+                                      int K, int lpt, void* values,
+                                      void* sentinel, void* stream) {
   const dim3 block(threads_for(K, lpt));
   cudaStream_t s = (cudaStream_t)stream;
-#define CRA5_ROWPLAN(N)                                                        \
-  rans_decode_rowplan_kernel<N><<<1, block, 0, s>>>(                           \
+#define CRA5_LANES(N)                                                        \
+  rans_decode_lanes_kernel<N><<<1, block, 0, s>>>(                           \
       (const int*)cdf, L, (const int*)idx, (const int*)mv_tab,                 \
       (const int*)off_tab, (const uint32_t*)states, (const uint16_t*)words, W, \
       M, K, (int*)values, (uint8_t*)sentinel)
   switch (lpt) {
-    case 1: CRA5_ROWPLAN(1); break;
-    case 2: CRA5_ROWPLAN(2); break;
-    case 4: CRA5_ROWPLAN(4); break;
-    case 8: CRA5_ROWPLAN(8); break;
-    case 16: CRA5_ROWPLAN(16); break;
+    case 1: CRA5_LANES(1); break;
+    case 2: CRA5_LANES(2); break;
+    case 4: CRA5_LANES(4); break;
+    case 8: CRA5_LANES(8); break;
+    case 16: CRA5_LANES(16); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef CRA5_ROWPLAN
+#undef CRA5_LANES
   return (int)cudaGetLastError();
 }
 

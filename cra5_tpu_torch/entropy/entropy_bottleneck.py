@@ -1,10 +1,14 @@
-"""Factorized-prior ("entropy bottleneck") parameters and integer tables.
+"""Factorized-prior ("entropy bottleneck") model and integer tables.
 
 Counterpart of ``cra5_tpu/entropy/entropy_bottleneck.py``: the per-channel
-monotone MLP parameters with their init, the medians used to centre the z
-symbols, and ``eb_update``, which builds the CDF tables on the host in
-float64. The parameters stay float32 under a bfloat16 model, as in the JAX
-package. ``likelihood`` and ``loss`` wait for the training slice.
+monotone MLP with its init, the medians used to centre the z symbols, the
+training forward (noise-quantized outputs and their likelihoods), the
+quantile-fitting ``loss``, and ``eb_update``, which builds the CDF tables
+on the host in float64. The parameters stay float32 under a bfloat16
+model, as in the JAX package, and the promotions match: the first MLP
+layer's product is rounded to the inputs' dtype (``preferred_element_type
+= logits.dtype`` there), and everything after the first bias add is
+float32.
 """
 
 from __future__ import annotations
@@ -17,6 +21,22 @@ from scipy.special import expit as sigmoid
 from torch import nn
 
 from .cdf import CdfTable, build_cdf_table
+from .ops import lower_bound, quantize
+
+
+def _logits_cumulative(params: dict, inputs: torch.Tensor, nfilters: int) -> torch.Tensor:
+    """The monotone per-channel MLP. inputs: (C, 1, N) -> (C, 1, N). Each
+    layer's product runs in the promoted dtype and is rounded to the
+    dtype of its input."""
+    logits = inputs
+    for i in range(nfilters + 1):
+        matrix = nn.functional.softplus(params[f"matrix{i}"])  # (C, f_out, f_in)
+        acc = torch.promote_types(matrix.dtype, logits.dtype)
+        prod = torch.matmul(matrix.to(acc), logits.to(acc)).to(logits.dtype)
+        logits = prod + params[f"bias{i}"]
+        if i < nfilters:
+            logits = logits + torch.tanh(params[f"factor{i}"]) * torch.tanh(logits)
+    return logits
 
 
 class EntropyBottleneck(nn.Module):
@@ -25,12 +45,16 @@ class EntropyBottleneck(nn.Module):
         channels: int,
         filters: Tuple[int, ...] = (3, 3, 3, 3),
         init_scale: float = 10.0,
+        tail_mass: float = 1e-9,
+        likelihood_bound: float = 1e-9,
         device=None,
     ):
         super().__init__()
         self.channels = channels
         self.filters = tuple(filters)
         self.init_scale = init_scale
+        self.tail_mass = tail_mass
+        self.likelihood_bound = likelihood_bound
         dims = (1,) + self.filters + (1,)
         for i in range(len(self.filters) + 1):
             shape = (channels, dims[i + 1], dims[i])
@@ -66,6 +90,42 @@ class EntropyBottleneck(nn.Module):
 
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, 0, 1]
+
+    def _params_dict(self) -> dict:
+        return {k: v for k, v in self.named_parameters() if k != "quantiles"}
+
+    def likelihood(self, values: torch.Tensor) -> torch.Tensor:
+        """values: (C, 1, N); P(the unit bin around each value)."""
+        p, K = self._params_dict(), len(self.filters)
+        lower = _logits_cumulative(p, values - 0.5, K)
+        upper = _logits_cumulative(p, values + 0.5, K)
+        return torch.sigmoid(upper) - torch.sigmoid(lower)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, C, *spatial) -> (outputs, likelihood), both shaped like x:
+        additive uniform noise when training, else rounding around the
+        medians."""
+        perm = (1, 0) + tuple(range(2, x.dim()))
+        xt = x.permute(perm)  # (C, B, ...)
+        shape = xt.shape
+        values = xt.reshape(shape[0], 1, -1)
+        medians = self.medians().reshape(-1, 1, 1)
+        mode = "noise" if training else "dequantize"
+        outputs = quantize(values, mode, means=medians, generator=generator)
+        likelihood = self.likelihood(outputs)
+        if self.likelihood_bound > 0:
+            likelihood = lower_bound(likelihood, self.likelihood_bound)
+        return outputs.reshape(shape).permute(perm), likelihood.reshape(shape).permute(perm)
+
+    def loss(self) -> torch.Tensor:
+        """The quantile-fitting auxiliary loss; only the quantiles carry
+        gradient."""
+        p = {k: v.detach() for k, v in self._params_dict().items()}
+        logits = _logits_cumulative(p, self.quantiles, len(self.filters))
+        t = float(np.log(2.0 / self.tail_mass - 1.0))
+        target = torch.tensor([-t, 0.0, t], dtype=torch.float32, device=logits.device)
+        return (logits - target).abs().sum()
 
     def params_numpy(self) -> dict:
         """{matrix0, bias0, factor0, ..., quantiles} as numpy arrays, the

@@ -1,20 +1,25 @@
-"""Gaussian-conditional entropy side: scale table, CDF-row indexes and the
-integer tables (counterpart of ``cra5_tpu/entropy/gaussian_conditional.py``).
+"""Gaussian-conditional entropy model: scale table, CDF-row indexes, the
+training likelihood and the integer tables (counterpart of
+``cra5_tpu/entropy/gaussian_conditional.py``).
 
-The likelihood (training) waits for the training slice.
+The erfc-based likelihood runs in float32 even under a bfloat16 model, as
+in the JAX package: the scales and |values| are cast to float32 before
+the CDF.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import scipy.special
 import scipy.stats
 import torch
+from torch import nn
 
 from .cdf import CdfTable, build_cdf_table
-from .ops import lower_bound
+from .ops import lower_bound, quantize
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -39,6 +44,40 @@ def build_indexes(
     s = lower_bound(scales, scale_bound)
     idx = torch.searchsorted(scale_table[:-1].contiguous(), s.reshape(-1), right=False)
     return idx.to(torch.int32).reshape(scales.shape)
+
+
+def _standardized_cumulative(x: torch.Tensor) -> torch.Tensor:
+    """0.5 * erfc(-x / sqrt(2)) in float32; erfc keeps the tails precise."""
+    return 0.5 * torch.special.erfc(-(2 ** -0.5) * x.float())
+
+
+class GaussianConditional(nn.Module):
+    """Mean-scale Gaussian likelihood of the noise-quantized latent. It has
+    no parameters; ``forward`` returns (outputs, likelihood)."""
+
+    def __init__(self, scale_bound: float = SCALES_MIN, likelihood_bound: float = 1e-9):
+        super().__init__()
+        self.scale_bound = scale_bound
+        self.likelihood_bound = likelihood_bound
+
+    def likelihood(self, inputs: torch.Tensor, scales: torch.Tensor,
+                   means: Optional[torch.Tensor] = None) -> torch.Tensor:
+        values = inputs - means if means is not None else inputs
+        scales = lower_bound(scales.float(), self.scale_bound)
+        values = values.abs().float()
+        upper = _standardized_cumulative((0.5 - values) / scales)
+        lower = _standardized_cumulative((-0.5 - values) / scales)
+        return upper - lower
+
+    def forward(self, inputs: torch.Tensor, scales: torch.Tensor,
+                means: Optional[torch.Tensor] = None, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        mode = "noise" if training else "dequantize"
+        outputs = quantize(inputs, mode, means=means, generator=generator)
+        likelihood = self.likelihood(outputs, scales, means)
+        if self.likelihood_bound > 0:
+            likelihood = lower_bound(likelihood, self.likelihood_bound)
+        return outputs, likelihood
 
 
 def gc_update(scale_table: np.ndarray, tail_mass: float = 1e-9, precision: int = 16) -> CdfTable:

@@ -1,14 +1,16 @@
 """VAEformer: the ViT auto-encoder with a ViT hyperprior, and its codec.
 
-Counterpart of ``cra5_tpu/models/vaeformer.py`` for the compress -> bytes
--> decompress path. ``VAEformer`` is an ``nn.Module`` whose weights come
-either from the JAX package (``convert.load_flax_variables``) or from its
-own seeded init (``reset_parameters``, mirroring the flax initializers);
+Counterpart of ``cra5_tpu/models/vaeformer.py``: the training forward
+(``VAEformer.forward``, with the entropy side's noise drawn from a
+``torch.Generator``) and the compress -> bytes -> decompress path.
+``VAEformer`` is an ``nn.Module`` whose weights come either from the JAX
+package (``convert.load_flax_variables``) or from its own seeded init
+(``reset_parameters``, mirroring the flax initializers);
 ``VAEformerCodec`` owns the CDF tables and lane coders around it.
 
-dtype: in a bfloat16 model every tower computes in bfloat16, while the
-LayerNorm parameters, the positional embeddings and the entropy-bottleneck
-parameters stay float32, as in the JAX package. The promotions match too:
+dtype: in a bfloat16 model every tower computes in bfloat16, while every
+parameter stays float32 and is cast where it is used, as in the JAX
+package (flax's default ``param_dtype``). The promotions match too:
 ``z_sym.to(dtype) + medians`` is float32 on both the encode and the decode
 side, so the hyper decoder sees identical inputs there, and the GC indexes
 are built from float32 scales.
@@ -19,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,7 +29,14 @@ from torch import nn
 
 from ..coder.lane_coder import LaneCoder
 from ..device import resolve_device
-from ..entropy import EntropyBottleneck, build_indexes, eb_update, gc_update, get_scale_table
+from ..entropy import (
+    EntropyBottleneck,
+    GaussianConditional,
+    build_indexes,
+    eb_update,
+    gc_update,
+    get_scale_table,
+)
 from ..entropy.cdf import CdfTable
 from ..nn.init import lecun_normal_
 from ..nn.vit import HyperDecoder, HyperEncoder, ViTDecoder, ViTEncoder
@@ -52,6 +61,10 @@ class VAEformerConfig:
     hyper_depth: int
     hyper_num_heads: int
     hyper_patch: Tuple[int, int]
+    sample_posterior: bool = False
+    # recompute g_a and g_s blocks in the backward: False | True ("full");
+    # "dots" is not ported (ROADMAP.md queue A)
+    remat: Union[bool, str] = False
     name: str = "vaeformer"
 
     @property
@@ -94,23 +107,47 @@ def vaeformer_tiny(in_chans: int = 8) -> VAEformerConfig:
 
 
 class DiagonalGaussian:
-    """Posterior over y: moments (B, 2C, H, W) -> mean / clamped logvar."""
+    """Posterior over y: moments (B, 2C, H, W) -> mean / logvar clamped to
+    [-30, 20]."""
 
     def __init__(self, moments: torch.Tensor):
         self.mean, logvar = torch.chunk(moments, 2, dim=1)
         self.logvar = torch.clamp(logvar, -30.0, 20.0)
 
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.exp(0.5 * self.logvar)
+
+    @property
+    def var(self) -> torch.Tensor:
+        return torch.exp(self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
+                          device=self.mean.device)
+        return self.mean + self.std * eps
+
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        return 0.5 * torch.mean(self.mean.square() + self.var - 1.0 - self.logvar, dim=(1, 2, 3))
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        logtwopi = float(np.log(2.0 * np.pi))
+        return 0.5 * torch.sum(
+            logtwopi + self.logvar + (sample - self.mean).square() / self.var, dim=(1, 2, 3))
+
 
 class Conv1x1(nn.Module):
-    """A 1x1 convolution (Conv2d weight layout) computed as a matmul."""
+    """A 1x1 convolution (Conv2d weight layout) computed as a matmul, with
+    float32 parameters, computing in ``dtype``."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.empty(out_ch, dtype=dtype, device=device))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
 
     def reset_parameters(self, generator=None) -> None:
         lecun_normal_(self.weight, self.weight.shape[1], generator)
@@ -118,8 +155,8 @@ class Conv1x1(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).contiguous()  # NCHW, whatever the caller's strides
-        y = x.permute(0, 2, 3, 1) @ self.weight[:, :, 0, 0].T + self.bias
+        x = x.to(self.dtype).contiguous()  # NCHW, whatever the caller's strides
+        y = x.permute(0, 2, 3, 1) @ self.weight[:, :, 0, 0].to(self.dtype).T + self.bias.to(self.dtype)
         return y.permute(0, 3, 1, 2)
 
 
@@ -130,9 +167,11 @@ class VAEformer(nn.Module):
         self.device = resolve_device(device)
         c, d = cfg, dict(dtype=dtype, device=self.device)
         self.g_a = ViTEncoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
-                              c.depth, c.num_heads, c.window_sizes, c.interval, **d)
+                              c.depth, c.num_heads, c.window_sizes, c.interval,
+                              remat=c.remat, **d)
         self.g_s = ViTDecoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
-                              c.depth, c.num_heads, c.window_sizes, c.interval, **d)
+                              c.depth, c.num_heads, c.window_sizes, c.interval,
+                              remat=c.remat, **d)
         self.quant_conv = Conv1x1(2 * c.y_channels, 2 * c.embed_dim, **d)
         self.post_quant_conv = Conv1x1(c.embed_dim, c.y_channels, **d)
         self.h_a = HyperEncoder(c.latent_grid, c.hyper_patch, c.hyper_patch, c.embed_dim,
@@ -141,6 +180,7 @@ class VAEformer(nn.Module):
         self.h_s = HyperDecoder(c.hyper_patch, c.embed_dim, c.z_channels, c.hyper_embed_dim,
                                 c.hyper_depth, c.hyper_num_heads, **d)
         self.entropy_bottleneck = EntropyBottleneck(c.z_channels, device=self.device)
+        self.gaussian_conditional = GaussianConditional()
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> "VAEformer":
@@ -155,8 +195,22 @@ class VAEformer(nn.Module):
         return self
 
     # -- building blocks ---------------------------------------------------
+    def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        return self.quant_conv(self.g_a(x))
+
+    def posterior_latent(self, moments: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
+        """(y, posterior): the posterior's sample when the config samples
+        it (which needs a generator), else its mode."""
+        posterior = DiagonalGaussian(moments)
+        if self.cfg.sample_posterior:
+            if generator is None:
+                raise ValueError("sample_posterior requires a generator")
+            return posterior.sample(generator), posterior
+        return posterior.mode(), posterior
+
     def encode_latent(self, x: torch.Tensor) -> torch.Tensor:
-        return DiagonalGaussian(self.quant_conv(self.g_a(x))).mode()
+        return DiagonalGaussian(self.encode_moments(x)).mode()
 
     def _medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians().reshape(1, -1, 1, 1)
@@ -167,6 +221,40 @@ class VAEformer(nn.Module):
 
     def decode_y(self, y_hat: torch.Tensor) -> torch.Tensor:
         return self.g_s(self.post_quant_conv(y_hat))
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Training/eval forward: x_hat, the y/z likelihoods and the
+        posterior's statistics. With ``training`` the entropy side adds
+        uniform noise drawn from ``generator`` (the posterior sample, EB
+        and GC noise, in that order); h_a reads y detached."""
+        moments = self.encode_moments(x)
+        y, posterior = self.posterior_latent(moments, generator)
+        z = self.h_a(y.detach())
+        z_hat, z_likelihoods = self.entropy_bottleneck(z, training=training, generator=generator)
+        scales, means = self.hyper_params(z_hat)
+        y_hat, y_likelihoods = self.gaussian_conditional(
+            y, scales, means=means, training=training, generator=generator)
+        return {
+            "x_hat": self.decode_y(y_hat),
+            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
+            "posterior_mean": posterior.mean,
+            "posterior_logvar": posterior.logvar,
+            "kl": posterior.kl(),
+        }
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.entropy_bottleneck.loss()
+
+    def entropy_rate(self, y: torch.Tensor, generator: torch.Generator) -> Dict[str, Any]:
+        """Training-mode likelihoods of (y, z) under the current hyper and
+        EB parameters, for fitting the entropy side on a frozen latent."""
+        z = self.h_a(y)
+        z_hat, z_lik = self.entropy_bottleneck(z, training=True, generator=generator)
+        scales, means = self.hyper_params(z_hat)
+        _, y_lik = self.gaussian_conditional(y, scales, means=means, training=True,
+                                             generator=generator)
+        return {"likelihoods": {"y": y_lik, "z": z_lik}, "aux": self.aux_loss()}
 
     def encode_symbols(self, x: torch.Tensor) -> Dict[str, Any]:
         """Device half of compress: y, z and their symbols."""
@@ -274,11 +362,9 @@ class VAEformerCodec:
         with self._stage("decompress/upload_y"):  # varints, to the card
             y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
         full_z = (B, cfg.z_channels, int(z_shape[0]), int(z_shape[1]))
-        with self._stage("decompress/decode_z"):  # row-plan check, K2
+        with self._stage("decompress/decode_z"):  # K2
             z_sym = self._eb_coder.decode_batch_to_device(
-                list(z_strings), self._z_indexes(full_z).to(self.device),
-                row_plan=full_z[2] * full_z[3],
-            )
+                list(z_strings), self._z_indexes(full_z).to(self.device))
         with self._stage("decompress/h_s"):
             scales, means = self.model.scales_from_z_symbols(z_sym)
         with self._stage("decompress/decode_y"):  # GC indexes, sort, merge, K3

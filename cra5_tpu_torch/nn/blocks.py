@@ -1,16 +1,19 @@
 """ViT building blocks: MLP, global and window attention, the pre-norm block.
 
-Counterpart of ``cra5_tpu/nn/blocks.py``. Linear layers hold their weights
-in the model dtype, as the flax Dense layers compute in it; LayerNorm keeps
-float32 parameters and statistics and casts its output to the model dtype,
-as flax does. Attention logits and softmax are float32.
+Counterpart of ``cra5_tpu/nn/blocks.py``. Every layer keeps float32
+parameters and computes in the model dtype, as flax does (the JAX package
+sets no ``param_dtype``): ``Dense`` casts its input, weight and bias to
+that dtype where it computes, and LayerNorm keeps float32 statistics and
+casts its output. Attention logits and softmax are float32.
 
-``_attend`` routes to the flash kernel (K4) exactly where the JAX package
-routes to its Pallas kernel on its accelerator: on the card, for sequences
-of 2048 tokens or more, or when the (B*H, N, N) float32 logits would reach
-1 GiB. On the 268v main path that selects the seven global blocks and no
-window or hyperprior block. Elsewhere attention is plain matmul + softmax,
-as the JAX package leaves it to XLA.
+``_attend`` routes to the flash kernels exactly where the JAX package
+routes to its Pallas kernels on its accelerator: on the card, for
+sequences of 2048 tokens or more, or when the (B*H, N, N) float32 logits
+would reach 1 GiB. On the 268v main path that selects the seven global
+blocks and no window or hyperprior block. The route is the differentiable
+``flash_attention`` (K4 forward, K5/K6 backward), so the global blocks'
+weights get their gradients. Elsewhere attention is plain matmul +
+softmax, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention_forward
+from ..ops.attention import flash_attention
 from .init import init_linear_
 
 FLASH_MIN_SEQ = 2048
@@ -37,10 +40,24 @@ def _use_flash(n: int, batch_heads: int, device: torch.device) -> bool:
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """q, k, v: (B, H, N, D)."""
     if _use_flash(q.shape[2], q.shape[0] * q.shape[1], q.device):
-        return flash_attention_forward(q.contiguous(), k.contiguous(), v.contiguous(), scale)[0]
+        return flash_attention(q, k, v, scale)
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+class Dense(nn.Linear):
+    """A linear layer with float32 parameters that computes in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        bias = self.bias.to(d) if self.bias is not None else None
+        return F.linear(x.to(d), self.weight.to(d), bias)
 
 
 class LayerNorm(nn.Module):
@@ -64,8 +81,8 @@ class Mlp(nn.Module):
                  out_init_scale: float = 1.0, dtype=torch.float32, device=None):
         super().__init__()
         self.out_init_scale = out_init_scale
-        self.fc1 = nn.Linear(in_features, hidden_features, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(hidden_features, out_features, dtype=dtype, device=device)
+        self.fc1 = Dense(in_features, hidden_features, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_features, out_features, dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None) -> None:
         init_linear_(self.fc1, generator)
@@ -83,8 +100,8 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.proj_init_scale = proj_init_scale
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype, device=device)
-        self.proj = nn.Linear(dim, dim, dtype=dtype, device=device)
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None) -> None:
         init_linear_(self.qkv, generator)

@@ -10,7 +10,8 @@ involved, so no algorithm choice enters the numerics.
 Weights use PyTorch's layouts: ``PatchEmbed.weight`` is Conv2d's (out, in,
 kh, kw); ``PatchUnembed.weight`` is ConvTranspose2d's (in, out, kh, kw),
 i.e. the flax kernel spatially flipped, since flax applies its
-ConvTranspose kernel flipped.
+ConvTranspose kernel flipped. Parameters are float32; both compute in
+``dtype``, casting the weights where they are used, as flax does.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ class PatchEmbed(nn.Module):
         super().__init__()
         _check_geometry(patch_size, patch_stride)
         self.patch_size, self.patch_stride = tuple(patch_size), tuple(patch_stride)
+        self.dtype = dtype
         kh, kw = self.patch_size
-        self.weight = nn.Parameter(torch.empty(embed_dim, in_chans, kh, kw, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.empty(embed_dim, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(embed_dim, in_chans, kh, kw, device=device))
+        self.bias = nn.Parameter(torch.empty(embed_dim, device=device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         D, C, kh, kw = self.weight.shape
@@ -56,14 +58,14 @@ class PatchEmbed(nn.Module):
         Hp, Wp = (H - kh) // sh + 1, (W - kw) // sw + 1
         if W != Wp * sw:
             raise ValueError(f"width {W} is not a whole number of {sw}-wide patches")
-        x = x.to(self.weight.dtype).contiguous()  # NCHW, whatever the caller's strides
+        x = x.to(self.dtype).contiguous()  # NCHW, whatever the caller's strides
         patch = x[:, :, : Hp * sh].reshape(B, C, Hp, sh, Wp, kw)
         if kh == sh + 1:
             extra = x[:, :, sh::sh][:, :, :Hp]  # row h*sh + sh of token h
             patch = torch.cat([patch, extra.reshape(B, C, Hp, 1, Wp, kw)], dim=3)
         patch = patch.permute(0, 2, 4, 3, 5, 1).reshape(B, Hp * Wp, kh * kw * C)
-        w = self.weight.permute(2, 3, 1, 0).reshape(kh * kw * C, -1)
-        return patch @ w + self.bias, (Hp, Wp)
+        w = self.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(kh * kw * C, -1)
+        return patch @ w + self.bias.to(self.dtype), (Hp, Wp)
 
 
 class PatchUnembed(nn.Module):
@@ -74,8 +76,9 @@ class PatchUnembed(nn.Module):
         super().__init__()
         _check_geometry(patch_size, patch_stride)
         self.patch_size, self.patch_stride = tuple(patch_size), tuple(patch_stride)
+        self.dtype = dtype
         kh, kw = self.patch_size
-        self.weight = nn.Parameter(torch.empty(embed_dim, out_chans, kh, kw, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(embed_dim, out_chans, kh, kw, device=device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         D, C, kh, kw = self.weight.shape
@@ -88,7 +91,7 @@ class PatchUnembed(nn.Module):
         kh, kw = self.patch_size
         sh, _ = self.patch_stride
         C = self.weight.shape[1]
-        y = x.to(self.weight.dtype) @ self.weight.reshape(D, C * kh * kw)
+        y = x.to(self.dtype) @ self.weight.to(self.dtype).reshape(D, C * kh * kw)
         p = y.reshape(B, Hp, Wp, C, kh, kw).permute(0, 3, 1, 4, 2, 5)  # (B, C, Hp, kh, Wp, kw)
         if kh == sh:
             return p.reshape(B, C, Hp * kh, Wp * kw)

@@ -9,6 +9,9 @@ NLC inside, NCHW at the module boundaries.
     ``blocks[n_seq]`` (logvar) both read the same activations.
   - The decoder's window pattern uses i = depth // 2 + j, while its block
     index and layer_id use j.
+  - ``remat=True`` recomputes each block of g_a and g_s in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+    ``nn.remat`` does; the hyperprior towers are never rematerialized.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .blocks import Block, LayerNorm, Mlp
+from .blocks import Block, Dense, LayerNorm, Mlp
 from .init import init_linear_
 from .patch_embed import PatchEmbed, PatchUnembed
 from .pos_embed import get_2d_sincos_pos_embed
@@ -31,6 +35,22 @@ def _win_for_block(i: int, window: bool, interval: int,
     if not window or (i + 1) % interval == 0:
         return None
     return tuple(window_sizes[min(i % interval, len(window_sizes) - 1)])
+
+
+def _check_remat(remat) -> bool:
+    if remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" (save the matmul outputs, recompute the rest) is not '
+            "ported; it is listed in ROADMAP.md queue A. Use remat=True.")
+    if remat not in (False, True, "full"):
+        raise ValueError(f"remat must be False, True or 'full', got {remat!r}")
+    return bool(remat)
+
+
+def _run_block(blk: nn.Module, x: torch.Tensor, H: int, W: int, remat: bool) -> torch.Tensor:
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, x, H, W, use_reentrant=False)
+    return blk(x, H, W)
 
 
 def _mlp_hidden(embed_dim: int, z_dim: int) -> int:
@@ -57,9 +77,10 @@ class ViTEncoder(_PosEmbed):
 
     def __init__(self, img_size, patch_size, patch_stride, in_chans: int, embed_dim: int,
                  depth: int, num_heads: int, window_sizes, interval: int,
-                 mlp_ratio: float = 4.0, dtype=torch.float32, device=None):
+                 mlp_ratio: float = 4.0, remat=False, dtype=torch.float32, device=None):
         grid = (img_size[0] // patch_stride[0], img_size[1] // patch_stride[1])
         super().__init__(grid, embed_dim, device)
+        self.remat = _check_remat(remat)
         self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size, patch_stride, dtype, device)
         self.n_seq = depth // 2
         self.blocks = nn.ModuleList(
@@ -73,9 +94,9 @@ class ViTEncoder(_PosEmbed):
         tokens, (Hp, Wp) = self.patch_embed(x)
         h = tokens + self.pos_embed.to(tokens.dtype)
         for blk in self.blocks[: self.n_seq - 1]:
-            h = blk(h, Hp, Wp)
-        mean = self.blocks[self.n_seq - 1](h, Hp, Wp)
-        logvar = self.blocks[self.n_seq](h, Hp, Wp)
+            h = _run_block(blk, h, Hp, Wp, self.remat)
+        mean = _run_block(self.blocks[self.n_seq - 1], h, Hp, Wp, self.remat)
+        logvar = _run_block(self.blocks[self.n_seq], h, Hp, Wp, self.remat)
         out = torch.cat([mean, logvar], dim=2)
         B, N, C = out.shape
         return out.reshape(B, Hp, Wp, C).permute(0, 3, 1, 2)
@@ -86,8 +107,9 @@ class ViTDecoder(nn.Module):
 
     def __init__(self, img_size, patch_size, patch_stride, out_chans: int, embed_dim: int,
                  depth: int, num_heads: int, window_sizes, interval: int,
-                 mlp_ratio: float = 4.0, dtype=torch.float32, device=None):
+                 mlp_ratio: float = 4.0, remat=False, dtype=torch.float32, device=None):
         super().__init__()
+        self.remat = _check_remat(remat)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio,
                   window_size=_win_for_block(depth // 2 + j, True, interval, window_sizes),
@@ -102,7 +124,7 @@ class ViTDecoder(nn.Module):
         B, C, Hp, Wp = feat.shape
         x = feat.contiguous().reshape(B, C, Hp * Wp).transpose(1, 2)
         for blk in self.blocks:
-            x = blk(x, Hp, Wp)
+            x = _run_block(blk, x, Hp, Wp, self.remat)
         return self.final(self.norm(x), (Hp, Wp))
 
 
@@ -148,8 +170,8 @@ class HyperDecoder(nn.Module):
         )
         self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
         p1, p2 = self.patch_size
-        self.final = nn.Linear(embed_dim, 2 * out_chans * p1 * p2, bias=False,
-                               dtype=dtype, device=device)
+        self.final = Dense(embed_dim, 2 * out_chans * p1 * p2, bias=False,
+                           dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None) -> None:
         init_linear_(self.final, generator)

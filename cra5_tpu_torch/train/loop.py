@@ -1,0 +1,221 @@
+"""The training loop: one step of loss, backward, net/aux Adam and EMA,
+with checkpointed resume, on one device.
+
+Counterpart of ``cra5_tpu/train/loop.py``. ``make_train_step`` returns
+``train_step(state, batch, rng) -> (state, metrics)``; ``Trainer`` wraps
+it with init, logging and checkpoints. Differences from the JAX package,
+each forced by the framework:
+
+  - ``TrainState.params`` are the model's own parameters, and a step
+    updates them, the Adam moments and the EMA in place (the JAX step
+    returns new trees);
+  - the step's noise comes from a ``torch.Generator`` seeded from
+    ``(rng, step)`` (``step_generator``, the counterpart of
+    ``jax.random.fold_in(rng, step)``), so a resumed run repeats an
+    uninterrupted one exactly;
+  - a mesh (data/tensor parallel training) is not ported yet
+    (ROADMAP.md queue A6): passing one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from .checkpoints import (
+    load_train_state,
+    resolve_last_checkpoint,
+    save_train_state,
+    save_variables,
+    write_last_checkpoint,
+)
+from .ema import EmaState, ema_init, ema_update_
+from .loss import RateDistortionLoss, kl_weighted_loss
+from .optim import NetAuxAdam, OptState, make_net_aux_optimizers
+
+_SUFFIX = ".pt"
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Dict[str, torch.nn.Parameter]  # the model's own parameters, by name
+    opt_state: OptState
+    ema: Optional[EmaState] = None
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    learning_rate: float = 1e-4
+    aux_learning_rate: float = 1e-3
+    lmbda: float = 0.01
+    bpp_weight: float = 0.01
+    kl_weight: float = 1e-6
+    use_kl: bool = False
+    use_ema: bool = True
+    ema_decay: float = 0.9999
+    max_grad_norm: float = 1.0
+    log_every: int = 50
+    ckpt_every: int = 1000
+    ckpt_dir: str = "checkpoints"
+    # keep only the newest N step_/state_ checkpoints (0 = keep all)
+    ckpt_keep: int = 0
+    # schedule config dict for the net rate, e.g.
+    # dict(type="WarmupCosineLR", warmup_steps=1000, min_lr_ratio=0.1);
+    # None = constant learning_rate
+    scheduler: Optional[Dict[str, Any]] = None
+    total_steps: Optional[int] = None
+
+
+def step_generator(rng: int, step: int, device) -> torch.Generator:
+    """The generator of one step's noise, a function of (rng, step) only."""
+    seed = int(np.random.SeedSequence([int(rng), int(step)]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed >> 1)
+
+
+def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig) -> Callable:
+    rd = RateDistortionLoss(lmbda=cfg.lmbda, bpp_weight=cfg.bpp_weight)
+
+    def loss_fn(batch: torch.Tensor, generator: torch.Generator):
+        out = model(batch, training=True, generator=generator)
+        losses = rd(out, batch)
+        aux = model.aux_loss()
+        total = losses["loss"] + aux
+        metrics = {**losses, "aux_loss": aux}
+        if cfg.use_kl:
+            klo = kl_weighted_loss(out, batch, kl_weight=cfg.kl_weight)
+            total = total + klo["vae_loss"]
+            metrics.update(klo)
+        metrics["total_loss"] = total
+        return total, metrics
+
+    def train_step(state: TrainState, batch: torch.Tensor, rng: int):
+        generator = step_generator(rng, state.step, batch.device)
+        for p in state.params.values():
+            p.grad = None
+        total, metrics = loss_fn(batch, generator)
+        total.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in state.params.items()}
+        tx.update_(state.params, grads, state.opt_state)
+        for p in state.params.values():
+            p.grad = None
+        if state.ema is not None:
+            ema_update_(state.ema, state.params, cfg.ema_decay)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+class Trainer:
+    """Init or resume, the step, logging and checkpoints."""
+
+    def __init__(self, model: torch.nn.Module, cfg: TrainerConfig = TrainerConfig(),
+                 mesh=None, seed: int = 0):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-parallel training is not ported yet (ROADMAP.md queue A6); "
+                "the port trains on one device")
+        self.model, self.cfg, self.seed = model, cfg, seed
+        self.tx = make_net_aux_optimizers(
+            cfg.learning_rate, cfg.aux_learning_rate, cfg.max_grad_norm,
+            scheduler=cfg.scheduler, total_steps=cfg.total_steps,
+        )
+        self._step_fn = make_train_step(model, self.tx, cfg)
+
+    def init_state(self, example_batch: torch.Tensor) -> TrainState:
+        """Seeded init of the model's parameters, zero moments, the EMA."""
+        self.model.reset_parameters(self.seed)
+        params = dict(self.model.named_parameters())
+        ema = ema_init(params) if self.cfg.use_ema else None
+        return TrainState(step=0, params=params, opt_state=self.tx.init(params), ema=ema)
+
+    def shard_batch(self, batch) -> torch.Tensor:
+        """Place a batch on the model's device."""
+        return torch.as_tensor(batch, device=self.model.device)
+
+    def fit(self, data: Iterable, state: Optional[TrainState] = None,
+            num_steps: Optional[int] = None,
+            log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None) -> TrainState:
+        rng = self.seed + 1
+        it = iter(data)
+        if state is None:
+            first = next(it)
+            state = self.init_state(self.shard_batch(first))
+            data_iter = _chain_first(first, it)
+        else:
+            data_iter = it
+        step0 = state.step
+        last_log_step = step0
+        t0 = time.time()
+        for i, batch in enumerate(data_iter):
+            if num_steps is not None and i >= num_steps:
+                break
+            state, metrics = self._step_fn(state, self.shard_batch(batch), rng)
+            step = step0 + i + 1
+            if step % self.cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["steps_per_sec"] = (step - last_log_step) / max(time.time() - t0, 1e-9)
+                last_log_step = step
+                t0 = time.time()
+                if log_fn is not None:
+                    log_fn(step, m)
+                else:
+                    print(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in m.items()))
+            if step % self.cfg.ckpt_every == 0:
+                self.save(state)
+        return state
+
+    def save(self, state: TrainState) -> str:
+        """Write a params-only checkpoint and the full resumable state, and
+        point ``last_checkpoint`` / ``last_state`` at them."""
+        d = self.cfg.ckpt_dir
+        path = os.path.join(d, f"step_{state.step}{_SUFFIX}")
+        state_path = os.path.join(d, f"state_{state.step}{_SUFFIX}")
+        save_variables(path, state.params)
+        write_last_checkpoint(d, path)
+        save_train_state(state_path, state)
+        write_last_checkpoint(d, state_path, "last_state")
+        if self.cfg.ckpt_keep > 0:
+            self._prune_checkpoints()
+        return path
+
+    def _prune_checkpoints(self) -> None:
+        # never delete what the pointer files reference: a reused dir with
+        # stale higher-step checkpoints would otherwise out-sort (and so
+        # delete) the one just written
+        d = self.cfg.ckpt_dir
+        protected = set()
+        for pointer in ("last_checkpoint", "last_state"):
+            p = os.path.join(d, pointer)
+            if os.path.exists(p):
+                with open(p) as f:
+                    protected.add(os.path.basename(f.read().strip()))
+        for prefix in ("step_", "state_"):
+            files = sorted(
+                (f for f in os.listdir(d)
+                 if f.startswith(prefix) and f.endswith(_SUFFIX)
+                 and f[len(prefix):-len(_SUFFIX)].isdigit()),
+                key=lambda f: int(f[len(prefix):-len(_SUFFIX)]),
+            )
+            for old in files[: -self.cfg.ckpt_keep]:
+                if old not in protected:
+                    os.remove(os.path.join(d, old))
+
+    def restore(self, example_batch: torch.Tensor, path: Optional[str] = None) -> TrainState:
+        """Resume from a full train-state checkpoint (default: the
+        ``last_state`` pointer under ``cfg.ckpt_dir``)."""
+        if path is None:
+            path = resolve_last_checkpoint(self.cfg.ckpt_dir, "last_state")
+        return load_train_state(path, self.init_state(self.shard_batch(example_batch)))
+
+
+def _chain_first(first, rest):
+    yield first
+    yield from rest

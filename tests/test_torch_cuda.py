@@ -9,8 +9,9 @@ tests. This file imports no JAX, and it uses no fixture of
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are small and ragged (lane counts and sequence lengths off the
-kernels' tile and block sizes). K1-K3 must equal their plain versions
-exactly; K4 must agree within the bf16 tolerance stated below.
+kernels' tile and block sizes). K1-K3 and the generic lane decode must
+equal their plain versions exactly; K4-K6 must agree within the bf16
+tolerances stated below.
 """
 
 import numpy as np
@@ -28,7 +29,15 @@ from cra5_tpu_torch.coder.lane_coder import (
 )
 from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update, gc_update, get_scale_table
 from cra5_tpu_torch.entropy.cdf import CdfTable
-from cra5_tpu_torch.ops.attention import flash_attention_forward, flash_attention_plain
+from cra5_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_backward_dkv,
+    flash_attention_backward_dkv_plain,
+    flash_attention_backward_dq,
+    flash_attention_backward_dq_plain,
+    flash_attention_forward,
+    flash_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +50,11 @@ pytestmark = pytest.mark.cuda
 # the row sums.
 FLASH_OUT_RTOL = 2e-2
 FLASH_LSE_ATOL = 2e-3
+# K5/K6: dq, dk and dv are sums over N rows of bf16-rounded dS or P
+# products; the kernels sum 64-wide tiles in another order than the plain
+# versions, and round dq/dk/dv to bf16 once. Each is bounded as out is:
+# max |got - ref| <= 2e-2 * max |ref|.
+FLASH_GRAD_RTOL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -112,12 +126,13 @@ def test_rans_decode_rowplan_equals_plain(card, rng, eb_table, C, HW, K, esc):
     M = -(-n // K)
     idx2 = torch.from_numpy(np.concatenate([idx, np.zeros(M * K - n, np.int32)]).reshape(M, K)).to(card)
     args = (coder._cdf, idx2, states, words, coder._max_values, coder._offsets)
-    got = rk.rans_decode_rowplan(*args)
+    before = rk.rans_decode_generic.launches
+    got = rk.rans_decode_generic(*args)
     want = rk.lane_decode_plain(*args)
     torch.cuda.synchronize()
     assert _equal(got, want)
-    if K <= HW:  # the row-plan promise holds: the coder routes to K2 itself
-        np.testing.assert_array_equal(coder.decode(data, idx, row_plan=HW), sym)
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)  # the coder routes to K2
+    assert rk.rans_decode_generic.launches == before + 2
 
 
 @pytest.mark.parametrize("K,steps,rows", [(2048, 5, 4), (4096, 6, 4), (8192, 4, 3)])
@@ -147,7 +162,7 @@ def test_rans_decode_sorted_equals_plain(card, rng, gc_table, K, steps, rows):
     np.testing.assert_array_equal(coder.decode(data, idx), sym)
 
 
-@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])
+@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])  # rowplan: the lane decode K2
 def test_decode_rejects_cdf_rows_outside_the_table(card, eb_table, kernel):
     """The wrapper raises on a row index past the table, and launches
     nothing: the kernels read rows unchecked."""
@@ -155,7 +170,7 @@ def test_decode_rejects_cdf_rows_outside_the_table(card, eb_table, kernel):
     states = torch.full((64,), 1 << 16, dtype=torch.int32, device=card)
     words = torch.zeros(8, dtype=torch.int16, device=card)
     tabs = (coder._max_values, coder._offsets)
-    fn = rk.rans_decode_rowplan if kernel == "rowplan" else rk.rans_decode_sorted
+    fn = rk.rans_decode_generic if kernel == "rowplan" else rk.rans_decode_sorted
     before = fn.launches
     with pytest.raises(IndexError, match="16 rows"):
         if kernel == "rowplan":
@@ -195,9 +210,9 @@ def test_flash_attn_fwd_is_deterministic(card, rng):
 def test_lane_coder_bytes_do_not_depend_on_the_device(card, rng, gc_table, eb_table, kind):
     """The card writes the CPU's bytes, and each decodes the other's."""
     if kind == "z_grid":
-        table, idx, K, row_plan = eb_table, np.repeat(np.arange(16, dtype=np.int32), 96), 32, 96
+        table, idx, K = eb_table, np.repeat(np.arange(16, dtype=np.int32), 96), 32
     else:  # sorted: three rows of >= K symbols each, so kernel-safe
-        table, row_plan = gc_table, False
+        table = gc_table
         idx = rng.integers(20, 23, 2048 * 6 + 100) if kind == "sorted" else rng.integers(0, 64, 3000)
         idx, K = idx.astype(np.int32), 2048 if kind == "sorted" else 512
     sym = _sample(rng, table, idx, 0.02)
@@ -205,20 +220,17 @@ def test_lane_coder_bytes_do_not_depend_on_the_device(card, rng, gc_table, eb_ta
     cpu = LaneCoder(table, num_lanes=K, device="cpu")
     data = gpu.encode(sym, idx)
     assert data == cpu.encode(sym, idx)
-    np.testing.assert_array_equal(cpu.decode(data, idx, row_plan=row_plan), sym)
-    if kind == "unsorted":  # no ported kernel covers it on the card
-        with pytest.raises(NotImplementedError, match="decode_scan_pallas"):
-            gpu.decode(data, idx)
-    else:
-        np.testing.assert_array_equal(gpu.decode(data, idx, row_plan=row_plan), sym)
+    np.testing.assert_array_equal(cpu.decode(data, idx), sym)
+    before = rk.rans_decode_generic.launches
+    np.testing.assert_array_equal(gpu.decode(data, idx), sym)
+    assert rk.rans_decode_generic.launches == before + (kind != "sorted")
 
 
 def test_tiny_codec_on_the_card_writes_the_cpu_bytes(card):
     """vaeformer_tiny in float32 with the same seeded weights: the card's
-    streams equal the CPU's, and the card decodes the z stream through K2.
-    The tiny y stream (128 symbols on one lane, unsorted, no row plan)
-    needs the generic lane decode, which is not ported yet: the card
-    refuses it by that kernel's name, and the CPU decodes it."""
+    streams equal the CPU's, and the card decodes the z stream and the
+    tiny y stream (128 symbols on one lane, unsorted) through the lane
+    decode K2, to the CPU's symbols and x_hat."""
     from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_tiny
 
     cfg = vaeformer_tiny()
@@ -230,14 +242,90 @@ def test_tiny_codec_on_the_card_writes_the_cpu_bytes(card):
     out = a.compress(x)
     assert out["strings"] == b.compress(x)["strings"]
     z_shape = (1, cfg.z_channels, *out["z_shape"])
-    before = rk.rans_decode_rowplan.launches
-    z_gpu = a._eb_coder.decode_batch_to_device(out["strings"][1], a._z_indexes(z_shape).to(card),
-                                               row_plan=z_shape[2] * z_shape[3])
-    assert rk.rans_decode_rowplan.launches == before + 1
-    z_cpu = b._eb_coder.decode_batch_to_device(out["strings"][1], b._z_indexes(z_shape),
-                                               row_plan=z_shape[2] * z_shape[3])
+    before = rk.rans_decode_generic.launches
+    z_gpu = a._eb_coder.decode_batch_to_device(out["strings"][1], a._z_indexes(z_shape).to(card))
+    assert rk.rans_decode_generic.launches == before + 1
+    z_cpu = b._eb_coder.decode_batch_to_device(out["strings"][1], b._z_indexes(z_shape))
     assert torch.equal(z_gpu.cpu(), z_cpu)
-    with pytest.raises(NotImplementedError, match="decode_scan_pallas"):
-        a.decompress(out["strings"], out["z_shape"])
+    before = rk.rans_decode_generic.launches
+    x_gpu = a.decompress(out["strings"], out["z_shape"])["x_hat"]
+    assert rk.rans_decode_generic.launches == before + 2
     x_hat = b.decompress(out["strings"], out["z_shape"])["x_hat"]
     assert tuple(x_hat.shape) == (1, cfg.in_chans, *cfg.img_size) and torch.isfinite(x_hat).all()
+    assert (x_gpu.cpu() - x_hat).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("M,K,ncdf", [(1, 1, 64), (128, 1, 64), (37, 300, 64), (9, 4097, 64)])
+def test_rans_decode_generic_equals_plain(card, rng, gc_table, M, K, ncdf):
+    """Random cdf rows per symbol (no row plan, unsorted): the generic
+    decode equals the plain per-lane decode exactly, and the coder
+    routes such a stream to it."""
+    n = M * K - (K // 3)
+    idx = rng.integers(0, ncdf, max(n, 1)).astype(np.int32)
+    sym = _sample(rng, gc_table, idx, 0.02)
+    coder = LaneCoder(gc_table, num_lanes=K, device=card)
+    data = coder.encode(sym, idx)
+    (n, _, _, _, srt, _, _), states, words, _ = coder._upload(data, parse_v2_header(data))
+    assert not srt
+    Ms = -(-n // K)
+    idx2 = torch.from_numpy(np.concatenate([idx, np.zeros(Ms * K - n, np.int32)]).reshape(Ms, K)).to(card)
+    args = (coder._cdf, idx2, states, words, coder._max_values, coder._offsets)
+    before = rk.rans_decode_generic.launches
+    got = rk.rans_decode_generic(*args)
+    want = rk.lane_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert rk.rans_decode_generic.launches == before + 1
+    assert _equal(got, want)
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)
+    assert rk.rans_decode_generic.launches == before + 2
+
+
+def _grad_operands(rng, card, B, H, N):
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32) * 1.5)
+                   .to(card, torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention_forward(q, k, v, 0.125)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def _close(got, ref):
+    bound = FLASH_GRAD_RTOL * ref.float().abs().max().item()
+    return got.dtype == ref.dtype and (got.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
+def test_flash_attn_bwd_close_to_plain(card, rng, B, H, N):
+    ops = _grad_operands(rng, card, B, H, N)
+    before = (flash_attention_backward_dq.launches, flash_attention_backward_dkv.launches)
+    dq = flash_attention_backward_dq(*ops, 0.125)
+    dk, dv = flash_attention_backward_dkv(*ops, 0.125)
+    torch.cuda.synchronize()
+    assert (flash_attention_backward_dq.launches,
+            flash_attention_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    ref_dq = flash_attention_backward_dq_plain(*ops, 0.125)
+    ref_dk, ref_dv = flash_attention_backward_dkv_plain(*ops, 0.125)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert torch.isfinite(got).all() and _close(got, ref)
+
+
+def test_flash_attn_bwd_is_deterministic(card, rng):
+    ops = _grad_operands(rng, card, 1, 2, 777)
+    a = (flash_attention_backward_dq(*ops, 0.125), *flash_attention_backward_dkv(*ops, 0.125))
+    b = (flash_attention_backward_dq(*ops, 0.125), *flash_attention_backward_dkv(*ops, 0.125))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_gradients_on_the_card_match_the_plain_path(card, rng):
+    """autograd through FlashAttention (K4, K5, K6) against the same
+    Function on the CPU (the plain versions), same bf16 inputs."""
+    base = [torch.from_numpy(rng.standard_normal((1, 2, 333, 64), np.float32))
+            .to(torch.bfloat16) for _ in range(3)]
+    w = torch.from_numpy(rng.standard_normal((1, 2, 333, 64), np.float32)).to(torch.bfloat16)
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        qkv = [t.to(dev).requires_grad_() for t in base]
+        out = flash_attention(*qkv)
+        (out.float() * w.to(dev).float()).sum().backward()
+        grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu() for t in qkv]
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        assert _close(got, ref)

@@ -131,7 +131,7 @@ def test_bf16_codec_roundtrip_is_exact(setup):
     (y_str,), (z_str,) = out["strings"]
     with torch.inference_mode():
         z_dec = codec._eb_coder.decode_batch_to_device(
-            [z_str], codec._z_indexes(got["z_sym"].shape), row_plan=4)
+            [z_str], codec._z_indexes(got["z_sym"].shape))
         scales, _ = codec.model.scales_from_z_symbols(z_dec)
         y_dec = codec._gc_coder.decode_batch_to_device([y_str], codec._gc_indexes(scales))
         want = codec.model.reconstruct_from_y_symbols(got["y_sym"], got["means"])
@@ -193,3 +193,28 @@ def test_seeded_init_matches_the_flax_init():
         else:
             assert torch.equal(got, ref), name
     assert len(ratios) > 30 and abs(np.mean(ratios) - 1) < 0.05
+
+
+def test_tiny_codec_decodes_y_through_the_generic_route(setup, monkeypatch):
+    """The tiny z stream (32 symbols) and y stream (128 symbols), each on
+    one lane and unsorted, go to rans_decode_generic, the counterpart of
+    decode_scan_pallas, on every device; on the CPU it runs the plain
+    per-lane decode."""
+    from cra5_tpu_torch.coder import lane_coder
+
+    calls = []
+    real = lane_coder.rans_decode_generic
+
+    def spy(cdf, idx, *rest):
+        calls.append(tuple(idx.shape))
+        return real(cdf, idx, *rest)
+
+    monkeypatch.setattr(lane_coder, "rans_decode_generic", spy)
+    x, _, codec = _pair(setup, "float32")
+    out = codec.compress(x)
+    x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    assert calls == [(32, 1), (128, 1)]
+    got = _port_symbols(codec, x)
+    with torch.inference_mode():
+        want = codec.model.reconstruct_from_y_symbols(got["y_sym"], got["means"])
+    assert torch.equal(x_hat, want)

@@ -128,7 +128,7 @@ def test_rowplan_plain_matches_pallas(rng, eb_table, C, HW, K, esc):
         jnp.asarray(rows), jnp.asarray(sel.astype(np.int32)),
         jnp.asarray(states.numpy().view(np.uint32)), jnp.asarray(stream),
         jnp.asarray(mv_t[idx2]), jnp.asarray(off_t[idx2]), M, interpret=True)
-    v0, s0 = rk.rans_decode_rowplan(coder._cdf, torch.from_numpy(idx2), states, words,
+    v0, s0 = rk.rans_decode_generic(coder._cdf, torch.from_numpy(idx2), states, words,
                                     coder._max_values, coder._offsets)
     np.testing.assert_array_equal(v0.numpy(), np.asarray(v1))
     np.testing.assert_array_equal(s0.numpy(), np.asarray(s1))
@@ -177,9 +177,9 @@ def _streams(rng, gc_table, eb_table):
     gi = rng.integers(0, 64, 2048 * 6 + 100).astype(np.int32)
     zi = np.repeat(np.arange(16, dtype=np.int32), 96)
     return {
-        "gc_sorted": (gc_table, _sample(rng, gc_table, gi, 0.02), gi, 2048, None),
-        "gc_unsorted": (gc_table, _sample(rng, gc_table, gi, 0.02), gi, 512, None),
-        "eb_z_grid": (eb_table, _sample(rng, eb_table, zi, 0.02), zi, 32, 96),
+        "gc_sorted": (gc_table, _sample(rng, gc_table, gi, 0.02), gi, 2048),
+        "gc_unsorted": (gc_table, _sample(rng, gc_table, gi, 0.02), gi, 512),
+        "eb_z_grid": (eb_table, _sample(rng, eb_table, zi, 0.02), zi, 32),
     }
 
 
@@ -188,7 +188,7 @@ def test_lane_coder_bytes_and_cross_decode(rng, gc_table, eb_table, kind):
     """Same bytes as the JAX LaneCoder (sorted+merged at K=2048, as the
     JAX package writes on its accelerator), and each package decodes the
     other's bytes."""
-    table, sym, idx, K, row_plan = _streams(rng, gc_table, eb_table)[kind]
+    table, sym, idx, K = _streams(rng, gc_table, eb_table)[kind]
     if K >= 2048:
         want = _jax_sorted_encode(table, sym, idx, K)
     else:
@@ -197,9 +197,9 @@ def test_lane_coder_bytes_and_cross_decode(rng, gc_table, eb_table, kind):
     got = port.encode(sym, idx)
     assert got == want
     assert parse_v2_header(got)[4] == (K >= 2048)
-    np.testing.assert_array_equal(port.decode(want, idx, row_plan=row_plan or False), sym)
+    np.testing.assert_array_equal(port.decode(want, idx), sym)
     np.testing.assert_array_equal(rt.LaneCoder(_jax_table(table), num_lanes=K).decode(got, idx), sym)
-    dev = port.decode_to_device(want, torch.from_numpy(idx), row_plan=row_plan or False)
+    dev = port.decode_to_device(want, torch.from_numpy(idx))
     np.testing.assert_array_equal(dev.numpy(), sym)
 
 
@@ -240,12 +240,33 @@ def test_kernel_unsafe_sorted_stream_decodes_on_cpu(rng, gc_table):
     assert coder.encode(sym, idx) == data
 
 
-def test_row_plan_promise_is_checked(rng, eb_table):
-    idx = rng.integers(0, 16, 640).astype(np.int32)
-    sym = _sample(rng, eb_table, idx, 0.0)
-    coder = LaneCoder(eb_table, num_lanes=32, device="cpu")
-    with pytest.raises(ValueError, match="row_plan"):
-        coder.decode(coder.encode(sym, idx), idx, row_plan=40)
+@pytest.mark.parametrize("kind,route", [("safe_sorted", "sorted"), ("gc_unsorted", "lanes"),
+                                        ("eb_z_grid", "lanes"), ("unsafe_sorted", "lanes")])
+def test_decode_routes_by_the_stream_format(rng, gc_table, eb_table, monkeypatch, kind, route):
+    """A sorted kernel-safe stream goes to K3; every other stream, the
+    channel-broadcast z grid and a sorted stream without bit 30 included,
+    goes to the lane decode K2 (rans_decode_generic)."""
+    from cra5_tpu_torch.coder import lane_coder
+
+    calls = []
+    for name, tag in (("rans_decode_generic", "lanes"), ("rans_decode_sorted", "sorted")):
+        real = getattr(lane_coder, name)
+        monkeypatch.setattr(lane_coder, name,
+                            lambda *a, _real=real, _tag=tag: calls.append(_tag) or _real(*a))
+    if kind.endswith("sorted"):
+        # three rows of >= K symbols each: bit 30; every bucket below K: none
+        idx = (rng.integers(20, 23, 2048 * 6 + 100) if kind == "safe_sorted"
+               else rng.integers(0, 64, 1500)).astype(np.int32)
+        K = 2048 if kind == "safe_sorted" else 256
+        table, sym = gc_table, _sample(rng, gc_table, idx, 0.01)
+        coder = LaneCoder(table, num_lanes=K, device="cpu", sorted_lanes=True)
+        assert parse_v2_header(coder.encode(sym, idx))[4:6] == (True, kind == "safe_sorted")
+    else:
+        table, sym, idx, K = _streams(rng, gc_table, eb_table)[kind]
+        coder = LaneCoder(table, num_lanes=K, device="cpu")
+    data = coder.encode(sym, idx)
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)
+    assert calls == [route]
 
 
 def test_empty_stream_matches_jax(eb_table):
@@ -255,7 +276,7 @@ def test_empty_stream_matches_jax(eb_table):
     assert LaneCoder(eb_table, device="cpu").decode(data, empty).shape == (0,)
 
 
-@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])
+@pytest.mark.parametrize("kernel", ["rowplan", "sorted"])  # rowplan: the lane decode K2
 @pytest.mark.parametrize("bad", [-1, 16])
 def test_decode_rejects_cdf_rows_outside_the_table(eb_table, kernel, bad):
     """A row index outside [0, ncdfs) raises in the wrapper, on every
@@ -268,7 +289,7 @@ def test_decode_rejects_cdf_rows_outside_the_table(eb_table, kernel, bad):
         if kernel == "rowplan":
             idx = torch.zeros((3, 8), dtype=torch.int32)
             idx[1, 5] = bad
-            rk.rans_decode_rowplan(coder._cdf, idx, states, words, *tabs)
+            rk.rans_decode_generic(coder._cdf, idx, states, words, *tabs)
         else:
             r0 = torch.tensor([0, 2, 3], dtype=torch.int32)
             r1 = torch.tensor([1, bad, 3], dtype=torch.int32)
