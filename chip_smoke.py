@@ -7,8 +7,9 @@ Phases, printed as they run; any failure raises and exits non-zero, and no
 result line is printed then:
 
   1. card: nvidia-smi's name and power limit, the device count;
-  2. build: nvcc compiles the kernels from cra5_tpu_torch/csrc (one process
-     per source), with each kernel's registers, shared memory and spills;
+  2. build: g++ compiles the v1 host coder (coder/csrc/rans64.cpp), nvcc
+     the kernels from cra5_tpu_torch/csrc (one process per source), with
+     each kernel's registers, shared memory and spills;
   3. kernels: each kernel against its plain PyTorch version at the 268v
      main paths' shapes (K1-K3 exact, the lane decode K2 on the z stream
      and on the y geometry written unsorted on 1024 lanes, K4-K6
@@ -36,16 +37,33 @@ result line is printed then:
      seeded init, synthetic N(0, 1) x 0.5 fields: one warm-up step, then
      three timed steps with the launch counters zeroed just before and
      read just after (14 forward, 7 dQ and 7 dK/dV launches a step), then
-     one step under torch.profiler.
+     one step under torch.profiler;
+  8. probe path: cra5_tpu_torch.profiling.perm_probe.main on the card (the
+     torch sort/take/scatter probes at 2.65 M elements, K7 and K8), the
+     counters zeroed just before and read just after;
+  9. API path: cra5_api(model_version=268) in float32 with seeded weights
+     writes a synthetic timestep to a .bin with coder="v2" and again with
+     coder="v1" (encode_era5_as_bin) and reads each back (decode_from_bin),
+     the counters zeroed just before and read just after (float32 K4 seven
+     times a roundtrip, K1-K3 for the v2 file); every z and y symbol
+     decodes exactly from both files, both give the same z symbols, and
+     x_hat is a finite full-size field.
 
-The line before the last is a JSON object listing every kernel; the last
-is {"ok": true, "device": {...}}. It needs one card and no network.
+The kernels phase also holds K4-K6 on float32 operands (the SIMT entries)
+at the global blocks' shape against the float32 plain versions, within
+FLASH_F32_RTOL x max |ref|, with SDPA in float32 as the yardstick, and K7
+(perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
+versions exactly; the reference phase adds the 268v global block in
+float32. The line before the last is a JSON object listing every kernel;
+the last is {"ok": true, "device": {...}}. It needs one card and no
+network.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +76,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, published
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 # K4 against its plain version. out is an average of N rows of v, so its
 # size falls with N (about sqrt(e / N) for unit logits: ~0.016 typical and
 # ~0.09 at most at N = 10368); the bound scales with the reference,
@@ -69,6 +88,15 @@ FLASH_LSE_ATOL = 2e-3
 # tiles the kernels add in another order than the plain versions; each is
 # bounded as out is, max |got - ref| <= FLASH_GRAD_RTOL * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
+# K4-K6 on float32 operands against the float32 plain versions: the same
+# rounding points, float32 sums in another order. The plain versions sum
+# in cuBLAS's blocked order (within 1.3e-6 x max |ref| of float64 at N =
+# 10368 on the CPU); the kernels carry one running float32 sum over the N
+# keys or queries, about 5e-6 x max |ref| from the plain versions at
+# (1, 16, 10368, 64) on an H100. Bound: out, dq, dk, dv within
+# FLASH_F32_RTOL x max |ref|, lse within FLASH_F32_LSE_ATOL.
+FLASH_F32_RTOL = 1e-5
+FLASH_F32_LSE_ATOL = 1e-5
 TRAIN_STEPS = 3  # timed steps of the train path, after one warm-up step
 
 
@@ -128,10 +156,14 @@ def phase_card() -> dict:
 
 def phase_build() -> None:
     from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.coder import native
 
     t0 = time.time()
+    native.lib()  # the v1 host coder, g++
+    t1 = time.time()
     kernels.lib()
-    log(f"[build] {time.time() - t0:.2f} s (nvcc {kernels.NVCC_FLAGS})")
+    log(f"[build] v1 host coder {t1 - t0:.2f} s (g++ {native.GXX_FLAGS}); kernels "
+        f"{time.time() - t1:.2f} s (nvcc {kernels.NVCC_FLAGS})")
     for src, report in sorted(kernels.build_info.get("ptxas", {}).items()):
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
@@ -295,6 +327,8 @@ def phase_kernels(dev) -> dict:
                                   bound_by="operations", library_ms=lib)
     torch.cuda.empty_cache()
     rows.update(flash_backward_rows(rng, dev))
+    flash_f32_rows(rng, dev)
+    rows.update(perm_rows(rng, dev))
     return rows
 
 
@@ -364,6 +398,125 @@ def flash_backward_rows(rng, dev) -> dict:
                                           bound_by="operations", library_ms=lib)
         del q, k, v, do, out, lse, delta, ops, qg, kg, vg
         torch.cuda.empty_cache()
+    return rows
+
+
+def flash_f32_rows(rng, dev) -> None:
+    """K4, K5 and K6 on float32 operands (the SIMT entries) at the global
+    blocks' shape against the float32 plain versions, with SDPA in float32
+    (forward; backward as forward + backward less forward) as the
+    yardstick. The bound is FP32 operations at 67 TFLOP/s."""
+    from cra5_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
+        flash_attention_forward,
+        flash_attention_plain,
+    )
+
+    B, H, N, scale = 1, 16, 10368, 64 ** -0.5
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32)).to(dev)
+                   for _ in range(4))
+    out, lse = flash_attention_forward(q, k, v, scale)
+    ref, ref_lse = flash_attention_plain(q, k, v, scale)
+    delta = (do * out).sum(-1)
+    ops = (q, k, v, do, lse, delta, scale)
+    got = {"out": (out, ref), "dq": (flash_attention_backward_dq(*ops),
+                                     flash_attention_backward_dq_plain(*ops))}
+    got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
+                                     flash_attention_backward_dkv_plain(*ops))))
+    torch.cuda.synchronize()
+    errs = {n: ((a - b).abs().max().item(), FLASH_F32_RTOL * b.abs().max().item())
+            for n, (a, b) in got.items()}
+    lerr = (lse - ref_lse).abs().max().item()
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in got.values())
+    if not finite or lerr > FLASH_F32_LSE_ATOL or any(e > b for e, b in errs.values()):
+        raise RuntimeError(f"float32 K4-K6 at N={N}: (err, bound) {errs}, lse err {lerr}, "
+                           f"finite {finite}")
+    del got
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 5),
+          "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
+          "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
+    plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
+             "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
+             "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 5)
+    lib_both = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
+                                                    (qg, kg, vg), do), 3)
+    flops = {"fwd": 4 * B * H * N * N * 64, "dq": 6 * B * H * N * N * 64,
+             "dkv": 8 * B * H * N * N * 64}
+    log(f"[K4-K6 float32] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound {FLASH_F32_RTOL} x "
+        f"max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+        + f", lse err {lerr:.3g} (atol {FLASH_F32_LSE_ATOL})")
+    for name, lib in (("fwd", lib_fwd), ("dq", lib_both - lib_fwd), ("dkv", lib_both - lib_fwd)):
+        bound = flops[name] / FP32_FLOPS * 1e3
+        log(f"[K4-K6 float32 {name}] kernel {ms[name]:.4f} ms "
+            f"({flops[name] / ms[name] / 1e9:.2f} TFLOP/s), plain {plain[name]:.2f} ms, "
+            f"bound {bound:.4f} ms (operations, FP32), sdpa float32 {lib:.4f} ms")
+    del q, k, v, do, out, lse, ref, ref_lse, delta, ops, qg, kg, vg
+    torch.cuda.empty_cache()
+
+
+def perm_rows(rng, dev) -> dict:
+    """K7 (expand) and K8 (dynroll) at the probe's (8, 1024) against their
+    plain versions, exactly: K7 at mask densities 0, 0.6 and 1, K8 at
+    shifts 0, 3 and 1023. Both are launch-bound; the bound is the bytes of
+    their operands."""
+    from cra5_tpu_torch.profiling import perm_probe as pp
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    shape = (pp.R, pp.KD)
+    words = t(rng.integers(0, 1 << 16, shape).astype(np.int32))
+    for density in (0.0, 1.0, 0.6):
+        mask = t((rng.random(shape) < density).astype(np.int32))
+        got, want = pp.expand(mask, words), pp.expand_plain(mask, words)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K7 expand differs from its plain version at density {density}")
+    ms = timed_ms(lambda: pp.expand(mask, words), 200, warmup=10)
+    plain = timed_ms(lambda: pp.expand_plain(mask, words), 20)
+    bound = bytes_bound_ms(3 * words.numel() * 4)
+    log(f"[K7 perm_expand] {shape} exact at densities 0, 1, 0.6; kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bound:.6f} ms (bytes)")
+    rows = {"perm_expand": dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by="bytes", library_ms=None)}
+    for shift in (0, 3, 1023):
+        s = torch.tensor([shift], dtype=torch.int32, device=dev)
+        got = pp.dynroll(words, s)
+        if not (torch.equal(got, pp.dynroll_plain(words, s))
+                and torch.equal(got, torch.roll(words, shift, 1))):
+            raise RuntimeError(f"K8 dynroll differs from its plain version at shift {shift}")
+    s = torch.tensor([3], dtype=torch.int32, device=dev)
+    ms = timed_ms(lambda: pp.dynroll(words, s), 200, warmup=10)
+    plain = timed_ms(lambda: pp.dynroll_plain(words, s), 50, warmup=5)
+    lib = timed_ms(lambda: torch.roll(words, 3, 1), 200, warmup=10)
+    bound = bytes_bound_ms(2 * words.numel() * 4 + 4)
+    log(f"[K8 perm_dynroll] {shape} exact at shifts 0, 3, 1023; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms (reads the shift to the host), torch.roll {lib:.4f} ms, "
+        f"bound {bound:.6f} ms (bytes)")
+    rows["perm_dynroll"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by="bytes", library_ms=lib)
+    # a launch-bound kernel's event time above is the wrapper's launch rate;
+    # the profiler gives the device's own time per launch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            pp.expand(mask, words)
+            pp.dynroll(words, s)
+        torch.cuda.synchronize()
+    dev_us = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "perm_" in e.name:
+            dev_us[re.search(r"perm_\w+", e.name).group(0)].append(
+                e.time_range.end - e.time_range.start)
+    log("[K7/K8 device] " + ", ".join(f"{n} {statistics.median(v):.2f} us median of {len(v)}"
+                                        for n, v in sorted(dev_us.items())))
     return rows
 
 
@@ -446,16 +599,18 @@ def phase_reference(dev) -> dict:
         raise RuntimeError(f"tiny train step: card and CPU losses differ: {bad}")
     log(f"[reference] vaeformer_tiny f32 train step, same weights and noise: card "
         f"{metrics['card']} vs CPU {metrics['cpu']} (within 1e-4)")
-    global_block_grads(dev)
+    global_block_grads(dev, torch.bfloat16, FLASH_GRAD_RTOL)
+    global_block_grads(dev, torch.float32, FLASH_F32_RTOL)
     return launches
 
 
-def global_block_grads(dev) -> None:
+def global_block_grads(dev, dtype, rtol) -> None:
     """One global block of the 268v towers (width 1024, 16 heads, N =
-    72 x 144 tokens) in bf16 under remat, as the train path runs it: the
-    gradients of its input, qkv and proj through FlashAttention (K4 twice,
-    K5, K6) against the same block, weights and inputs with attention on
-    the plain path, each within FLASH_GRAD_RTOL x max |ref|."""
+    72 x 144 tokens) under remat, as the train path runs it, in ``dtype``
+    (bf16 as the train path; float32 as VAEformer's and cra5_api's
+    default): the gradients of its input, qkv and proj through
+    FlashAttention (K4 twice, K5, K6) against the same block, weights and
+    inputs with attention on the plain path, each within rtol x max |ref|."""
     from cra5_tpu_torch import kernels
     from cra5_tpu_torch.models.vaeformer import vaeformer_268
     from cra5_tpu_torch.nn import blocks
@@ -465,11 +620,11 @@ def global_block_grads(dev) -> None:
     Hp, Wp = cfg.latent_grid
     gen = torch.Generator(device=dev).manual_seed(SEED)
     blk = blocks.Block(cfg.y_channels, cfg.num_heads, layer_id=cfg.interval - 1,
-                       dtype=torch.bfloat16, device=dev)
+                       dtype=dtype, device=dev)
     for m in blk.modules():
         if m is not blk and hasattr(m, "reset_parameters") and not isinstance(m, torch.nn.Linear):
             m.reset_parameters(gen)
-    x = torch.randn((1, Hp * Wp, cfg.y_channels), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((1, Hp * Wp, cfg.y_channels), generator=gen, device=dev).to(dtype)
     w = torch.randn(x.shape, generator=gen, device=dev)
     watch = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight")
     grads = {}
@@ -496,14 +651,14 @@ def global_block_grads(dev) -> None:
         del xg
         torch.cuda.empty_cache()
     errs = {k: ((grads["flash"][k].float() - ref.float()).abs().max().item(),
-                FLASH_GRAD_RTOL * ref.float().abs().max().item())
+                rtol * ref.float().abs().max().item())
             for k, ref in grads["plain"].items()}
     finite = all(bool(torch.isfinite(g).all()) for g in grads["flash"].values())
     if not finite or any(not e <= b for e, b in errs.values()):
         raise RuntimeError(f"global block gradients, flash vs plain: (err, bound) {errs}, "
                            f"finite {finite}")
-    log(f"[reference] 268v global block (1, {Hp * Wp}, {cfg.y_channels}) bf16 remat, gradients "
-        f"through FlashAttention vs the plain path, (err, bound {FLASH_GRAD_RTOL} x max|ref|): "
+    log(f"[reference] 268v global block (1, {Hp * Wp}, {cfg.y_channels}) {dtype} remat, "
+        f"gradients through FlashAttention vs the plain path, (err, bound {rtol} x max|ref|): "
         + ", ".join(f"{k} ({e:.3g}, {b:.3g})" for k, (e, b) in errs.items()))
     del blk, grads, x, w
     torch.cuda.empty_cache()
@@ -710,6 +865,125 @@ def phase_train(dev) -> dict:
     return dict(median_step_s=median, peak_bytes=peak, launches=launches)
 
 
+def phase_probe(dev) -> dict:
+    """The permutation probe on the card: its torch probes' ms, and K7/K8's
+    launches, counted over main() alone."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.profiling import perm_probe
+
+    kernels.reset_launch_counts()
+    res = perm_probe.main(dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(expand=11, dynroll=1)  # K7: a warm-up call and 10 timed ones
+    if launches != want or not res["dynroll_matches"]:
+        raise RuntimeError(f"probe launches {launches}, expected {want}")
+    log(f"[probe] ms {json.dumps(res['ms'])}; launches K7 {launches['expand']}, "
+        f"K8 {launches['dynroll']}")
+    return launches
+
+
+def _bin_symbols(api, path):
+    """(z_sym, y_sym) decoded from a .bin with the api's own coder."""
+    from cra5_tpu_torch.api.bitstream import load_bin
+
+    codec, cfg = api.codec, api.model_cfg
+    strings, z_shape = load_bin(path)
+    z_idx = codec._z_indexes((1, cfg.z_channels, *z_shape))
+    with torch.inference_mode():
+        if codec.coder == "v1":
+            z = codec._v1_decode(codec._eb_table, strings[1], z_idx)
+            scales, _ = api.net.scales_from_z_symbols(z)
+            y = codec._v1_decode(codec._gc_table, strings[0], codec._gc_indexes(scales))
+        else:
+            z = codec._eb_coder.decode_batch_to_device(strings[1], z_idx.to(api.device))
+            scales, _ = api.net.scales_from_z_symbols(z)
+            y = codec._gc_coder.decode_batch_to_device(strings[0], codec._gc_indexes(scales))
+    return z, y
+
+
+def phase_api(dev) -> dict:
+    """cra5_api(model_version=268) in float32 with seeded weights: a
+    synthetic timestep to a .bin and back with each coder."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.api.cra5_api import cra5_api
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+    ts = "2024-01-01T00:00:00"
+    t0 = time.time()
+    apis = {c: cra5_api(model_version=268, coder=c, seed=SEED, device=dev) for c in ("v2", "v1")}
+    torch.cuda.synchronize()
+    log(f"[api] cra5_api(model_version=268) float32 for coders v2 and v1, seeded, "
+        f"{sum(p.numel() for p in apis['v2'].net.parameters())} params each, {time.time() - t0:.2f} s")
+    x = apis["v2"].normalization(apis["v2"]._read_or_synthesize(ts))[None]
+    warm = apis["v2"].codec.compress(x)  # warm-up roundtrip
+    apis["v2"].codec.decompress(warm["strings"], warm["z_shape"])
+    apis["v1"].codec.update()  # the CDF tables, built at first use
+    torch.cuda.synchronize()
+
+    res, x_hats = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for c, api in apis.items():
+            api.local_root = os.path.join(root, c)
+            api.codec.stage_times = {}
+            enc = api.encode_era5_as_bin(ts, save_root=api.local_root)
+            dec = api.decode_from_bin(ts, return_format="normalized")
+            stages, api.codec.stage_times = api.codec.stage_times, None
+            x_hats[c] = dec["x_hat"]
+            y_str, z_str = enc["output"]["strings"][0][0], enc["output"]["strings"][1][0]
+            res[c] = dict(path=enc["save_path"], encode_s=enc["encoding_time"],
+                          decode_s=dec["decoding_time"], read_s=enc["reading_time"],
+                          save_s=enc["saving_time"], file_bytes=os.path.getsize(enc["save_path"]),
+                          y_bytes=len(y_str), z_bytes=len(z_str), y_string=y_str,
+                          stages=stages)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        # the v2 y stream takes K3 when it is sorted and kernel-safe, else K2
+        yh = parse_v2_header(res["v2"]["y_string"])
+        k3 = int(yh[4] and yh[5])
+        want = {k: 0 for k in launches}
+        want.update(rans_encode=2, rans_decode_generic=2 - k3, rans_decode_sorted=k3,
+                    flash_attention_forward=14)
+        if launches != want:
+            raise RuntimeError(f"API launches {launches}, expected {want}")
+        with torch.inference_mode():
+            enc_sym = apis["v2"].net.encode_symbols(torch.as_tensor(x, device=dev))
+        dec_sym = {c: _bin_symbols(api, res[c]["path"]) for c, api in apis.items()}
+        for c, (z, y) in dec_sym.items():
+            if not (torch.equal(z, enc_sym["z_sym"]) and torch.equal(y, enc_sym["y_sym"])):
+                raise RuntimeError(f"the {c} .bin does not decode to the encoder's symbols")
+        if not torch.equal(dec_sym["v2"][0], dec_sym["v1"][0]):
+            raise RuntimeError("the v2 and v1 files give different z symbols")
+        cfg = apis["v2"].model_cfg
+        shape = (1, cfg.in_chans, *cfg.img_size)
+        for c, xh in x_hats.items():
+            if tuple(xh.shape) != shape or xh.dtype != torch.float32 or not torch.isfinite(xh).all():
+                raise RuntimeError(f"{c}: x_hat {tuple(xh.shape)} {xh.dtype} is not a finite "
+                                   f"full-size float32 field")
+        field = apis["v1"].decode_from_bin(ts)["x_hat"]  # the default, de-normalized numpy
+        if field.shape != shape[1:] or not np.isfinite(field).all():
+            raise RuntimeError(f"decode_from_bin's de-normalized field {field.shape} is not finite")
+    for c, r in res.items():
+        log(f"[api] coder {c}: compress {r['encode_s']:.4f} s, decompress {r['decode_s']:.4f} s "
+            f"(normalized x_hat on the card); .bin {r['file_bytes']} B (y {r['y_bytes']}, z "
+            f"{r['z_bytes']}); read/synthesize {r['read_s']:.2f} s, save {r['save_s']:.4f} s")
+        log(f"[api] coder {c} stages (each ends in a synchronize): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in r["stages"].items()))
+    log(f"[api] symbols decode exactly from both files, z equal across coders; x_hat "
+        f"{shape} finite; v2 y header {yh}; peak {peak / 2**30:.2f} GiB; launches {launches}")
+    del apis, x_hats, enc_sym, dec_sym
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     device = phase_card()
     dev = torch.device("cuda", 0)
@@ -725,12 +999,17 @@ def main() -> int:
     del codec, x
     torch.cuda.empty_cache()
     train_res = phase_train(dev)
+    torch.cuda.empty_cache()
+    probe_launches = phase_probe(dev)
+    api_launches = phase_api(dev)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
-    # codec's decompress on the card, and the three timed train steps.
-    # K2 (rans_decode_generic) replaces both decode_scan_pallas (:705) and
-    # decode_rowplan_pallas (:368); its entry names the former.
-    paths = (main_res["launches"], ref_launches, train_res["launches"])
+    # codec's decompress on the card, the three timed train steps, the
+    # probe and the API's two .bin roundtrips. K2 (rans_decode_generic)
+    # replaces both decode_scan_pallas (:705) and decode_rowplan_pallas
+    # (:368); its entry names the former.
+    paths = (main_res["launches"], ref_launches, train_res["launches"], probe_launches,
+             api_launches)
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -746,6 +1025,10 @@ def main() -> int:
         "flash_attn_bwd_dkv": ("flash_attention_backward_dkv",
                                "cra5_tpu_torch/csrc/flash_attn_bwd.cu",
                                "cra5_tpu/ops/attention.py:189"),
+        "perm_expand": ("expand", "cra5_tpu_torch/csrc/perm_probe.cu",
+                        "profiling/_perm_probe.py:141"),
+        "perm_dynroll": ("dynroll", "cra5_tpu_torch/csrc/perm_probe.cu",
+                         "profiling/_perm_probe.py:160"),
     }
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():

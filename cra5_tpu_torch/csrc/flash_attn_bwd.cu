@@ -23,11 +23,15 @@
 // their products. The ragged key tail is masked (-1e30) in K5; query rows
 // past N get P = 0 in K6. No atomics: the result is deterministic.
 // Later work: wgmma, TMA loads and one pass sharing P between dQ and dK/dV.
+//
+// Float32 operands take second entries (cra5_flash_attn_bwd_dq_f32,
+// cra5_flash_attn_bwd_dkv_f32): SIMT tiles in full float32 (flash_f32.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -295,6 +299,125 @@ int tile_blocks(int BH, int N, int* ntiles) {
 
 }  // namespace
 
+namespace cra5::f32attn {
+namespace {
+
+// The float32 backward: SIMT tiles (flash_f32.cuh), the same walks as K5
+// and K6 above with one row held by two threads, each keeping half of the
+// row's operands and accumulators in registers. Numerics are the TPU
+// kernels' with float32 inputs: K5 with q pre-scaled in float32, K6 with
+// the float32 logits of raw q scaled; dS and P multiply unrounded, and
+// dq, dk are scaled once at the end. Bound: FP32 operations (K5 6*N*N*D
+// per head, K6 8*N*N*D) at 67 TFLOP/s.
+// Rows walked per step. A staged row feeds both a dot product and an
+// update, so the compiler keeps it in registers across the step: K5 holds
+// 3 x 32 floats of its own plus 32 per key, K6 4 x 32 plus 64 per query.
+constexpr int kKeyStep = 2;    // K5: keys per step
+constexpr int kQueryStep = 1;  // K6: queries per step
+
+__global__ void __launch_bounds__(kThreads)
+    flash_attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 float* __restrict__ dq, int N, int nqb, float scale) {
+  __shared__ __align__(16) float sK[kTile * kLd];
+  __shared__ __align__(16) float sV[kTile * kLd];
+
+  const int bh = blockIdx.x / nqb;
+  const int row = (blockIdx.x % nqb) * kRows + (threadIdx.x >> 1);
+  const int h = threadIdx.x & 1;
+  const int hoff = h ? kHoff : 0;
+  const size_t base = (size_t)bh * N * kD;
+  const bool valid = row < N;
+
+  float qh[kHalf], oh[kHalf], acc[kHalf];
+  load_half(qh, q + base + (size_t)row * kD, h, valid, scale);
+  load_half(oh, dout + base + (size_t)row * kD, h, valid, 1.f);
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) acc[i] = 0.f;
+  const float lse_r = valid ? lse[(size_t)bh * N + row] : 0.f;
+  const float dl_r = valid ? delta[(size_t)bh * N + row] : 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    stage(sK, k + base, k0, N);
+    stage(sV, v + base, k0, N);
+    __syncthreads();
+    const int nk = min(kTile, N - k0);
+    for (int j0 = 0; j0 < nk; j0 += kKeyStep) {
+      float ds[kKeyStep];
+#pragma unroll
+      for (int j = 0; j < kKeyStep; ++j) {
+        const float s = pair_dot(qh, sK + (j0 + j) * kLd + hoff);   // (q * scale) k
+        const float dp = pair_dot(oh, sV + (j0 + j) * kLd + hoff);  // dO v
+        ds[j] = j0 + j < nk ? expf(s - lse_r) * (dp - dl_r) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kKeyStep; ++j) half_axpy(acc, ds[j], sK + (j0 + j) * kLd + hoff);
+    }
+  }
+  if (valid) store_half(dq + base + (size_t)row * kD, acc, h, scale);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flash_attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  float* __restrict__ dk, float* __restrict__ dv, int N, int nkb,
+                                  float scale) {
+  __shared__ __align__(16) float sQ[kTile * kLd];
+  __shared__ __align__(16) float sO[kTile * kLd];
+  __shared__ float sL[kTile];
+  __shared__ float sD[kTile];
+
+  const int bh = blockIdx.x / nkb;
+  const int row = (blockIdx.x % nkb) * kRows + (threadIdx.x >> 1);
+  const int h = threadIdx.x & 1;
+  const int hoff = h ? kHoff : 0;
+  const size_t base = (size_t)bh * N * kD;
+  const bool valid = row < N;
+
+  float kh[kHalf], vh[kHalf], dk_acc[kHalf], dv_acc[kHalf];
+  load_half(kh, k + base + (size_t)row * kD, h, valid, 1.f);
+  load_half(vh, v + base + (size_t)row * kD, h, valid, 1.f);
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int q0 = 0; q0 < N; q0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    stage(sQ, q + base, q0, N);
+    stage(sO, dout + base, q0, N);
+    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+      const bool in = q0 + i < N;
+      sL[i] = in ? lse[(size_t)bh * N + q0 + i] : 0.f;
+      sD[i] = in ? delta[(size_t)bh * N + q0 + i] : 0.f;
+    }
+    __syncthreads();
+    const int nq = min(kTile, N - q0);
+    for (int i0 = 0; i0 < nq; i0 += kQueryStep) {
+      float p[kQueryStep], ds[kQueryStep];
+#pragma unroll
+      for (int i = 0; i < kQueryStep; ++i) {
+        const float s = pair_dot(kh, sQ + (i0 + i) * kLd + hoff);   // k q
+        const float dp = pair_dot(vh, sO + (i0 + i) * kLd + hoff);  // v dO
+        p[i] = i0 + i < nq ? expf(s * scale - sL[i0 + i]) : 0.f;
+        ds[i] = p[i] * (dp - sD[i0 + i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kQueryStep; ++i) {
+        half_axpy(dv_acc, p[i], sO + (i0 + i) * kLd + hoff);   // dV += P^T dO
+        half_axpy(dk_acc, ds[i], sQ + (i0 + i) * kLd + hoff);  // dK += dS^T Q
+      }
+    }
+  }
+  if (!valid) return;
+  store_half(dk + base + (size_t)row * kD, dk_acc, h, scale);
+  store_half(dv + base + (size_t)row * kD, dv_acc, h, 1.f);
+}
+
+}  // namespace
+}  // namespace cra5::f32attn
+
 // q, k, v, dout, dq: (BH, N, D) bf16 contiguous; lse, delta: (BH, N) f32.
 extern "C" int cra5_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
@@ -322,5 +445,35 @@ extern "C" int cra5_flash_attn_bwd_dkv(const void* q, const void* k, const void*
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N, nkb, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, dout, dq: (BH, N, D) float32 contiguous; lse, delta: (BH, N) f32.
+extern "C" int cra5_flash_attn_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, int BH, int N, int D, float scale,
+                                          void* stream) {
+  namespace fa = cra5::f32attn;
+  int nqb;
+  const int blocks = fa::row_blocks(BH, N, &nqb);
+  if (D != fa::kD || blocks <= 0) return (int)cudaErrorInvalidValue;
+  fa::flash_attn_bwd_dq_f32_kernel<<<blocks, fa::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, N, nqb, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, dout, dk, dv: (BH, N, D) float32 contiguous; lse, delta: (BH, N) f32.
+extern "C" int cra5_flash_attn_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dk, void* dv, int BH,
+                                           int N, int D, float scale, void* stream) {
+  namespace fa = cra5::f32attn;
+  int nkb;
+  const int blocks = fa::row_blocks(BH, N, &nkb);
+  if (D != fa::kD || blocks <= 0) return (int)cudaErrorInvalidValue;
+  fa::flash_attn_bwd_dkv_f32_kernel<<<blocks, fa::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, N, nkb, scale);
   return (int)cudaGetLastError();
 }

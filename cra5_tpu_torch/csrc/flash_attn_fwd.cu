@@ -12,11 +12,16 @@
 // product while its row sums stay float32, and only the ragged tail tile
 // is masked (-1e30). No atomics: the result is deterministic.
 // Later work: wgmma, TMA loads and a pipelined K/V ring.
+//
+// Float32 operands take a second entry, cra5_flash_attn_fwd_f32, a SIMT
+// tile in full float32 (flash_f32.cuh), with the TPU kernel's numerics for
+// float32 inputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -194,6 +199,81 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+namespace cra5::f32attn {
+namespace {
+
+// The float32 forward: a SIMT tile (flash_f32.cuh). One block of 128
+// threads owns 64 query rows, two threads a row, each holding half of its
+// pre-scaled q and of its output accumulator in registers; keys and values
+// are staged 64 rows at a time, and the online softmax rescales once per
+// 16 keys. As in the TPU kernel with float32 inputs, q is scaled in
+// float32 and P multiplies V unrounded. Bound: FP32 operations, 4*N*N*D
+// per head at 67 TFLOP/s (the tile is limited by its shared-memory reads,
+// one float4 for every four FFMAs).
+constexpr int kChunk = 16;
+
+__global__ void __launch_bounds__(kThreads)
+    flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ out,
+                              float* __restrict__ lse, int N, int nqb, float scale) {
+  __shared__ __align__(16) float sK[kTile * kLd];
+  __shared__ __align__(16) float sV[kTile * kLd];
+
+  const int bh = blockIdx.x / nqb;
+  const int row = (blockIdx.x % nqb) * kRows + (threadIdx.x >> 1);
+  const int h = threadIdx.x & 1;
+  const int hoff = h ? kHoff : 0;
+  const size_t base = (size_t)bh * N * kD;
+  const bool valid = row < N;
+
+  float qh[kHalf], acc[kHalf];
+  load_half(qh, q + base + (size_t)row * kD, h, valid, scale);
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    stage(sK, k + base, k0, N);
+    stage(sV, v + base, k0, N);
+    __syncthreads();
+    const int nk = min(kTile, N - k0);
+    for (int j0 = 0; j0 < nk; j0 += kChunk) {
+      float s[kChunk];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float t = pair_dot(qh, sK + (j0 + j) * kLd + hoff);
+        s[j] = j0 + j < nk ? t : kNegInf;  // the ragged tail
+        mx = fmaxf(mx, s[j]);
+      }
+      const float m_new = fmaxf(m, mx);
+      const float alpha = expf(m - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        s[j] = expf(s[j] - m_new);
+        psum += s[j];
+      }
+      l = l * alpha + psum;
+      m = m_new;
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) half_axpy(acc, s[j], sV + (j0 + j) * kLd + hoff);
+    }
+  }
+  if (!valid) return;
+  l = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) acc[i] /= l;
+  store_half(out + base + (size_t)row * kD, acc, h, 1.f);
+  if (h == 0) lse[(size_t)bh * N + row] = m + logf(l);
+}
+
+}  // namespace
+}  // namespace cra5::f32attn
+
 // q, k, v, out: (BH, N, D) bf16 contiguous; lse: (BH, N) float32.
 extern "C" int cra5_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int BH, int N, int D,
@@ -205,5 +285,19 @@ extern "C" int cra5_flash_attn_fwd(const void* q, const void* k, const void* v,
   flash_attn_fwd_kernel<64><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, (float*)lse, N, nqb, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, out: (BH, N, D) float32 contiguous; lse: (BH, N) float32.
+extern "C" int cra5_flash_attn_fwd_f32(const void* q, const void* k, const void* v,
+                                       void* out, void* lse, int BH, int N, int D,
+                                       float scale, void* stream) {
+  namespace fa = cra5::f32attn;
+  int nqb;
+  const int blocks = fa::row_blocks(BH, N, &nqb);
+  if (D != fa::kD || blocks <= 0) return (int)cudaErrorInvalidValue;
+  fa::flash_attn_fwd_f32_kernel<<<blocks, fa::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, N, nqb,
+      scale);
   return (int)cudaGetLastError();
 }

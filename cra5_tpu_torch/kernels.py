@@ -39,6 +39,11 @@ _SIGNATURES = {
     "cra5_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cra5_flash_attn_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cra5_flash_attn_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cra5_flash_attn_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cra5_perm_expand": [_P, _P, _P, _I, _P],
+    "cra5_perm_dynroll": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

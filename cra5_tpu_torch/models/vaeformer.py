@@ -6,7 +6,9 @@ Counterpart of ``cra5_tpu/models/vaeformer.py``: the training forward
 ``VAEformer`` is an ``nn.Module`` whose weights come either from the JAX
 package (``convert.load_flax_variables``) or from its own seeded init
 (``reset_parameters``, mirroring the flax initializers);
-``VAEformerCodec`` owns the CDF tables and lane coders around it.
+``VAEformerCodec`` owns the CDF tables and the coders around it: the v2
+lane rANS on the device, or the v1 serial rANS of the published archives
+on the host.
 
 dtype: in a bfloat16 model every tower computes in bfloat16, while every
 parameter stays float32 and is cast where it is used, as in the JAX
@@ -21,13 +23,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..coder.lane_coder import LaneCoder
+from ..coder import native
+from ..coder.lane_coder import LaneCoder, _unwrap_bytes
 from ..device import resolve_device
 from ..entropy import (
     EntropyBottleneck,
@@ -277,8 +280,14 @@ class VAEformer(nn.Module):
 
 class VAEformerCodec:
     """compress / decompress around a VAEformer: owns the CDF tables and
-    the v2 lane coders, on the model's device. Strings come back in the
-    [[y_string, ...], [z_string, ...]] nesting.
+    the coders, on the model's device. Strings come back in the
+    [[y_string, ...], [z_string, ...]] nesting, one string per sample.
+
+    ``coder="v2"`` writes the lane-rANS streams (CRX2) on the device;
+    ``coder="v1"`` writes the serial rANS streams of the published CRA5
+    archives with the host coder (``coder/native.py``): symbols and CDF
+    indexes are made on the device, cross to the host, and are coded there
+    sample by sample.
 
     Every stage of compress and decompress is a ``torch.profiler`` range
     named ``compress/<stage>`` or ``decompress/<stage>``. When
@@ -286,9 +295,13 @@ class VAEformerCodec:
     and records its host seconds there under that name (stages then no
     longer overlap, so their sum exceeds an unsynchronised roundtrip)."""
 
-    def __init__(self, model: VAEformer, scale_table: Optional[np.ndarray] = None):
+    def __init__(self, model: VAEformer, coder: str = "v2",
+                 scale_table: Optional[np.ndarray] = None):
+        if coder not in ("v1", "v2"):
+            raise ValueError(f"unknown coder {coder!r}: 'v1' or 'v2'")
         self.model = model
         self.device = model.device
+        self.coder = coder
         self.scale_table = (
             np.asarray(scale_table, np.float32) if scale_table is not None else get_scale_table()
         )
@@ -317,8 +330,9 @@ class VAEformerCodec:
 
     def set_tables(self, eb_table: CdfTable, gc_table: CdfTable) -> None:
         self._eb_table, self._gc_table = eb_table, gc_table
-        self._eb_coder = LaneCoder(eb_table, device=self.device)
-        self._gc_coder = LaneCoder(gc_table, device=self.device)
+        if self.coder == "v2":
+            self._eb_coder = LaneCoder(eb_table, device=self.device)
+            self._gc_coder = LaneCoder(gc_table, device=self.device)
 
     def _gc_indexes(self, scales: torch.Tensor) -> torch.Tensor:
         return build_indexes(scales.float(), self._scale_table_dev)
@@ -328,6 +342,22 @@ class VAEformerCodec:
         B, C, H, W = z_shape
         return torch.arange(C, dtype=torch.int32).reshape(1, C, 1, 1).expand(B, C, H, W)
 
+    @staticmethod
+    def _v1_encode(table: CdfTable, sym: torch.Tensor, idx: torch.Tensor) -> List[bytes]:
+        """One v1 stream per sample, on the host."""
+        sym, idx = sym.cpu().numpy(), idx.cpu().numpy()
+        tabs = (table.quantized_cdf, table.cdf_length, table.offset)
+        return [native.encode_with_indexes(sym[b], idx[b], *tabs) for b in range(sym.shape[0])]
+
+    def _v1_decode(self, table: CdfTable, strings, idx: torch.Tensor) -> torch.Tensor:
+        """Decode one v1 stream per sample on the host; the symbols go to
+        the device."""
+        idx = idx.cpu().numpy()
+        tabs = (table.quantized_cdf, table.cdf_length, table.offset)
+        sym = np.stack([native.decode_with_indexes(_unwrap_bytes(strings[b]), idx[b], *tabs)
+                        for b in range(idx.shape[0])])
+        return torch.from_numpy(sym).to(self.device)
+
     @torch.inference_mode()
     def compress(self, x) -> Dict[str, Any]:
         if self._eb_table is None:
@@ -336,9 +366,29 @@ class VAEformerCodec:
             x = torch.as_tensor(x, device=self.device)
         with self._stage("compress/g_a"):  # g_a + quant_conv
             y = self.model.encode_latent(x)
+        return self._compress_latent(y)
+
+    @torch.inference_mode()
+    def compress_from_latent(self, y) -> Dict[str, Any]:
+        """compress from a (B, embed_dim, H/10, W/10) latent, as the
+        archive writer of a latent that was stored or edited."""
+        if self._eb_table is None:
+            self.update()
+        return self._compress_latent(torch.as_tensor(y, device=self.device))
+
+    def _compress_latent(self, y: torch.Tensor) -> Dict[str, Any]:
         with self._stage("compress/hyper"):  # h_a, z symbols, h_s, y symbols
             out = self.model.symbols_from_latent(y)
         z_sym = out["z_sym"]
+        B = z_sym.shape[0]
+        zs = tuple(int(s) for s in z_sym.shape[-2:])
+        if self.coder == "v1":
+            with self._stage("compress/encode_z"):  # to the host, serial rANS
+                z_strings = self._v1_encode(self._eb_table, z_sym, self._z_indexes(z_sym.shape))
+            with self._stage("compress/encode_y"):  # GC indexes, to the host, serial rANS
+                y_strings = self._v1_encode(self._gc_table, out["y_sym"],
+                                            self._gc_indexes(out["scales"]))
+            return {"strings": [y_strings, z_strings], "z_shape": zs, "shape": zs}
         with self._stage("compress/encode_z"):
             z_idx = self._z_indexes(z_sym.shape).to(self.device)
             handles = self._eb_coder.encode_dispatch_batch(z_sym, z_idx)
@@ -347,28 +397,55 @@ class VAEformerCodec:
             handles += self._gc_coder.encode_dispatch_batch(out["y_sym"], gc_idx)
         with self._stage("compress/finalize"):  # to the host, containers, varints
             streams = LaneCoder.encode_finalize_many(handles)
-        B = z_sym.shape[0]
-        zs = tuple(int(s) for s in z_sym.shape[-2:])
         return {"strings": [streams[B:], streams[:B]], "z_shape": zs, "shape": zs}
 
     @torch.inference_mode()
-    def decompress(self, strings: Sequence, z_shape: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+    def decompress(self, strings: Sequence, z_shape: Tuple[int, int],
+                   return_format: str = "reconstructed"):
+        """{"x_hat": (B, C, H, W)}, or with ``return_format="latent"`` the
+        dequantized latent y_sym + means as a float32 tensor."""
+        if return_format not in ("reconstructed", "latent"):
+            raise ValueError(f"unknown return_format {return_format!r}")
         if self._eb_table is None:
             self.update()
         y_strings, z_strings = strings[0], strings[1]
         B = len(z_strings)
         cfg = self.model.cfg
         g = cfg.latent_grid
-        with self._stage("decompress/upload_y"):  # varints, to the card
-            y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
         full_z = (B, cfg.z_channels, int(z_shape[0]), int(z_shape[1]))
-        with self._stage("decompress/decode_z"):  # K2
-            z_sym = self._eb_coder.decode_batch_to_device(
-                list(z_strings), self._z_indexes(full_z).to(self.device))
-        with self._stage("decompress/h_s"):
-            scales, means = self.model.scales_from_z_symbols(z_sym)
-        with self._stage("decompress/decode_y"):  # GC indexes, sort, merge, K3
-            y_sym = self._gc_coder.decode_uploaded_batch(y_up, self._gc_indexes(scales))
+        if self.coder == "v1":
+            with self._stage("decompress/decode_z"):  # serial rANS, to the card
+                z_sym = self._v1_decode(self._eb_table, z_strings, self._z_indexes(full_z))
+            with self._stage("decompress/h_s"):
+                scales, means = self.model.scales_from_z_symbols(z_sym)
+            with self._stage("decompress/decode_y"):  # GC indexes to the host, serial rANS
+                y_sym = self._v1_decode(self._gc_table, y_strings, self._gc_indexes(scales))
+        else:
+            with self._stage("decompress/upload_y"):  # varints, to the card
+                y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
+            with self._stage("decompress/decode_z"):  # K2
+                z_sym = self._eb_coder.decode_batch_to_device(
+                    list(z_strings), self._z_indexes(full_z).to(self.device))
+            with self._stage("decompress/h_s"):
+                scales, means = self.model.scales_from_z_symbols(z_sym)
+            with self._stage("decompress/decode_y"):  # GC indexes, sort, merge, K3
+                y_sym = self._gc_coder.decode_uploaded_batch(y_up, self._gc_indexes(scales))
+        if return_format == "latent":
+            return y_sym.to(torch.float32) + means
         with self._stage("decompress/g_s"):  # post_quant_conv + g_s
             x_hat = self.model.reconstruct_from_y_symbols(y_sym, means)
         return {"x_hat": x_hat}
+
+    # the float paths, on the codec's device
+    @torch.inference_mode()
+    def forward(self, x) -> Dict[str, Any]:
+        """The model's eval forward: x_hat, likelihoods, posterior."""
+        return self.model(torch.as_tensor(x, device=self.device))
+
+    @torch.inference_mode()
+    def encode_latent(self, x) -> torch.Tensor:
+        return self.model.encode_latent(torch.as_tensor(x, device=self.device))
+
+    @torch.inference_mode()
+    def decode_latent(self, y_hat) -> torch.Tensor:
+        return self.model.decode_y(torch.as_tensor(y_hat, device=self.device))

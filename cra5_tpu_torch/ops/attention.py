@@ -3,8 +3,9 @@ plain PyTorch version, and the differentiable ``flash_attention``.
 
 Counterpart of ``cra5_tpu/ops/attention.py``. Given CUDA tensors a wrapper
 launches its kernel (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``;
-bf16, head dim 64) and counts the launch; given CPU tensors it runs the
-plain version. ``FlashAttention`` is the ``custom_vjp`` of the JAX package
+head dim 64, bf16 on tensor cores or float32 on a SIMT tile in full
+float32) and counts the launch; given CPU tensors it runs the plain
+version. ``FlashAttention`` is the ``custom_vjp`` of the JAX package
 as a ``torch.autograd.Function``: its forward keeps (q, k, v, out, lse)
 and its backward runs the two backward kernels, so no (N, N) logits are
 ever kept for autograd.
@@ -30,6 +31,9 @@ import torch
 from .. import kernels
 
 
+_KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """float32 statistics and sums, or float64 for float64 inputs."""
     return torch.promote_types(dtype, torch.float32)
@@ -47,14 +51,17 @@ def _check_qkv(*ts: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_kernel_operands(*ts: torch.Tensor) -> None:
+def _kernel_entry(name: str, *ts: torch.Tensor):
+    """The C entry for the operands' dtype: ``name`` for bf16, ``name_f32``
+    for float32 (a SIMT tile in full float32), head dim 64 both."""
     D = ts[0].shape[-1]
-    if ts[0].dtype != torch.bfloat16 or D != 64:
+    if ts[0].dtype not in _KERNEL_DTYPES or D != 64:
         raise NotImplementedError(
-            f"the flash kernels take bf16 with head dim 64, got {ts[0].dtype} and {D}")
+            f"the flash kernels take bf16 or float32 with head dim 64, got {ts[0].dtype} and {D}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the flash kernels' operands must be contiguous and 16-byte aligned")
+    return getattr(kernels.lib(), name + _KERNEL_DTYPES[ts[0].dtype])
 
 
 def _stream(t: torch.Tensor):
@@ -90,11 +97,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    _check_kernel_operands(q, k, v)
+    entry = _kernel_entry("cra5_flash_attn_fwd", q, k, v)
     B, H, N, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    status = kernels.lib().cra5_flash_attn_fwd(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B * H, N, D, float(scale), _stream(q),
     )
@@ -136,10 +143,10 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, scale: float):
     _check_backward(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, scale)
-    _check_kernel_operands(q, k, v, dout, lse, delta)
+    entry = _kernel_entry("cra5_flash_attn_bwd_dq", q, k, v, dout, lse, delta)
     B, H, N, D = q.shape
     dq = torch.empty_like(q)
-    status = kernels.lib().cra5_flash_attn_bwd_dq(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B * H, N, D, float(scale), _stream(q),
     )
@@ -171,10 +178,10 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, scale: float):
     _check_backward(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, scale)
-    _check_kernel_operands(q, k, v, dout, lse, delta)
+    entry = _kernel_entry("cra5_flash_attn_bwd_dkv", q, k, v, dout, lse, delta)
     B, H, N, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = kernels.lib().cra5_flash_attn_bwd_dkv(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, float(scale),
         _stream(q),

@@ -26,6 +26,11 @@ def save_variables(path: str, params: Dict[str, torch.Tensor]) -> str:
     return path
 
 
+def load_variables(path: str) -> Dict[str, torch.Tensor]:
+    """The params of a ``save_variables`` file, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
+
 def resolve_last_checkpoint(ckpt_dir: str, pointer_name: str = "last_checkpoint") -> str:
     pointer = os.path.join(ckpt_dir, pointer_name)
     if os.path.exists(pointer):

@@ -1,7 +1,9 @@
 """Training losses: rate-distortion with optional learned-log-variance
 weighting, and the KL-weighted VAE loss.
 
-Counterpart of ``cra5_tpu/train/loss.py``. The promotions match the JAX
+Counterpart of ``cra5_tpu/train/loss.py``; the distortion is lambda * MSE,
+the learned-log-variance MSE, or lambda * (1 - MS-SSIM) (``metrics.py``).
+``bpp_from_likelihoods`` is the metrics module's. The promotions match the JAX
 package: ``target - x_hat`` is float32 for a float32 target and a bf16
 x_hat, and ``log(likelihood)`` is taken in the likelihood's own dtype
 (float32 from both entropy models).
@@ -10,15 +12,11 @@ x_hat, and ``log(likelihood)`` is taken in the likelihood's own dtype
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-
-def bpp_from_likelihoods(likelihoods: Dict[str, torch.Tensor], num_pixels: int) -> torch.Tensor:
-    """Bits per pixel implied by the likelihoods: -sum(log2 l) / pixels."""
-    return sum(torch.log(l).sum() / (-math.log(2) * num_pixels) for l in likelihoods.values())
+from ..metrics import MSSSIM_WEIGHTS, bpp_from_likelihoods, ms_ssim
 
 
 @dataclasses.dataclass
@@ -27,6 +25,9 @@ class RateDistortionLoss:
     bpp_weight: float = 0.01
     metric: str = "mse"
     learn_log_variance: bool = False
+    # MS-SSIM scale weights; fewer than the 5 defaults for images smaller
+    # than 176 px (metrics.ms_ssim)
+    ms_ssim_weights: Optional[Sequence[float]] = None
 
     def __call__(self, output: Dict[str, Any], target: torch.Tensor,
                  logvar: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -39,13 +40,14 @@ class RateDistortionLoss:
                 out["mse_loss"] = (rec / torch.exp(logvar) + logvar).mean()
             else:
                 out["mse_loss"] = self.lmbda * rec.mean()
+            dist = out["mse_loss"]
         elif self.metric in ("ms-ssim", "ms_ssim"):
-            raise NotImplementedError(
-                "the ms-ssim distortion needs metrics.py's ms_ssim, which is not "
-                "ported yet (ROADMAP.md queue A3)")
+            out["ms_ssim_loss"] = self.lmbda * (1.0 - ms_ssim(
+                output["x_hat"], target, weights=self.ms_ssim_weights or MSSSIM_WEIGHTS))
+            dist = out["ms_ssim_loss"]
         else:
             raise NotImplementedError(f"metric {self.metric!r}")
-        out["loss"] = out["bpp_loss"] + out["mse_loss"]
+        out["loss"] = out["bpp_loss"] + dist
         return out
 
 

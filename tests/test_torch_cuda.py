@@ -9,9 +9,9 @@ tests. This file imports no JAX, and it uses no fixture of
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are small and ragged (lane counts and sequence lengths off the
-kernels' tile and block sizes). K1-K3 and the generic lane decode must
-equal their plain versions exactly; K4-K6 must agree within the bf16
-tolerances stated below.
+kernels' tile and block sizes). K1-K3, the generic lane decode, K7 and K8
+must equal their plain versions exactly; K4-K6 must agree within the bf16
+and float32 tolerances stated below.
 """
 
 import numpy as np
@@ -29,6 +29,7 @@ from cra5_tpu_torch.coder.lane_coder import (
 )
 from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update, gc_update, get_scale_table
 from cra5_tpu_torch.entropy.cdf import CdfTable
+from cra5_tpu_torch.profiling import perm_probe as pp
 from cra5_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_backward_dkv,
@@ -55,6 +56,14 @@ FLASH_LSE_ATOL = 2e-3
 # versions, and round dq/dk/dv to bf16 once. Each is bounded as out is:
 # max |got - ref| <= 2e-2 * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
+# K4-K6 with float32 operands against the float32 plain versions: no
+# rounding point differs, only the order of float32 sums. The plain
+# versions sum in blocks (within 1.3e-6 x max |ref| of float64 for out,
+# dq, dk and dv at N = 1000 and 10368 on the CPU); the kernels carry one
+# running sum over N, about 5e-6 x max |ref| from them at N = 10368 on an
+# H100. The bound is 1e-5 x max |ref|, and lse (|lse| < 10) within 1e-5.
+FLASH_F32_RTOL = 1e-5
+FLASH_F32_LSE_ATOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -329,3 +338,105 @@ def test_flash_attention_gradients_on_the_card_match_the_plain_path(card, rng):
         grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu() for t in qkv]
     for got, ref in zip(grads["cuda"], grads["cpu"]):
         assert _close(got, ref)
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 1, 2), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
+def test_flash_attn_f32_close_to_plain(card, rng, B, H, N):
+    """K4, K5 and K6 on float32 operands (the SIMT entries) against the
+    float32 plain versions. N = 1 is left out: with one key dS = dP - delta
+    is zero but for rounding, so dk is rounding noise on both sides and no
+    bound relative to it holds."""
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32) * 1.5)
+                   .to(card) for _ in range(4))
+    before = tuple(f.launches for f in (flash_attention_forward, flash_attention_backward_dq,
+                                        flash_attention_backward_dkv))
+    out, lse = flash_attention_forward(q, k, v, 0.125)
+    ref, ref_lse = flash_attention_plain(q, k, v, 0.125)
+    delta = (do * ref).sum(-1)
+    ops = (q, k, v, do, ref_lse, delta, 0.125)
+    dq = flash_attention_backward_dq(*ops)
+    dk, dv = flash_attention_backward_dkv(*ops)
+    torch.cuda.synchronize()
+    after = tuple(f.launches for f in (flash_attention_forward, flash_attention_backward_dq,
+                                       flash_attention_backward_dkv))
+    assert after == tuple(b + 1 for b in before)
+    assert (lse - ref_lse).abs().max().item() <= FLASH_F32_LSE_ATOL
+    pairs = [(out, ref), (dq, flash_attention_backward_dq_plain(*ops)),
+             *zip((dk, dv), flash_attention_backward_dkv_plain(*ops))]
+    for got, want in pairs:
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        bound = FLASH_F32_RTOL * want.abs().max().item()
+        assert (got - want).abs().max().item() <= bound
+
+
+def test_268v_global_block_f32_through_flash_matches_the_plain_path(card):
+    """One global block of the 268v towers in float32 (N = 72 x 144 = 10368
+    tokens, width 1024, 16 heads), the default dtype of VAEformer and
+    cra5_api: its output and the gradients of its input, qkv and proj
+    through FlashAttention (K4, K5, K6 on float32) against the same block
+    with attention on the plain path, each within FLASH_F32_RTOL x max
+    |ref|. The float32 kernels raised NotImplementedError before they
+    existed, so VAEformer(vaeformer_268()) could not run on the card."""
+    from cra5_tpu_torch.models.vaeformer import vaeformer_268
+    from cra5_tpu_torch.nn import blocks
+
+    cfg = vaeformer_268()
+    Hp, Wp = cfg.latent_grid
+    gen = torch.Generator(device=card).manual_seed(0)
+    blk = blocks.Block(cfg.y_channels, cfg.num_heads, layer_id=cfg.interval - 1, device=card)
+    for m in blk.modules():
+        if m is not blk and hasattr(m, "reset_parameters") and not isinstance(m, torch.nn.Linear):
+            m.reset_parameters(gen)
+    x = torch.randn((1, Hp * Wp, cfg.y_channels), generator=gen, device=card)
+    w = torch.randn(x.shape, generator=gen, device=card)
+    watch = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight")
+    got = {}
+    use_flash = blocks._use_flash
+    for route in ("flash", "plain"):
+        if route == "plain":
+            blocks._use_flash = lambda *a: False
+        try:
+            kernels.reset_launch_counts()
+            blk.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            y = blk(xg, Hp, Wp)
+            (y * w).sum().backward()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            blocks._use_flash = use_flash
+        params = dict(blk.named_parameters())
+        got[route] = {"y": y.detach(), "x": xg.grad, **{k: params[k].grad for k in watch}}
+        want = (1, 1, 1) if route == "flash" else (0, 0, 0)
+        assert tuple(launches[k] for k in ("flash_attention_forward", "flash_attention_backward_dq",
+                                           "flash_attention_backward_dkv")) == want
+    for key, ref in got["plain"].items():
+        out = got["flash"][key]
+        assert out.dtype == torch.float32 and torch.isfinite(out).all(), key
+        assert (out - ref).abs().max().item() <= FLASH_F32_RTOL * ref.abs().max().item(), key
+
+
+@pytest.mark.parametrize("R,Kd,density", [(8, 1024, 0.0), (8, 1024, 0.6), (8, 1024, 1.0),
+                                          (16, 1024, 0.6), (3, 32, 0.5), (1, 64, 0.3)])
+def test_expand_equals_plain(card, rng, R, Kd, density):
+    """K7 in one block: (16, 1024) takes 64 KiB of dynamic shared memory,
+    (3, 32) and (1, 64) fewer than 1024 threads."""
+    mask = torch.from_numpy((rng.random((R, Kd)) < density).astype(np.int32)).to(card)
+    words = torch.from_numpy(rng.integers(0, 1 << 16, (R, Kd)).astype(np.int32)).to(card)
+    before = pp.expand.launches
+    got = pp.expand(mask, words)
+    torch.cuda.synchronize()
+    assert pp.expand.launches == before + 1
+    assert torch.equal(got, pp.expand_plain(mask, words))
+
+
+@pytest.mark.parametrize("shape", [(8, 1024), (3, 100)])
+@pytest.mark.parametrize("shift", [0, 3, 1023, 1024, 5000, -3])
+def test_dynroll_equals_plain(card, rng, shape, shift):
+    x = torch.from_numpy(rng.integers(0, 1 << 16, shape).astype(np.int32)).to(card)
+    s = torch.tensor([shift], dtype=torch.int32, device=card)
+    before = pp.dynroll.launches
+    got = pp.dynroll(x, s)
+    torch.cuda.synchronize()
+    assert pp.dynroll.launches == before + 1
+    assert torch.equal(got, pp.dynroll_plain(x, s))

@@ -642,6 +642,17 @@ def test_trainer_refuses_a_mesh():
 
 
 def test_ms_ssim_distortion_is_not_ported():
-    with pytest.raises(NotImplementedError, match="metrics.py"):
-        RateDistortionLoss(metric="ms-ssim")({"likelihoods": {}, "x_hat": None},
-                                             torch.zeros(1, 1, 2, 2))
+    """The name is older than the port of the ms-ssim distortion, which
+    raised NotImplementedError before metrics.py was ported. It now equals
+    the JAX loss on a vaeformer_tiny-sized field (41 x 40, two scales)."""
+    rng = np.random.default_rng(12)
+    x, x_hat = (rng.random((1, 8, 41, 40)).astype(np.float32) for _ in range(2))
+    lik = {"y": rng.random((1, 8, 4, 4)).astype(np.float32) + 0.01,
+           "z": rng.random((1, 8, 2, 2)).astype(np.float32) + 0.01}
+    kw = dict(lmbda=0.5, metric="ms-ssim", ms_ssim_weights=(0.4, 0.6))
+    got = RateDistortionLoss(**kw)({"x_hat": t(x_hat), "likelihoods": {k: t(v) for k, v in lik.items()}},
+                                   t(x))
+    want = JRD(**kw)({"x_hat": j(x_hat), "likelihoods": {k: j(v) for k, v in lik.items()}}, j(x))
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], 1e-5, k)
