@@ -13,11 +13,13 @@ result line is printed then:
   3. kernels: each kernel against its plain PyTorch version at the 268v
      main paths' shapes (K1-K3 exact, the lane decode K2 on the z stream
      and on the y geometry written unsorted on 1024 lanes, K4-K6
-     within stated bf16 tolerances), with the kernel's time, the plain
-     version's, the card's bound and, for attention, the time of
+     within stated bf16 tolerances, two calls of the bf16 K4 and K6
+     bitwise equal), with the kernel's time, the plain version's, the
+     card's bound and, for attention, the time of
      scaled_dot_product_attention (forward for K4; its backward, i.e.
      forward + backward less forward, for K5 and K6) as the library
-     yardstick;
+     yardstick, K4's and K6's TFLOP/s and share of their bound, and the
+     floor that the N*N exponentials set on the special-function units;
   4. reference: a tiny f32 model on the card against the same weights on
      the CPU: symbols exact and x_hat within 1e-4 through compress and
      decompress (both of whose streams take the lane decode K2), and one
@@ -77,6 +79,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
+MUFU_EX2_PER_CLOCK = 16  # ex2 a clock per SM on Hopper's special-function units
 # K4 against its plain version. out is an average of N rows of v, so its
 # size falls with N (about sqrt(e / N) for unit logits: ~0.016 typical and
 # ~0.09 at most at N = 10368); the bound scales with the reference,
@@ -124,6 +127,17 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def exp_floor_ms(n_exp: int) -> float:
+    """The least time the card's special-function units take for n_exp
+    ex2 at the SMs' maximum clock (nvidia-smi clocks.max.sm); printed
+    beside a flash kernel's operations bound, not part of it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (MUFU_EX2_PER_CLOCK * sms * mhz * 1e6) * 1e3
+
+
 def sample_symbols(rng, table, idx: np.ndarray, escape_frac: float) -> np.ndarray:
     """Symbols drawn from each index's own quantized pmf, with a fraction
     pushed far out of range (escapes)."""
@@ -166,7 +180,8 @@ def phase_build() -> None:
         f"{time.time() - t1:.2f} s (nvcc {kernels.NVCC_FLAGS})")
     for src, report in sorted(kernels.build_info.get("ptxas", {}).items()):
         for line in report.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill", "smem")):
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
+                                       "warning", "wgmma", "setmaxnreg")):
                 log(f"[build] {src}: {line.strip()}")
 
 
@@ -304,13 +319,15 @@ def phase_kernels(dev) -> dict:
                    .to(dev, torch.bfloat16) for _ in range(3))
         scale = 64 ** -0.5
         out, lse = flash_attention_forward(q, k, v, scale)
+        again = flash_attention_forward(q, k, v, scale)
         ref, ref_lse = flash_attention_plain(q, k, v, scale)
         err = (out.float() - ref.float()).abs().max().item()
         out_tol = FLASH_OUT_RTOL * ref.float().abs().max().item()
         lerr = (lse - ref_lse).abs().max().item()
-        if not (err <= out_tol and lerr <= FLASH_LSE_ATOL and torch.isfinite(out).all()):
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        if not (err <= out_tol and lerr <= FLASH_LSE_ATOL and torch.isfinite(out).all() and same):
             raise RuntimeError(f"K4 flash_attn_fwd at N={N}: out err {err} (bound {out_tol}), "
-                               f"lse err {lerr}")
+                               f"lse err {lerr}, two calls bitwise equal {same}")
         ms = timed_ms(lambda: flash_attention_forward(q, k, v, scale), 10)
         plain = timed_ms(lambda: flash_attention_plain(q, k, v, scale), 2)
         lib = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -319,10 +336,11 @@ def phase_kernels(dev) -> dict:
         bound = max(flops / BF16_FLOPS * 1e3, bytes_bound_ms(4 * B * H * N * 64 * 2 + B * H * N * 4))
         log(f"[K4 flash_attn_fwd] (B, H, N, D) = ({B}, {H}, {N}, 64): out err {err:.3g} "
             f"(bound {out_tol:.3g} = {FLASH_OUT_RTOL} x max|ref|), lse err {lerr:.3g} "
-            f"(atol {FLASH_LSE_ATOL}); "
-            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.2f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bound:.4f} ms (operations)")
-        del q, k, v, out, lse, ref, ref_lse
+            f"(atol {FLASH_LSE_ATOL}), two calls bitwise equal; "
+            f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound), "
+            f"plain {plain:.2f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms (operations), "
+            f"exp floor {exp_floor_ms(B * H * N * N):.4f} ms")
+        del q, k, v, out, lse, ref, ref_lse, again
     rows["flash_attn_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                                   bound_by="operations", library_ms=lib)
     torch.cuda.empty_cache()
@@ -360,15 +378,18 @@ def flash_backward_rows(rng, dev) -> dict:
         finite = bool(torch.isfinite(dq).all())
         del dq, ref
         dk, dv = flash_attention_backward_dkv(*ops)
+        again = flash_attention_backward_dkv(*ops)
+        same = torch.equal(dk, again[0]) and torch.equal(dv, again[1])
         ref_dk, ref_dv = flash_attention_backward_dkv_plain(*ops)
         for name, a, b in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             errs[name] = ((a.float() - b.float()).abs().max().item(),
                           FLASH_GRAD_RTOL * b.float().abs().max().item())
         finite = finite and bool(torch.isfinite(dk).all() and torch.isfinite(dv).all())
-        del dk, dv, ref_dk, ref_dv
+        del dk, dv, ref_dk, ref_dv, again
         bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
-        if bad or not finite:
-            raise RuntimeError(f"K5/K6 at N={N}: (err, bound) {errs}, finite {finite}")
+        if bad or not finite or not same:
+            raise RuntimeError(f"K5/K6 at N={N}: (err, bound) {errs}, finite {finite}, "
+                               f"dK/dV of two calls bitwise equal {same}")
         ms_dq = timed_ms(lambda: flash_attention_backward_dq(*ops), 10)
         ms_dkv = timed_ms(lambda: flash_attention_backward_dkv(*ops), 10)
         plain_dq = timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1)
@@ -383,13 +404,16 @@ def flash_backward_rows(rng, dev) -> dict:
                        bytes_bound_ms(5 * io + 2 * B * H * N * 4))
         bound_dkv = max(8 * B * H * N * N * 64 / BF16_FLOPS * 1e3,
                         bytes_bound_ms(6 * io + 2 * B * H * N * 4))
+        flops_dkv = 8 * B * H * N * N * 64
         log(f"[K5/K6 flash_attn_bwd] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound "
             f"{FLASH_GRAD_RTOL} x max|ref|) " + ", ".join(
                 f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
-            + f"; dQ kernel {ms_dq:.4f} ms, plain {plain_dq:.2f} ms, bound {bound_dq:.4f} ms; "
-            f"dK/dV kernel {ms_dkv:.4f} ms, plain {plain_dkv:.2f} ms, bound {bound_dkv:.4f} ms "
-            f"(operations); sdpa backward (fwd+bwd {both_ms:.4f} less fwd {fwd_ms:.4f}) "
-            f"{lib:.4f} ms")
+            + f", dK/dV of two calls bitwise equal; dQ kernel {ms_dq:.4f} ms, plain "
+            f"{plain_dq:.2f} ms, bound {bound_dq:.4f} ms; dK/dV kernel {ms_dkv:.4f} ms "
+            f"({flops_dkv / ms_dkv / 1e9:.1f} TFLOP/s, {bound_dkv / ms_dkv:.1%} of the bound), "
+            f"plain {plain_dkv:.2f} ms, bound {bound_dkv:.4f} ms (operations), exp floor "
+            f"{exp_floor_ms(B * H * N * N):.4f} ms; sdpa backward (fwd+bwd {both_ms:.4f} less "
+            f"fwd {fwd_ms:.4f}) {lib:.4f} ms")
         rows["flash_attn_bwd_dq"] = dict(max_abs_err=errs["dq"][0], ms=ms_dq, plain_ms=plain_dq,
                                          bound_ms=bound_dq, bound_by="operations",
                                          library_ms=lib)

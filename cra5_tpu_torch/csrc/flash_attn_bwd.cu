@@ -8,21 +8,36 @@
 // device memory (FlashAttention-2):
 //   K5: one block per 64-query tile walks every 64-key tile;
 //       dQ = scale * sum_k dS K, dS = P * (dO V^T - delta).
-//   K6: one block per 64-key tile walks every 64-query tile;
+//   K6: one block per 128-key tile walks every 64-query tile;
 //       dV = sum_q P^T dO, dK = scale * sum_q dS^T Q.
 // Bound: tensor-core operations (K5 does three N*N*D products per head,
-// K6 four, against 4*N*D*2 bytes in), so every product is an mma.sync
-// m16n8k16 bf16 with float32 accumulators (mma.cuh). Four warps own 16
-// rows each of the block's tile; the row tile lives in registers as A
-// fragments, the walked tiles are staged in shared memory, and each warp's
-// 16x64 logits tile turns into the A fragment of the next product in
-// registers, as in K4. Rounding follows the TPU kernels: K5 uses q
-// pre-scaled and rounded to bf16 and writes dq rounded once; K6 scales the
-// float32 logits of raw q, and its dk/dv stay float32 in registers until
-// the one rounding at the end. P (for dV) and dS are rounded to bf16 before
-// their products. The ragged key tail is masked (-1e30) in K5; query rows
-// past N get P = 0 in K6. No atomics: the result is deterministic.
-// Later work: wgmma, TMA loads and one pass sharing P between dQ and dK/dV.
+// K6 four, against 4*N*D*2 bytes in). Rounding follows the TPU kernels: K5
+// uses q pre-scaled and rounded to bf16 and writes dq rounded once; K6
+// scales the float32 logits of raw q, and its dk/dv stay float32 in
+// registers until the one rounding at the end. P (for dV) and dS are
+// rounded to bf16 before their products. The ragged key tail is masked
+// (-1e30) in K5; query rows past N get P = 0 in K6. No atomics: the result
+// is deterministic.
+//
+// K5 runs mma.sync m16n8k16 bf16 with float32 accumulators (mma.cuh): four
+// warps own 16 rows each of the block's tile, the row tile lives in
+// registers as A fragments, the walked tiles are staged in shared memory,
+// and each warp's 16x64 logits tile turns into the A fragment of the next
+// product in registers.
+//
+// K6 is built for Hopper (hopper.cuh). A block of 384 threads owns 128
+// keys: one producer warpgroup, lowered to 40 registers, and two consumer
+// warpgroups of 64 keys each, raised to 232. K and V arrive once by TMA and
+// stay in shared memory as the A operands. The producer's first warp
+// streams 64-query tiles of Q and dO by TMA on 3-D tensor maps (rows past
+// N zero-filled, never the next head's), with their lse (times log2 e) and
+// delta rows, through a ring of kStages stages with full and empty
+// mbarriers; both consumers read each staged tile. Per tile a consumer
+// runs S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands in
+// shared memory, K-major), P^T = exp2(S^T scale log2 e - lse log2 e) and
+// dS^T = P^T (dP^T - delta) in registers, and then dV += bf16(P^T) dO and
+// dK += bf16(dS^T) Q with A from registers and B MN-major: one staged copy
+// of Q and dO serves both majors.
 //
 // Float32 operands take second entries (cra5_flash_attn_bwd_dq_f32,
 // cra5_flash_attn_bwd_dkv_f32): SIMT tiles in full float32 (flash_f32.cuh).
@@ -32,6 +47,7 @@
 #include <stdint.h>
 
 #include "flash_f32.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -216,86 +232,215 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(dq + base, acc, q0 + warp * 16, N, scale, g, tg);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const __nv_bfloat16* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              __nv_bfloat16* __restrict__ dk,
-                              __nv_bfloat16* __restrict__ dv, int N, int nkb,
-                              float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sO[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sK[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sV[BT * LD];
-  __shared__ float sL[BT];
-  __shared__ float sD[BT];
-
-  const int bh = blockIdx.x / nkb;
-  const int k0 = (blockIdx.x % nkb) * BT;
-  const size_t base = (size_t)bh * N * D;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int tg = threadIdx.x & 3;
-
-  stage_tile<D, false>(sK, k + base, k0, N, 1.f);
-  stage_tile<D, false>(sV, v + base, k0, N, 1.f);
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, sK, warp * 16, g, tg);
-  load_a<D>(vf, sV, warp * 16, g, tg);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d) {
-    dk_acc[d][0] = dk_acc[d][1] = dk_acc[d][2] = dk_acc[d][3] = 0.f;
-    dv_acc[d][0] = dv_acc[d][1] = dv_acc[d][2] = dv_acc[d][3] = 0.f;
-  }
-
-  const int nqb = (N + BT - 1) / BT;
-  for (int qb = 0; qb < nqb; ++qb) {
-    const int q0 = qb * BT;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, false>(sQ, q + base, q0, N, 1.f);
-    stage_tile<D, false>(sO, dout + base, q0, N, 1.f);
-    for (int i = threadIdx.x; i < BT; i += kThreads) {
-      const bool in = q0 + i < N;
-      sL[i] = in ? lse[(size_t)bh * N + q0 + i] : 0.f;
-      sD[i] = in ? delta[(size_t)bh * N + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tiles: rows are this warp's keys, columns the queries
-    float s[BT / 8][4], dp[BT / 8][4];
-    mma_abt<D>(s, kf, sQ, g, tg);   // K Q^T
-    mma_abt<D>(dp, vf, sO, g, tg);  // V dO^T
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + tg * 2 + (e & 1);
-        const float p = q0 + col < N ? expf(s[nt][e] * scale - sL[col]) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - sD[col]);  // dS^T
-      }
-    }
-    mma_pt<D>(dv_acc, s, sO, g, tg);   // dV += P^T dO
-    mma_pt<D>(dk_acc, dp, sQ, g, tg);  // dK += dS^T Q
-  }
-  store_rows<D>(dk + base, dk_acc, k0 + warp * 16, N, scale, g, tg);
-  store_rows<D>(dv + base, dv_acc, k0 + warp * 16, N, 1.f, g, tg);
-}
-
 int tile_blocks(int BH, int N, int* ntiles) {
   *ntiles = (N + BT - 1) / BT;
   const long long blocks = (long long)BH * *ntiles;
   return blocks > 0x7fffffffLL ? -1 : (int)blocks;
 }
+
+namespace dkv {
+
+namespace hw = cra5::hopper;
+
+constexpr int BKV = 128;  // keys a block, 64 per consumer warpgroup
+constexpr int BQ = 64;    // queries a ring stage
+constexpr int kStages = 3;
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 168 a thread at launch
+constexpr int kKeyBytes = BKV * 64 * 2;
+constexpr int kQueryBytes = BQ * 64 * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Every tile is a multiple of 1024 bytes, so each starts 1024-aligned, as
+// the 128-byte swizzle needs.
+struct alignas(1024) DkvSmem {
+  __nv_bfloat16 k[BKV * 64];
+  __nv_bfloat16 v[BKV * 64];
+  __nv_bfloat16 q[kStages][BQ * 64];
+  __nv_bfloat16 dout[kStages][BQ * 64];
+  float lse[kStages][BQ];  // lse * log2 e
+  float delta[kStages][BQ];
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(DkvSmem) + 1024;  // + the alignment slack
+
+// P^T = exp2(S^T scale log2 e - lse log2 e) (0 for queries past N) and
+// dS^T = P^T (dP^T - delta) of one stage, rounded to bf16 into A operands:
+// accumulator chunks 2kk and 2kk + 1 are the operand of query step kk.
+__device__ __forceinline__ void p_ds_tile(const float (&sT)[32], const float (&dpT)[32],
+                                          uint32_t (&pa)[4][4], uint32_t (&dsa)[4][4],
+                                          const DkvSmem& s, int st, int q0, int N, float sl,
+                                          int tg) {
+  const bool ragged = q0 + BQ > N;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 l2 = *reinterpret_cast<const float2*>(&s.lse[st][8 * n + 2 * tg]);
+    const float2 dl = *reinterpret_cast<const float2*>(&s.delta[st][8 * n + 2 * tg]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // registers 4n + 2h + j: column 8n + 2tg + j
+      float p[2], ds[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = 4 * n + 2 * h + j;
+        p[j] = hw::ex2(fmaf(sT[i], sl, -(j ? l2.y : l2.x)));
+        if (ragged && q0 + 8 * n + 2 * tg + j >= N) p[j] = 0.f;
+        ds[j] = p[j] * (dpT[i] - (j ? dl.y : dl.x));
+      }
+      pa[n >> 1][2 * (n & 1) + h] = hw::pack_bf16(p[0], p[1]);
+      dsa[n >> 1][2 * (n & 1) + h] = hw::pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// One consumer warpgroup: keys [r0, r0 + 64) of head bh, rows 64c of the
+// block's K and V tiles.
+__device__ __forceinline__ void consumer(DkvSmem& s, __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv, int N, int bh, int r0,
+                                         int nqb, float scale, int c) {
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const float sl = scale * kLog2e;
+
+  hw::mbar_wait(&s.kv_full, 0);
+  const uint64_t k_desc = hw::sw128_desc(s.k + c * 64 * 64, 16, 1024);
+  const uint64_t v_desc = hw::sw128_desc(s.v + c * 64 * 64, 16, 1024);
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int j = 0; j < nqb; ++j) {
+    const int st = j % kStages;
+    hw::mbar_wait(&s.full[st], (j / kStages) & 1);
+
+    // transposed tiles: rows are this warpgroup's keys, columns the queries
+    float sT[32], dpT[32];
+    const uint64_t q_desc = hw::sw128_desc(s.q[st], 16, 1024);
+    const uint64_t o_desc = hw::sw128_desc(s.dout[st], 16, 1024);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // S^T = K Q^T
+      hw::wgmma_m64n64k16_ss(sT, hw::desc_add(k_desc, 32 * kk), hw::desc_add(q_desc, 32 * kk),
+                             kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dP^T = V dO^T
+      hw::wgmma_m64n64k16_ss(dpT, hw::desc_add(v_desc, 32 * kk), hw::desc_add(o_desc, 32 * kk),
+                             kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sT);
+    hw::fence_regs(dpT);
+
+    uint32_t pa[4][4], dsa[4][4];
+    p_ds_tile(sT, dpT, pa, dsa, s, st, j * BQ, N, sl, tg);
+
+    const uint64_t o_mn = hw::sw128_desc(s.dout[st], BQ * 128, 1024);  // MN-major
+    const uint64_t q_mn = hw::sw128_desc(s.q[st], BQ * 128, 1024);
+    hw::fence_regs(dv_acc);
+    hw::fence_regs(dk_acc);
+    hw::fence_regs(pa);
+    hw::fence_regs(dsa);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dV += P^T dO
+      hw::wgmma_m64n64k16_rs(dv_acc, pa[kk], hw::desc_add(o_mn, 2048 * kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dK += dS^T Q
+      hw::wgmma_m64n64k16_rs(dk_acc, dsa[kk], hw::desc_add(q_mn, 2048 * kk), 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dv_acc);
+    hw::fence_regs(dk_acc);
+    hw::fence_regs(pa);
+    hw::fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&s.empty[st]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    if (row >= N) continue;
+    const size_t o = ((size_t)bh * N + row) * 64 + 2 * tg;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * d) = __floats2bfloat162_rn(
+          dk_acc[4 * d + 2 * h] * scale, dk_acc[4 * d + 2 * h + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * d) =
+          __floats2bfloat162_rn(dv_acc[4 * d + 2 * h], dv_acc[4 * d + 2 * h + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int nkb,
+           float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem& s = *reinterpret_cast<DkvSmem*>(hw::align_1024(smem_raw));
+  const int bh = blockIdx.x / nkb;
+  const int k0 = (blockIdx.x % nkb) * BKV;
+  const int nqb = (N + BQ - 1) / BQ;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&s.kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hw::mbar_init(&s.full[st], 32);  // the producer warp's lanes, after their lse/delta
+      hw::mbar_init(&s.empty[st], 8);  // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: its first warp
+    hw::regs_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hw::mbar_arrive_expect_tx(&s.kv_full, 2 * kKeyBytes);
+        hw::tma_load_3d(s.k, &map_k, &s.kv_full, 0, k0, bh);
+        hw::tma_load_3d(s.v, &map_v, &s.kv_full, 0, k0, bh);
+      }
+      const float* lse_h = lse + (size_t)bh * N;
+      const float* delta_h = delta + (size_t)bh * N;
+      for (int j = 0; j < nqb; ++j) {
+        const int st = j % kStages;
+        float l2[2], dl[2];  // read before the wait, so the loads overlap it
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int row = j * BQ + lane + 32 * u;
+          l2[u] = row < N ? lse_h[row] * kLog2e : 0.f;
+          dl[u] = row < N ? delta_h[row] : 0.f;
+        }
+        if (j >= kStages) hw::mbar_wait(&s.empty[st], (j / kStages - 1) & 1);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          s.lse[st][lane + 32 * u] = l2[u];
+          s.delta[st][lane + 32 * u] = dl[u];
+        }
+        if (lane == 0) {
+          hw::mbar_arrive_expect_tx(&s.full[st], 2 * kQueryBytes);
+          hw::tma_load_3d(s.q[st], &map_q, &s.full[st], 0, j * BQ, bh);
+          hw::tma_load_3d(s.dout[st], &map_do, &s.full[st], 0, j * BQ, bh);
+        } else {
+          hw::mbar_arrive(&s.full[st]);
+        }
+      }
+    }
+  } else {  // consumers
+    hw::regs_inc<kConsumerRegs>();
+    consumer(s, dk, dv, N, bh, k0 + (wg - 1) * 64, nqb, scale, wg - 1);
+  }
+}
+
+}  // namespace dkv
 
 }  // namespace
 
@@ -438,13 +583,24 @@ extern "C" int cra5_flash_attn_bwd_dkv(const void* q, const void* k, const void*
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int BH, int N, int D, float scale,
                                        void* stream) {
-  int nkb;
-  const int blocks = tile_blocks(BH, N, &nkb);
-  if (D != 64 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  flash_attn_bwd_dkv_kernel<64><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N, nkb, scale);
+  namespace hw = cra5::hopper;
+  if (D != 64 || N < 1 || BH < 1) return (int)cudaErrorInvalidValue;
+  const int nkb = (N + dkv::BKV - 1) / dkv::BKV;
+  const long long blocks = (long long)BH * nkb;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!hw::make_tensor_map_3d(&map_q, q, N, BH, dkv::BQ) ||
+      !hw::make_tensor_map_3d(&map_do, dout, N, BH, dkv::BQ) ||
+      !hw::make_tensor_map_3d(&map_k, k, N, BH, dkv::BKV) ||
+      !hw::make_tensor_map_3d(&map_v, v, N, BH, dkv::BKV)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e =
+      hw::prepare(dkv::kernel, dkv::kSmemBytes, dkv::kProducerRegs, dkv::kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  dkv::kernel<<<(unsigned)blocks, dkv::kThreads, dkv::kSmemBytes, (cudaStream_t)stream>>>(
+      map_q, map_k, map_v, map_do, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, N, nkb, scale);
   return (int)cudaGetLastError();
 }
 

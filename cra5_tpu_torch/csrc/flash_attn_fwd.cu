@@ -2,16 +2,29 @@
 // float32 accumulation and statistics, plus the log-sum-exp rows.
 //
 // Replaces the forward kernel of cra5_tpu/ops/attention.py (_fwd_kernel,
-// driven by _flash_forward). Bound: tensor-core operations (4*N*N*D per
-// head against 3*N*D*2 bytes of q, k, v), so both products run on tensor
-// cores via mma.sync m16n8k16 bf16 with float32 accumulators. One block of
-// four warps owns BQ = 64 query rows (16 per warp, kept as A fragments in
-// registers) and walks the keys in BK = 64 tiles staged in shared memory;
-// the logits never reach device memory. As in the TPU kernel, q is
-// pre-scaled and rounded to bf16 once, P is rounded to bf16 for the PV
-// product while its row sums stay float32, and only the ragged tail tile
-// is masked (-1e30). No atomics: the result is deterministic.
-// Later work: wgmma, TMA loads and a pipelined K/V ring.
+// driven by _flash_forward). Bound: tensor-core operations, 4*N*N*D per
+// head against 3*N*D*2 bytes of q, k and v; at D = 64 the N*N exponentials
+// on the special-function units (16 a clock per SM) come close to that
+// bound too. So the design keeps the threads on products and exponentials
+// and takes every load off them (Hopper pieces in hopper.cuh):
+//   - a block of 384 threads owns BQ = 128 query rows: one producer
+//     warpgroup, lowered to 24 registers, of which one thread issues every
+//     TMA load, and two consumer warpgroups of 64 rows each, raised to 240;
+//   - q arrives once by TMA; each consumer scales its rows in float32 and
+//     rounds them back to bf16 in place (the TPU kernel's rounding point),
+//     then fences the async proxy before wgmma reads them;
+//   - K and V tiles of BK = 128 keys stream through a ring of kStages
+//     stages with full and empty mbarriers. The 3-D tensor maps (D, N, BH)
+//     zero-fill rows past N, never reading the next head, and the logits
+//     of those keys are masked to -1e30;
+//   - S = q K^T is wgmma m64n128k16 with both operands in shared memory;
+//     the online softmax runs in registers in log2 units (one FFMA and one
+//     ex2.approx a logit); P is rounded to bf16 straight into the register
+//     A operand of O += P V, wgmma m64n64k16 with V MN-major; the row sums
+//     of P stay float32;
+//   - the epilogue divides by l (clamped at 1e-30), writes bf16 out and the
+//     float32 lse rows in natural-log units, and drops rows past N.
+// No atomics: the result is deterministic.
 //
 // Float32 operands take a second entry, cra5_flash_attn_fwd_f32, a SIMT
 // tile in full float32 (flash_f32.cuh), with the TPU kernel's numerics for
@@ -22,178 +35,196 @@
 #include <stdint.h>
 
 #include "flash_f32.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using cra5::mma_16816;
-using cra5::pack_bf16;
-using cra5::pack_bf16_raw;
+namespace hw = cra5::hopper;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int kThreads = 128;
+constexpr int BQ = 128;  // query rows a block, 64 per consumer warpgroup
+constexpr int BK = 128;  // keys a ring stage
+constexpr int kStages = 2;
+constexpr int kThreads = 384;             // producer warpgroup + two consumers
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 168 a thread at launch
+constexpr int kTileBytes = 128 * 64 * 2;  // one 128-row bf16 tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out,
-                          float* __restrict__ lse, int N, int nqb,
-                          float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 sK[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 sV[BK * LD];
+// Every tile is a multiple of 1024 bytes, so each starts 1024-aligned, as
+// the 128-byte swizzle needs.
+struct alignas(1024) FwdSmem {
+  __nv_bfloat16 q[BQ * 64];
+  __nv_bfloat16 k[kStages][BK * 64];
+  __nv_bfloat16 v[kStages][BK * 64];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(FwdSmem) + 1024;  // + the alignment slack
 
-  const int bh = blockIdx.x / nqb;
-  const int q0 = (blockIdx.x % nqb) * BQ;
-  const size_t base = (size_t)bh * N * D;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int tg = lane & 3;  // thread in group
+// One consumer warpgroup: query rows [r0, r0 + 64) of head bh.
+__device__ __forceinline__ void fwd_consumer(FwdSmem& s, __nv_bfloat16* __restrict__ out,
+                                             float* __restrict__ lse, int N, int bh, int r0,
+                                             int nkb, float scale, int c) {
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+  __nv_bfloat16* sq = s.q + c * 64 * 64;
 
-  for (int i = tid; i < BQ * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * D + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+  hw::mbar_wait(&s.q_full, 0);
+  {  // q * scale, rounded to bf16 once; the swizzle moves whole 16-byte chunks
+    uint4* p = reinterpret_cast<uint4*>(sq);
+    for (int i = t; i < 64 * 64 / 8; i += 128) {
+      uint4 val = p[i];
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * scale);
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = val;
-  }
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* p0 = sQ + (warp * 16 + g) * LD + tg * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(p1 + kk * 16);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + kk * 16 + 8);
+      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * scale);
+      p[i] = val;
     }
   }
+  hw::fence_proxy_async();
+  hw::named_sync(1 + c, 128);
 
-  float acc[D / 8][4];
+  const uint64_t q_desc = hw::sw128_desc(sq, 16, 1024);
+  float o[32];
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m_row[2] = {kNegInf, kNegInf};  // rows g and g + 8 of this warp
-  float l_row[2] = {0.f, 0.f};
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m2[2] = {kNegInf, kNegInf};  // running row maxima (rows g, g + 8), log2 units
+  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
 
-  const int nkb = (N + BK - 1) / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < BK * CH; i += kThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < N) {
-        const size_t o = base + (size_t)(k0 + r) * D + c;
-        kv = *reinterpret_cast<const uint4*>(k + o);
-        vv = *reinterpret_cast<const uint4*>(v + o);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = kv;
-      *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
+  for (int j = 0; j < nkb; ++j) {
+    const int st = j % kStages;
+    hw::mbar_wait(&s.full[st], (j / kStages) & 1);
+
+    float sc[64];  // S = (q * scale) K^T, 64 rows x 128 keys
+    const uint64_t k_desc = hw::sw128_desc(s.k[st], 16, 1024);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hw::wgmma_m64n128k16_ss(sc, hw::desc_add(q_desc, 32 * kk), hw::desc_add(k_desc, 32 * kk),
+                              kk);
     }
-    __syncthreads();
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
 
-    // S = (q * scale) K^T for this warp's 16 rows: BK / 8 tiles of 16x8
-    float s[BK / 8][4];
+    const int k0 = j * BK;
+    if (k0 + BK > N) {  // the ragged tail: zero-filled keys give 0, not -inf
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* pk = sK + (nt * 8 + g) * LD + tg * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(pk + kk * 16),
-                  *reinterpret_cast<const uint32_t*>(pk + kk * 16 + 8));
-      }
-    }
-    if (k0 + BK > N) {  // ragged tail tile
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const int col = k0 + nt * 8 + tg * 2;
-        if (col >= N) s[nt][0] = s[nt][2] = kNegInf;
-        if (col + 1 >= N) s[nt][1] = s[nt][3] = kNegInf;
+      for (int n = 0; n < 16; ++n) {
+        const int col = k0 + 8 * n + 2 * tg;
+        if (col >= N) sc[4 * n] = sc[4 * n + 2] = kNegInf;
+        if (col + 1 >= N) sc[4 * n + 1] = sc[4 * n + 3] = kNegInf;
       }
     }
 
-    float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
+    float neg_m[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = kNegInf;
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      for (int n = 0; n < 16; ++n) mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * h], sc[4 * n + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      m_new[h] = fmaxf(m_row[h], mx);
-      alpha[h] = expf(m_row[h] - m_new[h]);
-    }
+      const float m_new = fmaxf(m2[h], mx * kLog2e);
+      const float alpha = hw::ex2(m2[h] - m_new);
+      m2[h] = m_new;
+      neg_m[h] = -m_new;
+      l[h] *= alpha;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m_new[e >> 1]);
-        psum[e >> 1] += s[nt][e];
+      for (int d = 0; d < 8; ++d) {
+        o[4 * d + 2 * h] *= alpha;
+        o[4 * d + 2 * h + 1] *= alpha;
       }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 1);
-      psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
-      l_row[h] = l_row[h] * alpha[h] + psum[h];
-      m_row[h] = m_new[h];
-    }
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      acc[d][0] *= alpha[0];
-      acc[d][1] *= alpha[0];
-      acc[d][2] *= alpha[1];
-      acc[d][3] *= alpha[1];
     }
 
-    // acc += P V: the S accumulator tiles (2kk, 2kk+1) are exactly the A
-    // fragment of key step kk, so P never leaves registers
+    // P = exp2(S log2 e - m), rounded to bf16 into the A operand of key
+    // step kk: accumulator chunks 2kk and 2kk + 1 (registers 8kk .. 8kk + 7)
+    uint32_t pa[8][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const __nv_bfloat16* pv = sV + (kk * 16 + tg * 2) * LD + g;
+    for (int kk = 0; kk < 8; ++kk) {
+      float p[8];
 #pragma unroll
-      for (int d = 0; d < D / 8; ++d) {
-        const __nv_bfloat16* p = pv + d * 8;
-        mma_16816(acc[d], a, pack_bf16_raw(p[0], p[LD]),
-                  pack_bf16_raw(p[8 * LD], p[9 * LD]));
+      for (int e = 0; e < 8; ++e) {
+        const int h = (e >> 1) & 1;
+        p[e] = hw::ex2(fmaf(sc[8 * kk + e], kLog2e, neg_m[h]));
+        l[h] += p[e];
       }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pa[kk][u] = hw::pack_bf16(p[2 * u], p[2 * u + 1]);
     }
+
+    const uint64_t v_desc = hw::sw128_desc(s.v[st], BK * 128, 1024);  // MN-major
+    hw::fence_regs(o);
+    hw::fence_regs(pa);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      hw::wgmma_m64n64k16_rs(o, pa[kk], hw::desc_add(v_desc, 2048 * kk), 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(o);
+    hw::fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&s.empty[st]);  // this warp is done with the stage
   }
 
-  const int row0 = q0 + warp * 16 + g;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = r0 + warp * 16 + g + 8 * h;
     if (row >= N) continue;
-    const float l = fmaxf(l_row[h], 1e-30f);
-    __nv_bfloat16* o = out + base + (size_t)row * D + tg * 2;
+    const float lc = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* dst = out + ((size_t)bh * N + row) * 64 + 2 * tg;
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(o + d * 8) =
-          __floats2bfloat162_rn(acc[d][2 * h] / l, acc[d][2 * h + 1] / l);
+    for (int d = 0; d < 8; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+          __floats2bfloat162_rn(o[4 * d + 2 * h] / lc, o[4 * d + 2 * h + 1] / lc);
     }
-    if (tg == 0) lse[(size_t)bh * N + row] = m_row[h] + logf(l);
+    if (tg == 0) lse[(size_t)bh * N + row] = m2[h] * kLn2 + logf(lc);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N,
+                          int nqb, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem& s = *reinterpret_cast<FwdSmem*>(hw::align_1024(smem_raw));
+  const int bh = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x % nqb) * BQ;
+  const int nkb = (N + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&s.q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hw::mbar_init(&s.full[st], 1);
+      hw::mbar_init(&s.empty[st], 8);  // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hw::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::mbar_arrive_expect_tx(&s.q_full, kTileBytes);
+      hw::tma_load_3d(s.q, &map_q, &s.q_full, 0, q0, bh);
+      for (int j = 0; j < nkb; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hw::mbar_wait(&s.empty[st], (j / kStages - 1) & 1);
+        hw::mbar_arrive_expect_tx(&s.full[st], 2 * kTileBytes);
+        hw::tma_load_3d(s.k[st], &map_k, &s.full[st], 0, j * BK, bh);
+        hw::tma_load_3d(s.v[st], &map_v, &s.full[st], 0, j * BK, bh);
+      }
+    }
+  } else {  // consumers
+    hw::regs_inc<kConsumerRegs>();
+    fwd_consumer(s, out, lse, N, bh, q0 + (wg - 1) * 64, nkb, scale, wg - 1);
   }
 }
 
@@ -278,13 +309,21 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int cra5_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int BH, int N, int D,
                                    float scale, void* stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D != 64 || N < 1 || BH < 1) return (int)cudaErrorInvalidValue;
   const int nqb = (N + BQ - 1) / BQ;
   const long long blocks = (long long)BH * nqb;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attn_fwd_kernel<64><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, (float*)lse, N, nqb, scale);
+  CUtensorMap map_q, map_k, map_v;
+  if (!hw::make_tensor_map_3d(&map_q, q, N, BH, BQ) ||
+      !hw::make_tensor_map_3d(&map_k, k, N, BH, BK) ||
+      !hw::make_tensor_map_3d(&map_v, v, N, BH, BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e =
+      hw::prepare(flash_attn_fwd_kernel, kSmemBytes, kProducerRegs, kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  flash_attn_fwd_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      map_q, map_k, map_v, (__nv_bfloat16*)out, (float*)lse, N, nqb, scale);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@ from cra5_tpu_torch.ops.attention import (
 
 pytestmark = pytest.mark.cuda
 
-# K4: the kernel accumulates P V over 64-key tiles with a running maximum,
+# K4: the kernel accumulates P V over 128-key tiles with a running maximum,
 # the plain version over the whole row, and both round P to bf16 before
 # the product. The size of out depends on the shape (an average of N rows
 # of v: about sqrt(e / N) for unit logits), so its bound scales with the
@@ -52,7 +52,7 @@ pytestmark = pytest.mark.cuda
 FLASH_OUT_RTOL = 2e-2
 FLASH_LSE_ATOL = 2e-3
 # K5/K6: dq, dk and dv are sums over N rows of bf16-rounded dS or P
-# products; the kernels sum 64-wide tiles in another order than the plain
+# products; the kernels sum 64-query tiles in another order than the plain
 # versions, and round dq/dk/dv to bf16 once. Each is bounded as out is:
 # max |got - ref| <= 2e-2 * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
@@ -64,6 +64,13 @@ FLASH_GRAD_RTOL = 2e-2
 # H100. The bound is 1e-5 x max |ref|, and lse (|lse| < 10) within 1e-5.
 FLASH_F32_RTOL = 1e-5
 FLASH_F32_LSE_ATOL = 1e-5
+# bf16 K4 and K6 shapes: off and on the tile edges of both kernels (K4 takes
+# 128 queries a block and 128 keys a ring stage; K6 128 keys a block and 64
+# queries a stage), and several heads whose last tile is ragged, where a
+# tile that read past its head's last row would take the next head's rows.
+FLASH_BF16_SHAPES = [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000),
+                     (1, 2, 127), (1, 2, 128), (1, 2, 129), (1, 2, 255), (1, 2, 257),
+                     (2, 3, 200)]
 
 
 @pytest.fixture(scope="module")
@@ -193,7 +200,7 @@ def test_decode_rejects_cdf_rows_outside_the_table(card, eb_table, kernel):
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("B,H,N", [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
+@pytest.mark.parametrize("B,H,N", FLASH_BF16_SHAPES)
 def test_flash_attn_fwd_close_to_plain(card, rng, B, H, N):
     q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32) * 1.5)
                .to(card, torch.bfloat16) for _ in range(3))
@@ -302,7 +309,7 @@ def _close(got, ref):
     return got.dtype == ref.dtype and (got.float() - ref.float()).abs().max().item() <= bound
 
 
-@pytest.mark.parametrize("B,H,N", [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
+@pytest.mark.parametrize("B,H,N", FLASH_BF16_SHAPES)
 def test_flash_attn_bwd_close_to_plain(card, rng, B, H, N):
     ops = _grad_operands(rng, card, B, H, N)
     before = (flash_attention_backward_dq.launches, flash_attention_backward_dkv.launches)

@@ -36,14 +36,17 @@ def _close(got: torch.Tensor, want, atol=F32_ATOL):
                                atol=atol, rtol=atol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_plain_matches_pallas_forward(rng, dtype):
-    """Ragged N = 300 over 128-wide Pallas tiles (tail mask), H = 2,
-    D = 64. float32: out and lse within 1e-5. bfloat16 inputs: P is
-    rounded to bf16 against the running maximum in the tiled TPU kernel
-    and against the row maximum in the plain version, so out agrees
-    within 1e-2 and lse within 1e-4."""
-    B, H, N, D = 1, 2, 300, 64
+@pytest.mark.parametrize("dtype,N", [("float32", 300), ("bfloat16", 300), ("bfloat16", 127),
+                                     ("bfloat16", 129), ("bfloat16", 257)],
+                         ids=["float32", "bfloat16", "bfloat16-127", "bfloat16-129",
+                              "bfloat16-257"])
+def test_flash_plain_matches_pallas_forward(rng, dtype, N):
+    """Ragged N over 128-wide Pallas tiles (tail mask), H = 2, D = 64; the
+    bf16 N sit at the card kernel's 128-row tile edges. float32: out and
+    lse within 1e-5. bfloat16 inputs: P is rounded to bf16 against the
+    running maximum in the tiled TPU kernel and against the row maximum in
+    the plain version, so out agrees within 1e-2 and lse within 1e-4."""
+    B, H, D = 1, 2, 64
     q, k, v = (rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5 for _ in range(3))
     jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
     out_j, lse_j = _flash_forward(*(jnp.asarray(a, jd) for a in (q, k, v)), D ** -0.5, 128, 128)

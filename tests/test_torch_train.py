@@ -307,11 +307,13 @@ def test_flash_backward_plain_matches_pallas_f32(rng):
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=1e-4, err_msg=name)
 
 
-def test_flash_backward_plain_matches_pallas_bf16(rng):
+@pytest.mark.parametrize("N", [200, 127, 129, 257])
+def test_flash_backward_plain_matches_pallas_bf16(rng, N):
     """bf16 inputs: both round q * scale, P and dS to bf16 at the same
     places, but sum in other orders and block sizes, so results differ
-    by a few bf16 ulps: max err <= 2e-2 * max |ref| per output."""
-    q, k, v, g = _qkv_np(rng, (1, 2, 200, 64))
+    by a few bf16 ulps: max err <= 2e-2 * max |ref| per output. N = 127,
+    129 and 257 sit at the card kernels' 64- and 128-row tile edges."""
+    q, k, v, g = _qkv_np(rng, (1, 2, N, 64))
     got, want = _grads_both(q, k, v, g, jnp.bfloat16, torch.bfloat16)
     for a, b, name in zip(got, want, ("out", "dq", "dk", "dv")):
         assert a.dtype == torch.bfloat16, name
