@@ -13,13 +13,13 @@ result line is printed then:
   3. kernels: each kernel against its plain PyTorch version at the 268v
      main paths' shapes (K1-K3 exact, the lane decode K2 on the z stream
      and on the y geometry written unsorted on 1024 lanes, K4-K6
-     within stated bf16 tolerances, two calls of the bf16 K4 and K6
+     within stated bf16 tolerances, two calls of the bf16 K4, K5 and K6
      bitwise equal), with the kernel's time, the plain version's, the
      card's bound and, for attention, the time of
      scaled_dot_product_attention (forward for K4; its backward, i.e.
      forward + backward less forward, for K5 and K6) as the library
-     yardstick, K4's and K6's TFLOP/s and share of their bound, and the
-     floor that the N*N exponentials set on the special-function units;
+     yardstick, K4's, K5's and K6's TFLOP/s and share of their bound, and
+     the floor that the N*N exponentials set on the special-function units;
   4. reference: a tiny f32 model on the card against the same weights on
      the CPU: symbols exact and x_hat within 1e-4 through compress and
      decompress (both of whose streams take the lane decode K2), and one
@@ -51,14 +51,16 @@ result line is printed then:
      decodes exactly from both files, both give the same z symbols, and
      x_hat is a finite full-size field.
 
-The kernels phase also holds K4-K6 on float32 operands (the SIMT entries)
-at the global blocks' shape against the float32 plain versions, within
-FLASH_F32_RTOL x max |ref|, with SDPA in float32 as the yardstick, and K7
-(perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
-versions exactly; the reference phase adds the 268v global block in
-float32. The line before the last is a JSON object listing every kernel;
-the last is {"ok": true, "device": {...}}. It needs one card and no
-network.
+The kernels phase also holds K4-K6 on float32 operands (K4 on the tensor
+cores with 3xTF32, K5 and K6 SIMT) at a ragged N and at the global blocks'
+shape against the float32 plain versions, within FLASH_F32_RTOL x max
+|ref|, two calls of the float32 K4 bitwise equal, with SDPA in float32 as
+the yardstick, and K7 (perm_expand) and K8 (perm_dynroll) at (8, 1024)
+against their plain versions exactly, with the device time of each and of
+torch.roll; the reference phase adds the 268v global block in float32.
+The line before the last is a JSON object listing every kernel (the
+float32 K4 a row of its own, its launches those of the API path); the
+last is {"ok": true, "device": {...}}. It needs one card and no network.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores, published
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores, published
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 MUFU_EX2_PER_CLOCK = 16  # ex2 a clock per SM on Hopper's special-function units
 # K4 against its plain version. out is an average of N rows of v, so its
@@ -92,10 +95,12 @@ FLASH_LSE_ATOL = 2e-3
 # bounded as out is, max |got - ref| <= FLASH_GRAD_RTOL * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
 # K4-K6 on float32 operands against the float32 plain versions: the same
-# rounding points, float32 sums in another order. The plain versions sum
-# in cuBLAS's blocked order (within 1.3e-6 x max |ref| of float64 at N =
-# 10368 on the CPU); the kernels carry one running float32 sum over the N
-# keys or queries, about 5e-6 x max |ref| from the plain versions at
+# rounding points, float32 sums in another order, and in K4 the 3xTF32
+# split products (hi hi + hi lo + lo hi; tests/test_torch_flash.py
+# emulates them on the CPU within this bound). The plain versions sum in
+# cuBLAS's blocked order (within 1.3e-6 x max |ref| of float64 at N =
+# 10368 on the CPU); the SIMT K5 and K6 carry one running float32 sum over
+# the N keys or queries, about 5e-6 x max |ref| from the plain versions at
 # (1, 16, 10368, 64) on an H100. Bound: out, dq, dk, dv within
 # FLASH_F32_RTOL x max |ref|, lse within FLASH_F32_LSE_ATOL.
 FLASH_F32_RTOL = 1e-5
@@ -345,7 +350,7 @@ def phase_kernels(dev) -> dict:
                                   bound_by="operations", library_ms=lib)
     torch.cuda.empty_cache()
     rows.update(flash_backward_rows(rng, dev))
-    flash_f32_rows(rng, dev)
+    rows["flash_attn_fwd_f32"] = flash_f32_rows(rng, dev)
     rows.update(perm_rows(rng, dev))
     return rows
 
@@ -372,6 +377,7 @@ def flash_backward_rows(rng, dev) -> dict:
         ops = (q, k, v, do, lse, delta, scale)
         errs = {}
         dq = flash_attention_backward_dq(*ops)
+        same_dq = torch.equal(dq, flash_attention_backward_dq(*ops))
         ref = flash_attention_backward_dq_plain(*ops)
         errs["dq"] = ((dq.float() - ref.float()).abs().max().item(),
                       FLASH_GRAD_RTOL * ref.float().abs().max().item())
@@ -379,7 +385,7 @@ def flash_backward_rows(rng, dev) -> dict:
         del dq, ref
         dk, dv = flash_attention_backward_dkv(*ops)
         again = flash_attention_backward_dkv(*ops)
-        same = torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+        same = same_dq and torch.equal(dk, again[0]) and torch.equal(dv, again[1])
         ref_dk, ref_dv = flash_attention_backward_dkv_plain(*ops)
         for name, a, b in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             errs[name] = ((a.float() - b.float()).abs().max().item(),
@@ -389,7 +395,7 @@ def flash_backward_rows(rng, dev) -> dict:
         bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
         if bad or not finite or not same:
             raise RuntimeError(f"K5/K6 at N={N}: (err, bound) {errs}, finite {finite}, "
-                               f"dK/dV of two calls bitwise equal {same}")
+                               f"dQ and dK/dV of two calls bitwise equal {same}")
         ms_dq = timed_ms(lambda: flash_attention_backward_dq(*ops), 10)
         ms_dkv = timed_ms(lambda: flash_attention_backward_dkv(*ops), 10)
         plain_dq = timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1)
@@ -404,12 +410,13 @@ def flash_backward_rows(rng, dev) -> dict:
                        bytes_bound_ms(5 * io + 2 * B * H * N * 4))
         bound_dkv = max(8 * B * H * N * N * 64 / BF16_FLOPS * 1e3,
                         bytes_bound_ms(6 * io + 2 * B * H * N * 4))
-        flops_dkv = 8 * B * H * N * N * 64
+        flops_dq, flops_dkv = 6 * B * H * N * N * 64, 8 * B * H * N * N * 64
         log(f"[K5/K6 flash_attn_bwd] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound "
             f"{FLASH_GRAD_RTOL} x max|ref|) " + ", ".join(
                 f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
-            + f", dK/dV of two calls bitwise equal; dQ kernel {ms_dq:.4f} ms, plain "
-            f"{plain_dq:.2f} ms, bound {bound_dq:.4f} ms; dK/dV kernel {ms_dkv:.4f} ms "
+            + f", dQ and dK/dV of two calls bitwise equal; dQ kernel {ms_dq:.4f} ms "
+            f"({flops_dq / ms_dq / 1e9:.1f} TFLOP/s, {bound_dq / ms_dq:.1%} of the bound), plain "
+            f"{plain_dq:.2f} ms, bound {bound_dq:.4f} ms (operations); dK/dV kernel {ms_dkv:.4f} ms "
             f"({flops_dkv / ms_dkv / 1e9:.1f} TFLOP/s, {bound_dkv / ms_dkv:.1%} of the bound), "
             f"plain {plain_dkv:.2f} ms, bound {bound_dkv:.4f} ms (operations), exp floor "
             f"{exp_floor_ms(B * H * N * N):.4f} ms; sdpa backward (fwd+bwd {both_ms:.4f} less "
@@ -425,11 +432,15 @@ def flash_backward_rows(rng, dev) -> dict:
     return rows
 
 
-def flash_f32_rows(rng, dev) -> None:
-    """K4, K5 and K6 on float32 operands (the SIMT entries) at the global
-    blocks' shape against the float32 plain versions, with SDPA in float32
-    (forward; backward as forward + backward less forward) as the
-    yardstick. The bound is FP32 operations at 67 TFLOP/s."""
+def flash_f32_rows(rng, dev) -> dict:
+    """K4 (3xTF32 on the tensor cores), K5 and K6 (SIMT) on float32
+    operands against the float32 plain versions at a ragged N and at the
+    global blocks' shape, two calls of K4 bitwise equal, with SDPA in
+    float32 (forward; backward as forward + backward less forward) as the
+    yardstick. K4's bound is its design's, three TF32 products at 495
+    TFLOP/s, printed with the exp floor and the FP32 FFMA bound (what a
+    SIMT kernel could reach) beside it; K5's and K6's is FP32 operations at
+    67 TFLOP/s. Returns K4's row of the kernels line."""
     from cra5_tpu_torch.ops.attention import (
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
@@ -439,50 +450,68 @@ def flash_f32_rows(rng, dev) -> None:
         flash_attention_plain,
     )
 
-    B, H, N, scale = 1, 16, 10368, 64 ** -0.5
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32)).to(dev)
-                   for _ in range(4))
-    out, lse = flash_attention_forward(q, k, v, scale)
-    ref, ref_lse = flash_attention_plain(q, k, v, scale)
-    delta = (do * out).sum(-1)
-    ops = (q, k, v, do, lse, delta, scale)
-    got = {"out": (out, ref), "dq": (flash_attention_backward_dq(*ops),
-                                     flash_attention_backward_dq_plain(*ops))}
-    got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
-                                     flash_attention_backward_dkv_plain(*ops))))
-    torch.cuda.synchronize()
-    errs = {n: ((a - b).abs().max().item(), FLASH_F32_RTOL * b.abs().max().item())
-            for n, (a, b) in got.items()}
-    lerr = (lse - ref_lse).abs().max().item()
-    finite = all(bool(torch.isfinite(a).all()) for a, _ in got.values())
-    if not finite or lerr > FLASH_F32_LSE_ATOL or any(e > b for e, b in errs.values()):
-        raise RuntimeError(f"float32 K4-K6 at N={N}: (err, bound) {errs}, lse err {lerr}, "
-                           f"finite {finite}")
-    del got
-    torch.cuda.empty_cache()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 5),
-          "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
-          "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
-    plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
-             "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
-             "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 5)
-    lib_both = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
-                                                    (qg, kg, vg), do), 3)
-    flops = {"fwd": 4 * B * H * N * N * 64, "dq": 6 * B * H * N * N * 64,
-             "dkv": 8 * B * H * N * N * 64}
-    log(f"[K4-K6 float32] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound {FLASH_F32_RTOL} x "
-        f"max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
-        + f", lse err {lerr:.3g} (atol {FLASH_F32_LSE_ATOL})")
-    for name, lib in (("fwd", lib_fwd), ("dq", lib_both - lib_fwd), ("dkv", lib_both - lib_fwd)):
-        bound = flops[name] / FP32_FLOPS * 1e3
-        log(f"[K4-K6 float32 {name}] kernel {ms[name]:.4f} ms "
-            f"({flops[name] / ms[name] / 1e9:.2f} TFLOP/s), plain {plain[name]:.2f} ms, "
-            f"bound {bound:.4f} ms (operations, FP32), sdpa float32 {lib:.4f} ms")
-    del q, k, v, do, out, lse, ref, ref_lse, delta, ops, qg, kg, vg
-    torch.cuda.empty_cache()
+    scale = 64 ** -0.5
+    for B, H, N in ((1, 2, 1000), (1, 16, 10368)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32)).to(dev)
+                       for _ in range(4))
+        out, lse = flash_attention_forward(q, k, v, scale)
+        again = flash_attention_forward(q, k, v, scale)
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del again
+        ref, ref_lse = flash_attention_plain(q, k, v, scale)
+        delta = (do * out).sum(-1)
+        ops = (q, k, v, do, lse, delta, scale)
+        got = {"out": (out, ref), "dq": (flash_attention_backward_dq(*ops),
+                                         flash_attention_backward_dq_plain(*ops))}
+        got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
+                                         flash_attention_backward_dkv_plain(*ops))))
+        torch.cuda.synchronize()
+        errs = {n: ((a - b).abs().max().item(), FLASH_F32_RTOL * b.abs().max().item())
+                for n, (a, b) in got.items()}
+        lerr = (lse - ref_lse).abs().max().item()
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in got.values())
+        if (not finite or not same or lerr > FLASH_F32_LSE_ATOL
+                or any(e > b for e, b in errs.values())):
+            raise RuntimeError(f"float32 K4-K6 at N={N}: (err, bound) {errs}, lse err {lerr}, "
+                               f"finite {finite}, two K4 calls bitwise equal {same}")
+        log(f"[K4-K6 float32] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound {FLASH_F32_RTOL} "
+            f"x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+            + f", lse err {lerr:.3g} (atol {FLASH_F32_LSE_ATOL}), two K4 calls bitwise equal")
+        del got, out, ref, ref_lse
+        torch.cuda.empty_cache()
+        if N != 10368:
+            del q, k, v, do, lse, delta, ops
+            continue
+        ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 5),
+              "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
+              "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
+        plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
+                 "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
+                 "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 5)
+        lib_both = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
+                                                        (qg, kg, vg), do), 3)
+        flops = {"fwd": 4 * B * H * N * N * 64, "dq": 6 * B * H * N * N * 64,
+                 "dkv": 8 * B * H * N * N * 64}
+        bounds = {n: f / FP32_FLOPS * 1e3 for n, f in flops.items()}  # FP32 FFMA
+        kinds = {n: "operations, FP32" for n in flops}
+        kinds["fwd"] = (f"operations, 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s; exp floor "
+                        f"{exp_floor_ms(B * H * N * N):.4f} ms, FP32 FFMA {bounds['fwd']:.4f} ms")
+        bounds["fwd"] = max(3 * flops["fwd"] / TF32_FLOPS * 1e3,
+                            bytes_bound_ms(4 * B * H * N * 64 * 4 + B * H * N * 4))
+        for name, lib in (("fwd", lib_fwd), ("dq", lib_both - lib_fwd),
+                          ("dkv", lib_both - lib_fwd)):
+            log(f"[K4-K6 float32 {name}] kernel {ms[name]:.4f} ms "
+                f"({flops[name] / ms[name] / 1e9:.2f} TFLOP/s, {bounds[name] / ms[name]:.1%} of "
+                f"the bound), plain {plain[name]:.2f} ms, bound {bounds[name]:.4f} ms "
+                f"({kinds[name]}), sdpa float32 {lib:.4f} ms")
+        row = dict(max_abs_err=errs["out"][0], ms=ms["fwd"], plain_ms=plain["fwd"],
+                   bound_ms=bounds["fwd"], bound_by="operations", library_ms=lib_fwd)
+        del q, k, v, do, lse, delta, ops, qg, kg, vg
+        torch.cuda.empty_cache()
+    return row
 
 
 def perm_rows(rng, dev) -> dict:
@@ -524,8 +553,8 @@ def perm_rows(rng, dev) -> dict:
         f"bound {bound:.6f} ms (bytes)")
     rows["perm_dynroll"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                 bound_by="bytes", library_ms=lib)
-    # a launch-bound kernel's event time above is the wrapper's launch rate;
-    # the profiler gives the device's own time per launch
+    # a launch-bound call's event time above is its issue rate; the profiler
+    # gives the device's own time per launch, for K7, K8 and torch.roll alike
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,11 +562,13 @@ def perm_rows(rng, dev) -> dict:
         for _ in range(50):
             pp.expand(mask, words)
             pp.dynroll(words, s)
+            torch.roll(words, 3, 1)
         torch.cuda.synchronize()
     dev_us = defaultdict(list)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "perm_" in e.name:
-            dev_us[re.search(r"perm_\w+", e.name).group(0)].append(
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = re.search(r"perm_\w+", e.name)
+            dev_us[name.group(0) if name else "torch.roll"].append(
                 e.time_range.end - e.time_range.start)
     log("[K7/K8 device] " + ", ".join(f"{n} {statistics.median(v):.2f} us median of {len(v)}"
                                         for n, v in sorted(dev_us.items())))
@@ -1032,8 +1063,8 @@ def main() -> int:
     # probe and the API's two .bin roundtrips. K2 (rans_decode_generic)
     # replaces both decode_scan_pallas (:705) and decode_rowplan_pallas
     # (:368); its entry names the former.
-    paths = (main_res["launches"], ref_launches, train_res["launches"], probe_launches,
-             api_launches)
+    paths = {"codec": main_res["launches"], "tiny": ref_launches, "train": train_res["launches"],
+             "probe": probe_launches, "api": api_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -1043,6 +1074,8 @@ def main() -> int:
                                 "cra5_tpu/coder/rans_pallas.py:705"),
         "flash_attn_fwd": ("flash_attention_forward", "cra5_tpu_torch/csrc/flash_attn_fwd.cu",
                            "cra5_tpu/ops/attention.py:102"),
+        "flash_attn_fwd_f32": ("flash_attention_forward", "cra5_tpu_torch/csrc/flash_attn_fwd.cu",
+                               "cra5_tpu/ops/attention.py:102"),
         "flash_attn_bwd_dq": ("flash_attention_backward_dq",
                               "cra5_tpu_torch/csrc/flash_attn_bwd.cu",
                               "cra5_tpu/ops/attention.py:140"),
@@ -1054,9 +1087,12 @@ def main() -> int:
         "perm_dynroll": ("dynroll", "cra5_tpu_torch/csrc/perm_probe.cu",
                          "profiling/_perm_probe.py:160"),
     }
+    # the bf16 K4 and the float32 K4 share one wrapper and counter: the
+    # float32 path is the API's, every other path is bf16
+    only = {"flash_attn_fwd": ("codec", "tiny", "train", "probe"), "flash_attn_fwd_f32": ("api",)}
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():
-        launches = sum(p[counter] for p in paths)
+        launches = sum(paths[p][counter] for p in only.get(name, paths))
         if launches == 0:
             raise RuntimeError(f"{name} was not launched on any path")
         kernels_line.append(dict(name=name, route="cuda", source=src, replaces=replaces,

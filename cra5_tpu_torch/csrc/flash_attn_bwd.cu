@@ -6,7 +6,7 @@
 // the forward's log-sum-exp rows and delta = rowsum(dO * O), both
 // recompute P = exp(S - lse) tile by tile, so no (N x N) buffer reaches
 // device memory (FlashAttention-2):
-//   K5: one block per 64-query tile walks every 64-key tile;
+//   K5: one block per 128-query tile walks every 64-key tile;
 //       dQ = scale * sum_k dS K, dS = P * (dO V^T - delta).
 //   K6: one block per 128-key tile walks every 64-query tile;
 //       dV = sum_q P^T dO, dK = scale * sum_q dS^T Q.
@@ -15,22 +15,31 @@
 // uses q pre-scaled and rounded to bf16 and writes dq rounded once; K6
 // scales the float32 logits of raw q, and its dk/dv stay float32 in
 // registers until the one rounding at the end. P (for dV) and dS are
-// rounded to bf16 before their products. The ragged key tail is masked
-// (-1e30) in K5; query rows past N get P = 0 in K6. No atomics: the result
-// is deterministic.
+// rounded to bf16 before their products. Keys past N get P = 0 in K5 (the
+// TPU kernel masks their logits to -1e30), query rows past N get P = 0 in
+// K6. No atomics: the result is deterministic.
 //
-// K5 runs mma.sync m16n8k16 bf16 with float32 accumulators (mma.cuh): four
-// warps own 16 rows each of the block's tile, the row tile lives in
-// registers as A fragments, the walked tiles are staged in shared memory,
-// and each warp's 16x64 logits tile turns into the A fragment of the next
-// product in registers.
+// Both are built for Hopper (hopper.cuh): a block of 384 threads, one
+// producer warpgroup whose first thread issues every TMA load on 3-D tensor
+// maps (rows past N zero-filled, never the next head's), and two consumer
+// warpgroups of 64 rows each on wgmma.
 //
-// K6 is built for Hopper (hopper.cuh). A block of 384 threads owns 128
-// keys: one producer warpgroup, lowered to 40 registers, and two consumer
-// warpgroups of 64 keys each, raised to 232. K and V arrive once by TMA and
+// K5: a block owns BQ = 128 queries. Q and dO arrive once by TMA; each
+// consumer scales its q rows in float32 and rounds them to bf16 in place
+// (the TPU kernel's rounding point), then fences the async proxy. K and V
+// tiles of BK = 64 keys stream through a ring of kStages stages with full
+// and empty mbarriers. Per stage a consumer runs S = (q scale) K^T and dP
+// = dO V^T (wgmma m64n64k16, both operands in shared memory, K-major), P =
+// exp2(S log2 e - lse log2 e) (one FFMA and one ex2 a logit; 0 for keys
+// past N) and dS = P (dP - delta) in registers, dS rounded to bf16 straight
+// into the register A operand of dQ += dS K, with K MN-major: one staged K
+// tile serves both majors. lse log2 e and delta of a thread's two rows stay
+// in registers for the whole walk. dq * scale is rounded to bf16 once.
+//
+// K6: a block owns 128 keys: the producer warpgroup is lowered to 40
+// registers, the consumers raised to 232. K and V arrive once by TMA and
 // stay in shared memory as the A operands. The producer's first warp
-// streams 64-query tiles of Q and dO by TMA on 3-D tensor maps (rows past
-// N zero-filled, never the next head's), with their lse (times log2 e) and
+// streams 64-query tiles of Q and dO, with their lse (times log2 e) and
 // delta rows, through a ring of kStages stages with full and empty
 // mbarriers; both consumers read each staged tile. Per tile a consumer
 // runs S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands in
@@ -48,195 +57,190 @@
 
 #include "flash_f32.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
 
 namespace {
 
-using cra5::mma_16816;
-using cra5::pack_bf16;
-using cra5::pack_bf16_raw;
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int BT = 64;  // rows of every tile, query or key
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+namespace dq_hopper {
 
-// Stage rows [r0, r0 + BT) of a (N, D) bf16 matrix into shared memory with
-// row stride D + 8 (conflict-free fragment loads); rows past N are zero.
-// With `scale`, each value is scaled in float32 and rounded back to bf16.
-template <int D, bool kScale>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* __restrict__ src,
-                                           int r0, int N, float scale) {
-  constexpr int LD = D + 8, CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BT * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    if (kScale) {
+namespace hw = cra5::hopper;
+
+constexpr int BQ = 128;  // queries a block, 64 per consumer warpgroup
+constexpr int BK = 64;   // keys a ring stage
+constexpr int kStages = 4;
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 168 a thread at launch
+constexpr int kQueryBytes = BQ * 64 * 2;
+constexpr int kKeyBytes = BK * 64 * 2;
+
+// Every tile is a multiple of 1024 bytes, so each starts 1024-aligned, as
+// the 128-byte swizzle needs.
+struct alignas(1024) DqSmem {
+  __nv_bfloat16 q[BQ * 64];
+  __nv_bfloat16 dout[BQ * 64];
+  __nv_bfloat16 k[kStages][BK * 64];
+  __nv_bfloat16 v[kStages][BK * 64];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(DqSmem) + 1024;  // + the alignment slack
+
+// One consumer warpgroup: query rows [r0, r0 + 64) of head bh, rows 64c of
+// the block's Q and dO tiles.
+__device__ __forceinline__ void consumer(DqSmem& s, const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         __nv_bfloat16* __restrict__ dq, int N, int bh, int r0,
+                                         int nkb, float scale, int c) {
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+  __nv_bfloat16* sq = s.q + c * 64 * 64;
+
+  float l2[2], dl[2];  // rows g and g + 8 of this warp; read before the wait
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    l2[h] = row < N ? lse[(size_t)bh * N + row] * kLog2e : 0.f;
+    dl[h] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+  }
+
+  hw::mbar_wait(&s.q_full, 0);
+  {  // q * scale, rounded to bf16 once; the swizzle moves whole 16-byte chunks
+    uint4* p = reinterpret_cast<uint4*>(sq);
+    for (int i = t; i < 64 * 64 / 8; i += 128) {
+      uint4 val = p[i];
       __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
       for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * scale);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// The A fragments of rows [row0, row0 + 16) of a staged tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], const __nv_bfloat16* s,
-                                       int row0, int g, int tg) {
-  constexpr int LD = D + 8;
-  const __nv_bfloat16* p0 = s + (row0 + g) * LD + tg * 2;
-  const __nv_bfloat16* p1 = p0 + 8 * LD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    f[kk][0] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16);
-    f[kk][1] = *reinterpret_cast<const uint32_t*>(p1 + kk * 16);
-    f[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + kk * 16 + 8);
-    f[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + kk * 16 + 8);
-  }
-}
-
-// s (16 x BT) = A (16 x D) * T^T, T a staged tile whose BT rows are the
-// columns of s.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&s)[BT / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* t, int g, int tg) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < BT / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* pk = t + (nt * 8 + g) * LD + tg * 2;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      mma_16816(s[nt], a[kk], *reinterpret_cast<const uint32_t*>(pk + kk * 16),
-                *reinterpret_cast<const uint32_t*>(pk + kk * 16 + 8));
+      p[i] = val;
     }
   }
-}
+  hw::fence_proxy_async();
+  hw::named_sync(1 + c, 128);
 
-// acc (16 x D) += bf16(p) (16 x BT, accumulator layout) * T, T a staged
-// (BT x D) tile: accumulator tiles (2kk, 2kk + 1) of p are exactly the A
-// fragment of step kk, so p never leaves registers.
-template <int D>
-__device__ __forceinline__ void mma_pt(float (&acc)[D / 8][4], const float (&p)[BT / 8][4],
-                                       const __nv_bfloat16* t, int g, int tg) {
-  constexpr int LD = D + 8;
+  const uint64_t q_desc = hw::sw128_desc(sq, 16, 1024);
+  const uint64_t o_desc = hw::sw128_desc(s.dout + c * 64 * 64, 16, 1024);
+  float acc[32];
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]),
-    };
-    const __nv_bfloat16* pv = t + (kk * 16 + tg * 2) * LD + g;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nkb; ++j) {
+    const int st = j % kStages;
+    hw::mbar_wait(&s.full[st], (j / kStages) & 1);
+
+    float sc[32], dp[32];  // 64 rows x 64 keys each
+    const uint64_t k_desc = hw::sw128_desc(s.k[st], 16, 1024);
+    const uint64_t v_desc = hw::sw128_desc(s.v[st], 16, 1024);
+    hw::wgmma_fence();
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      const __nv_bfloat16* e = pv + d * 8;
-      mma_16816(acc[d], a, pack_bf16_raw(e[0], e[LD]), pack_bf16_raw(e[8 * LD], e[9 * LD]));
+    for (int kk = 0; kk < 4; ++kk) {  // S = (q * scale) K^T
+      hw::wgmma_m64n64k16_ss(sc, hw::desc_add(q_desc, 32 * kk), hw::desc_add(k_desc, 32 * kk),
+                             kk);
     }
-  }
-}
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dP = dO V^T
+      hw::wgmma_m64n64k16_ss(dp, hw::desc_add(o_desc, 32 * kk), hw::desc_add(v_desc, 32 * kk),
+                             kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
 
-// Write a warp's 16 x D float32 accumulator rows as bf16, times `scale`;
-// rows past N are dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
-                                           const float (&acc)[D / 8][4], int row0, int N,
-                                           float scale, int g, int tg) {
+    // dS = P (dP - delta), P = exp2(S log2 e - lse log2 e), 0 for keys past
+    // N (zero-filled keys give a logit of 0), rounded to bf16 into the A
+    // operand of key step kk: accumulator chunks 2kk and 2kk + 1
+    const int k0 = j * BK;
+    const bool ragged = k0 + BK > N;
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // registers 4n + 2h + jj: key 8n + 2tg + jj
+        float ds[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int i = 4 * n + 2 * h + jj;
+          float p = hw::ex2(fmaf(sc[i], kLog2e, -l2[h]));
+          if (ragged && k0 + 8 * n + 2 * tg + jj >= N) p = 0.f;
+          ds[jj] = p * (dp[i] - dl[h]);
+        }
+        dsa[n >> 1][2 * (n & 1) + h] = hw::pack_bf16(ds[0], ds[1]);
+      }
+    }
+
+    const uint64_t k_mn = hw::sw128_desc(s.k[st], BK * 128, 1024);  // MN-major
+    hw::fence_regs(acc);
+    hw::fence_regs(dsa);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dQ += dS K
+      hw::wgmma_m64n64k16_rs(acc, dsa[kk], hw::desc_add(k_mn, 2048 * kk), 1);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+    hw::fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&s.empty[st]);  // this warp is done with the stage
+  }
+
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
+    const int row = r0 + warp * 16 + g + 8 * h;
     if (row >= N) continue;
-    __nv_bfloat16* o = dst + (size_t)row * D + tg * 2;
+    __nv_bfloat16* dst = dq + ((size_t)bh * N + row) * 64 + 2 * tg;
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(o + d * 8) =
-          __floats2bfloat162_rn(acc[d][2 * h] * scale, acc[d][2 * h + 1] * scale);
+    for (int d = 0; d < 8; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+          __floats2bfloat162_rn(acc[4 * d + 2 * h] * scale, acc[4 * d + 2 * h + 1] * scale);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dq, int N, int nqb,
-                             float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sO[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sK[BT * LD];
-  __shared__ __align__(16) __nv_bfloat16 sV[BT * LD];
-
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dq, int N, int nqb, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& s = *reinterpret_cast<DqSmem*>(hw::align_1024(smem_raw));
   const int bh = blockIdx.x / nqb;
-  const int q0 = (blockIdx.x % nqb) * BT;
-  const size_t base = (size_t)bh * N * D;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int tg = threadIdx.x & 3;
+  const int q0 = (blockIdx.x % nqb) * BQ;
+  const int nkb = (N + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  stage_tile<D, true>(sQ, q + base, q0, N, scale);
-  stage_tile<D, false>(sO, dout + base, q0, N, 1.f);
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&s.q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hw::mbar_init(&s.full[st], 1);
+      hw::mbar_init(&s.empty[st], 8);  // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4], of[D / 16][4];
-  load_a<D>(qf, sQ, warp * 16, g, tg);
-  load_a<D>(of, sO, warp * 16, g, tg);
-  float lse_r[2], dl_r[2];  // rows g and g + 8 of this warp
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
-    lse_r[h] = row < N ? lse[(size_t)bh * N + row] : 0.f;
-    dl_r[h] = row < N ? delta[(size_t)bh * N + row] : 0.f;
-  }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int d = 0; d < D / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  const int nkb = (N + BT - 1) / BT;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BT;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile<D, false>(sK, k + base, k0, N, 1.f);
-    stage_tile<D, false>(sV, v + base, k0, N, 1.f);
-    __syncthreads();
-
-    float s[BT / 8][4], dp[BT / 8][4];
-    mma_abt<D>(s, qf, sK, g, tg);   // (q * scale) K^T
-    mma_abt<D>(dp, of, sV, g, tg);  // dO V^T
-    if (k0 + BT > N) {  // ragged tail tile
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt) {
-        const int col = k0 + nt * 8 + tg * 2;
-        if (col >= N) s[nt][0] = s[nt][2] = kNegInf;
-        if (col + 1 >= N) s[nt][1] = s[nt][3] = kNegInf;
+  if (wg == 0) {  // producer
+    hw::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::mbar_arrive_expect_tx(&s.q_full, 2 * kQueryBytes);
+      hw::tma_load_3d(s.q, &map_q, &s.q_full, 0, q0, bh);
+      hw::tma_load_3d(s.dout, &map_do, &s.q_full, 0, q0, bh);
+      for (int j = 0; j < nkb; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hw::mbar_wait(&s.empty[st], (j / kStages - 1) & 1);
+        hw::mbar_arrive_expect_tx(&s.full[st], 2 * kKeyBytes);
+        hw::tma_load_3d(s.k[st], &map_k, &s.full[st], 0, j * BK, bh);
+        hw::tma_load_3d(s.v[st], &map_v, &s.full[st], 0, j * BK, bh);
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - lse_r[e >> 1]);
-        s[nt][e] = p * (dp[nt][e] - dl_r[e >> 1]);  // dS
-      }
-    }
-    mma_pt<D>(acc, s, sK, g, tg);  // dQ += dS K
+  } else {  // consumers
+    hw::regs_inc<kConsumerRegs>();
+    consumer(s, lse, delta, dq, N, bh, q0 + (wg - 1) * 64, nkb, scale, wg - 1);
   }
-  store_rows<D>(dq + base, acc, q0 + warp * 16, N, scale, g, tg);
 }
 
-int tile_blocks(int BH, int N, int* ntiles) {
-  *ntiles = (N + BT - 1) / BT;
-  const long long blocks = (long long)BH * *ntiles;
-  return blocks > 0x7fffffffLL ? -1 : (int)blocks;
-}
+}  // namespace dq_hopper
 
 namespace dkv {
 
@@ -249,7 +253,6 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 168 a thread at launch
 constexpr int kKeyBytes = BKV * 64 * 2;
 constexpr int kQueryBytes = BQ * 64 * 2;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Every tile is a multiple of 1024 bytes, so each starts 1024-aligned, as
 // the 128-byte swizzle needs.
@@ -568,13 +571,25 @@ extern "C" int cra5_flash_attn_bwd_dq(const void* q, const void* k, const void* 
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, int BH, int N, int D, float scale,
                                       void* stream) {
-  int nqb;
-  const int blocks = tile_blocks(BH, N, &nqb);
-  if (D != 64 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  flash_attn_bwd_dq_kernel<64><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-      (__nv_bfloat16*)dq, N, nqb, scale);
+  namespace hw = cra5::hopper;
+  namespace k5 = dq_hopper;
+  if (D != 64 || N < 1 || BH < 1) return (int)cudaErrorInvalidValue;
+  const int nqb = (N + k5::BQ - 1) / k5::BQ;
+  const long long blocks = (long long)BH * nqb;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!hw::make_tensor_map_3d(&map_q, q, N, BH, k5::BQ) ||
+      !hw::make_tensor_map_3d(&map_do, dout, N, BH, k5::BQ) ||
+      !hw::make_tensor_map_3d(&map_k, k, N, BH, k5::BK) ||
+      !hw::make_tensor_map_3d(&map_v, v, N, BH, k5::BK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e =
+      hw::prepare(k5::kernel, k5::kSmemBytes, k5::kProducerRegs, k5::kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  k5::kernel<<<(unsigned)blocks, k5::kThreads, k5::kSmemBytes, (cudaStream_t)stream>>>(
+      map_q, map_k, map_v, map_do, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq,
+      N, nqb, scale);
   return (int)cudaGetLastError();
 }
 

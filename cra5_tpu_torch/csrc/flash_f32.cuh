@@ -1,9 +1,9 @@
-// SIMT helpers of the float32 flash-attention kernels (K4, K5 and K6 with
-// float32 operands, head dim 64). Products and sums run in full float32 on
-// the FFMA units: tensor-core TF32 would round every operand to 10
-// mantissa bits, and the port keeps float32 as float32.
+// SIMT helpers of the float32 flash-attention backward kernels (K5 and K6
+// with float32 operands, head dim 64). Products and sums run in full
+// float32 on the FFMA units. (The float32 forward, K4, runs on the tensor
+// cores with 3xTF32 split products instead: flash_attn_fwd.cu.)
 //
-// Layout: each row a block owns (a query row in K4/K5, a key row in K6) is
+// Layout: each row a block owns (a query row in K5, a key row in K6) is
 // held by a pair of adjacent threads, thread h of the pair keeping head
 // dims [32h, 32h + 32) of that row in registers. A dot product over the
 // head dim is the pair's two half sums joined by one __shfl_xor, so both

@@ -1,12 +1,15 @@
-// Hopper (sm_90a) building blocks shared by the bf16 flash kernels K4
-// (flash_attn_fwd.cu) and K6 (flash_attn_bwd.cu), as inline PTX:
+// Hopper (sm_90a) building blocks shared by the flash kernels K4
+// (flash_attn_fwd.cu) and K5/K6 (flash_attn_bwd.cu), as inline PTX:
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase parity;
 //   - TMA: cp.async.bulk.tensor 3-D loads that complete on an mbarrier, and
-//     the host-side tensor maps over (D, N, BH) bf16 with 128-byte swizzle;
+//     the host-side tensor maps over (D, N, BH) bf16 or float32 with
+//     128-byte swizzle;
 //   - wgmma: fence, commit_group, wait_group, the shared-memory matrix
-//     descriptor for 128-byte swizzle, and m64nNk16 f32 += bf16 x bf16 with
-//     A from shared memory or from registers;
+//     descriptor for 128-byte swizzle, m64nNk16 f32 += bf16 x bf16 with A
+//     from shared memory or from registers, and m64n64k8 f32 += tf32 x tf32
+//     (both operands K-major: the tf32 forms have no transpose);
+//   - cvt.rna.tf32.f32, the split of 3xTF32 products;
 //   - setmaxnreg, named barriers and fence.proxy.async.
 //
 // Layouts. A tile of R rows of 64 bf16 (128 bytes a row), loaded by TMA
@@ -20,11 +23,20 @@
 //            B between 8-row groups of K, LBO the stride between 64-wide
 //            column blocks (one block here); the k-th K step starts 2048 k
 //            bytes in.
-// The accumulator of m64nNk16 gives thread t of the warpgroup (warp w =
-// t / 32, g = (t % 32) / 4, tg = t % 4) d[4 n + 2 h + j] = D[16 w + g + 8 h]
-// [8 n + 2 tg + j]; the register A operand is the m16n8k16 A fragment of
-// rows 16 w .. 16 w + 15, so accumulator chunks 2k and 2k + 1 of a logits
-// tile, packed to bf16, are the A operand of K step k.
+// A float32 row of 64 (256 bytes) is two swizzle atoms, so a float32 tile
+// is kept as two halves, head dims [0, 32) and [32, 64), each R rows of
+// 128 bytes swizzled as above (a TMA box 32 floats wide per half). As a
+// K-major tf32 operand the k-th 8-wide K step starts in half k / 4, 32 (k
+// % 4) bytes in, SBO 1024 B.
+// The accumulator of m64nNk16 (and of m64nNk8) gives thread t of the
+// warpgroup (warp w = t / 32, g = (t % 32) / 4, tg = t % 4) d[4 n + 2 h +
+// j] = D[16 w + g + 8 h][8 n + 2 tg + j]; the bf16 register A operand is
+// the m16n8k16 A fragment of rows 16 w .. 16 w + 15, so accumulator chunks
+// 2k and 2k + 1 of a logits tile, packed to bf16, are the A operand of K
+// step k. The tf32 register A operand is the m16n8k8 A fragment, a = {A[g]
+// [tg], A[g + 8][tg], A[g][tg + 4], A[g + 8][tg + 4]}: accumulator chunk k
+// holds columns 2 tg and 2 tg + 1 instead, so a kernel that feeds it
+// reorders the keys of each 8-key step in the B operand to match.
 #pragma once
 
 #include <cuda.h>
@@ -139,6 +151,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero; the low 13 bits of the result are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
 // ------------------------------------------------------------------ wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -251,13 +271,54 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 64, f32) += A (64 x 8) * B (8 x 64), tf32, both in shared memory,
+// K-major; D is only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 registers, the m16n8k8 A fragment of
+// each warp's 16 rows) * B (8 x 64, tf32, shared memory, K-major); D is
+// only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // ------------------------------------------------------------------ host
-// A 3-D tensor map over a contiguous (BH, N, D = 64) bf16 array, dims
-// innermost first (D, N, BH), boxes of (64, rows, 1) with 128-byte swizzle
-// and zero fill: a box past a head's last row reads zeros, never the next
-// head. cuTensorMapEncodeTiled is looked up through the CUDA runtime's
+// A 3-D tensor map over a contiguous (BH, N, D = 64) array of `elem_bytes`
+// (2: bf16, 4: float32) elements, dims innermost first (D, N, BH), boxes of
+// (128 / elem_bytes, rows, 1), one 128-byte swizzle atom wide, with zero
+// fill: a box past a head's last row reads zeros, never the next head.
+// cuTensorMapEncodeTiled is looked up through the CUDA runtime's
 // entry-point query, so the library needs no -lcuda.
-inline bool make_tensor_map_3d(CUtensorMap* map, const void* base, int N, int BH, int rows) {
+inline bool make_tensor_map_3d(CUtensorMap* map, const void* base, int N, int BH, int rows,
+                               int elem_bytes = 2) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -273,11 +334,15 @@ inline bool make_tensor_map_3d(CUtensorMap* map, const void* base, int N, int BH
                : nullptr;
   }();
   if (encode == nullptr) return false;
+  if (elem_bytes != 2 && elem_bytes != 4) return false;
   const cuuint64_t dims[3] = {64, (cuuint64_t)N, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)N * 64 * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t row_bytes = 64 * (cuuint64_t)elem_bytes;
+  const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)N * row_bytes};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {128u / elem_bytes, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -57,17 +57,21 @@ FLASH_LSE_ATOL = 2e-3
 # max |got - ref| <= 2e-2 * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
 # K4-K6 with float32 operands against the float32 plain versions: no
-# rounding point differs, only the order of float32 sums. The plain
-# versions sum in blocks (within 1.3e-6 x max |ref| of float64 for out,
-# dq, dk and dv at N = 1000 and 10368 on the CPU); the kernels carry one
-# running sum over N, about 5e-6 x max |ref| from them at N = 10368 on an
-# H100. The bound is 1e-5 x max |ref|, and lse (|lse| < 10) within 1e-5.
+# rounding point differs, only the order of float32 sums and, in K4, the
+# 3xTF32 split products (hi hi + hi lo + lo hi, the lo lo term of ~2^-22
+# relative dropped; tests/test_torch_flash.py holds that arithmetic on the
+# CPU). The plain versions sum in blocks (within 1.3e-6 x max |ref| of
+# float64 for out, dq, dk and dv at N = 1000 and 10368 on the CPU); the
+# kernels sum in another order, about 5e-6 x max |ref| from them at N =
+# 10368 on an H100. The bound is 1e-5 x max |ref|, and lse (|lse| < 10)
+# within 1e-5.
 FLASH_F32_RTOL = 1e-5
 FLASH_F32_LSE_ATOL = 1e-5
-# bf16 K4 and K6 shapes: off and on the tile edges of both kernels (K4 takes
-# 128 queries a block and 128 keys a ring stage; K6 128 keys a block and 64
-# queries a stage), and several heads whose last tile is ragged, where a
-# tile that read past its head's last row would take the next head's rows.
+# bf16 K4-K6 shapes: off and on the tile edges of the kernels (K4 takes 128
+# queries a block and 128 keys a ring stage; K5 128 queries a block and 64
+# keys a stage; K6 128 keys a block and 64 queries a stage), and several
+# heads whose last tile is ragged, where a tile that read past its head's
+# last row would take the next head's rows.
 FLASH_BF16_SHAPES = [(1, 1, 1), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000),
                      (1, 2, 127), (1, 2, 128), (1, 2, 129), (1, 2, 255), (1, 2, 257),
                      (2, 3, 200)]
@@ -331,6 +335,15 @@ def test_flash_attn_bwd_is_deterministic(card, rng):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def test_flash_attn_bwd_dq_is_deterministic_at_a_tile_edge(card, rng):
+    """K5 at N = 129: a last query block of one row and a last key stage of
+    one key; each block owns its dQ rows, so two calls are bitwise equal."""
+    ops = _grad_operands(rng, card, 2, 3, 129)
+    a = flash_attention_backward_dq(*ops, 0.125)
+    b = flash_attention_backward_dq(*ops, 0.125)
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
 def test_flash_attention_gradients_on_the_card_match_the_plain_path(card, rng):
     """autograd through FlashAttention (K4, K5, K6) against the same
     Function on the CPU (the plain versions), same bf16 inputs."""
@@ -347,12 +360,15 @@ def test_flash_attention_gradients_on_the_card_match_the_plain_path(card, rng):
         assert _close(got, ref)
 
 
-@pytest.mark.parametrize("B,H,N", [(1, 1, 2), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000)])
+@pytest.mark.parametrize("B,H,N", [(1, 1, 2), (2, 3, 63), (1, 2, 65), (1, 2, 300), (2, 1, 1000),
+                                   (1, 2, 127), (1, 2, 128), (1, 2, 129), (1, 2, 255),
+                                   (1, 2, 257), (2, 3, 200)])
 def test_flash_attn_f32_close_to_plain(card, rng, B, H, N):
-    """K4, K5 and K6 on float32 operands (the SIMT entries) against the
-    float32 plain versions. N = 1 is left out: with one key dS = dP - delta
-    is zero but for rounding, so dk is rounding noise on both sides and no
-    bound relative to it holds."""
+    """K4 (3xTF32 on the tensor cores), K5 and K6 (SIMT) on float32
+    operands against the float32 plain versions, on and off K4's tile edges
+    (128 queries a block, 64 keys a stage) and with ragged heads. N = 1 is
+    left out: with one key dS = dP - delta is zero but for rounding, so dk
+    is rounding noise on both sides and no bound relative to it holds."""
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64), np.float32) * 1.5)
                    .to(card) for _ in range(4))
     before = tuple(f.launches for f in (flash_attention_forward, flash_attention_backward_dq,
@@ -374,6 +390,14 @@ def test_flash_attn_f32_close_to_plain(card, rng, B, H, N):
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         bound = FLASH_F32_RTOL * want.abs().max().item()
         assert (got - want).abs().max().item() <= bound
+
+
+def test_flash_attn_f32_fwd_is_deterministic(card, rng):
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 777, 64), np.float32)).to(card)
+               for _ in range(3))
+    a = flash_attention_forward(q, k, v)
+    b = flash_attention_forward(q, k, v)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_268v_global_block_f32_through_flash_matches_the_plain_path(card):

@@ -3,7 +3,13 @@ versions of K4, K5 and K6) against the JAX flash kernels in interpret mode,
 with the bound the card's float32 kernels are held to: max |got - ref| <=
 1e-5 x max |ref| for out, dq, dk and dv, and lse within 1e-5. No rounding
 point differs in float32; the JAX kernels sum in 128-wide tiles, the plain
-versions over whole rows."""
+versions over whole rows.
+
+The card's float32 K4 runs its products on the tensor cores as 3xTF32
+(each operand split into hi = tf32(x) and lo = tf32(x - hi), each product
+hi hi + hi lo + lo hi). That arithmetic is emulated here, bit for bit in
+its roundings, and held to the same bound against the float32 plain
+version and float64, where the kernel itself cannot run."""
 
 import jax
 import jax.numpy as jnp
@@ -13,9 +19,14 @@ import torch
 
 from cra5_tpu.ops.attention import _flash_forward as j_flash_forward
 from cra5_tpu.ops.attention import flash_attention as j_flash
-from cra5_tpu_torch.ops.attention import flash_attention, flash_attention_forward
+from cra5_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_forward,
+    flash_attention_plain,
+)
 
 RTOL = 1e-5
+LSE_ATOL = 1e-5
 
 
 def _bounded(got, want):
@@ -44,3 +55,70 @@ def test_f32_flash_matches_the_pallas_kernels(B, H, N):
     for a, b in zip(got, want):
         assert a.dtype == torch.float32
         _bounded(a, b)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the float32 bit pattern: the magnitude rounded to
+    10 mantissa bits, ties away from zero (add half the weight of the 13
+    dropped bits, then clear them)."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)  # x - hi is exact in float32
+
+
+def _mm(a, b, products):
+    """a @ b as TF32 split products, float32 sums: 3 = hi hi + hi lo + lo hi
+    (the kernel's), 1 = hi hi alone."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if products == 1:
+        return ah @ bh
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _forward_tf32(q, k, v, scale, products, block_k=64):
+    """The card's float32 K4 in float32 on the CPU, one (N, 64) head: q
+    scaled in float32, 64-key stages, the online softmax in log2 units, P
+    split like the operands and multiplying V unrounded otherwise."""
+    log2e = 1.4426950408889634
+    qs = q * scale
+    m = torch.full((q.shape[0], 1), -1e30)
+    l = torch.zeros((q.shape[0], 1))
+    o = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], block_k):
+        s = _mm(qs, k[k0:k0 + block_k].T, products)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * log2e)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * log2e - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm(p, v[k0:k0 + block_k], products)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return o / l, (m / log2e + torch.log(l))[:, 0]
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
+def test_3xtf32_forward_within_the_f32_bound(B, H, N):
+    """3xTF32 keeps float32 accuracy: out within RTOL x max |ref| and lse
+    within LSE_ATOL of the float32 plain version and of float64 (inputs
+    N(0, 1.5^2), scale 0.125, as on the card). One TF32 product (10
+    mantissa bits) misses the same bound by orders of magnitude, so the
+    bound tells the two apart."""
+    rng = np.random.default_rng(N)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, 64)).astype(np.float32) * 1.5)
+               for _ in range(3))
+    scale = 0.125
+    ref32, lse32 = flash_attention_plain(q, k, v, scale)
+    ref64, lse64 = flash_attention_plain(q.double(), k.double(), v.double(), scale)
+    for b in range(B):
+        for h in range(H):
+            out, lse = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=3)
+            for ref, ref_lse in ((ref32[b, h], lse32[b, h]), (ref64[b, h], lse64[b, h])):
+                bound = RTOL * ref.abs().max().item()
+                assert (out.double() - ref.double()).abs().max().item() <= bound
+                assert (lse.double() - ref_lse.double()).abs().max().item() <= LSE_ATOL
+            one, _ = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=1)
+            assert (one.double() - ref64[b, h]).abs().max().item() > 10 * RTOL * ref64[b, h].abs().max().item()
