@@ -35,11 +35,13 @@ result line is printed then:
      ranges: one roundtrip with every stage ending in a synchronize (host
      ms per stage), then one unsynchronised roundtrip under torch.profiler
      (device ms by kernel name, and the device's busy share of the wall);
-  7. train path: Trainer.fit on the 268v VAEformer in bf16 with remat,
-     seeded init, synthetic N(0, 1) x 0.5 fields: one warm-up step, then
-     three timed steps with the launch counters zeroed just before and
-     read just after (14 forward, 7 dQ and 7 dK/dV launches a step), then
-     one step under torch.profiler;
+  7. train paths: Trainer.fit on the 268v VAEformer with remat, seeded
+     init, synthetic N(0, 1) x 0.5 fields, first in bf16, then in float32
+     (the JAX package's training default) once the bf16 phase has freed
+     its memory: one warm-up step, then three timed steps with the launch
+     counters zeroed just before and read just after (14 forward, 7 dQ and
+     7 dK/dV launches a step, of the bf16 kernels in the one, of the
+     float32 kernels in the other), then one step under torch.profiler;
   8. probe path: cra5_tpu_torch.profiling.perm_probe.main on the card (the
      torch sort/take/scatter probes at 2.65 M elements, K7 and K8), the
      counters zeroed just before and read just after;
@@ -51,16 +53,19 @@ result line is printed then:
      decodes exactly from both files, both give the same z symbols, and
      x_hat is a finite full-size field.
 
-The kernels phase also holds K4-K6 on float32 operands (K4 on the tensor
-cores with 3xTF32, K5 and K6 SIMT) at a ragged N and at the global blocks'
-shape against the float32 plain versions, within FLASH_F32_RTOL x max
-|ref|, two calls of the float32 K4 bitwise equal, with SDPA in float32 as
-the yardstick, and K7 (perm_expand) and K8 (perm_dynroll) at (8, 1024)
-against their plain versions exactly, with the device time of each and of
-torch.roll; the reference phase adds the 268v global block in float32.
-The line before the last is a JSON object listing every kernel (the
-float32 K4 a row of its own, its launches those of the API path); the
-last is {"ok": true, "device": {...}}. It needs one card and no network.
+The kernels phase also holds K4-K6 on float32 operands (on the tensor
+cores with 3xTF32) at a ragged N and at the global blocks' shape against
+the float32 plain versions, within FLASH_F32_RTOL x max |ref|, two calls of
+each bitwise equal, with SDPA in float32 as the yardstick, the SIMT
+K4-K6 (every other head dim and dtype) at head dim 72 in float32, bf16
+and float16 against their plain versions, and K7 (perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
+versions exactly, with the device time of each and of torch.roll; the
+reference phase adds the 268v global block in float32. The line before
+the last is a JSON object listing every kernel (the float32 K4, K5 and K6
+rows of their own: K4's launches those of the API and the float32 train
+path, K5's and K6's those of the float32 train path; the bf16 rows those
+of the bf16 paths); the last is {"ok": true, "device": {...}}. It needs
+one card and no network.
 """
 
 from __future__ import annotations
@@ -95,13 +100,13 @@ FLASH_LSE_ATOL = 2e-3
 # bounded as out is, max |got - ref| <= FLASH_GRAD_RTOL * max |ref|.
 FLASH_GRAD_RTOL = 2e-2
 # K4-K6 on float32 operands against the float32 plain versions: the same
-# rounding points, float32 sums in another order, and in K4 the 3xTF32
-# split products (hi hi + hi lo + lo hi; tests/test_torch_flash.py
-# emulates them on the CPU within this bound). The plain versions sum in
-# cuBLAS's blocked order (within 1.3e-6 x max |ref| of float64 at N =
-# 10368 on the CPU); the SIMT K5 and K6 carry one running float32 sum over
-# the N keys or queries, about 5e-6 x max |ref| from the plain versions at
-# (1, 16, 10368, 64) on an H100. Bound: out, dq, dk, dv within
+# rounding points, float32 sums in another order, and the 3xTF32 split
+# products (hi hi + hi lo + lo hi; tests/test_torch_flash.py emulates them
+# on the CPU within this bound). The plain versions sum in cuBLAS's blocked
+# order (within 1.3e-6 x max |ref| of float64 at N = 10368 on the CPU); the
+# kernels add each stage's products to their running sums in float32, and
+# came within 0.16-0.28 of the bound at (1, 16, 10368, 64) on an H100.
+# Bound: out, dq, dk, dv within
 # FLASH_F32_RTOL x max |ref|, lse within FLASH_F32_LSE_ATOL.
 FLASH_F32_RTOL = 1e-5
 FLASH_F32_LSE_ATOL = 1e-5
@@ -350,7 +355,8 @@ def phase_kernels(dev) -> dict:
                                   bound_by="operations", library_ms=lib)
     torch.cuda.empty_cache()
     rows.update(flash_backward_rows(rng, dev))
-    rows["flash_attn_fwd_f32"] = flash_f32_rows(rng, dev)
+    rows.update(flash_f32_rows(rng, dev))
+    flash_any_check(rng, dev)
     rows.update(perm_rows(rng, dev))
     return rows
 
@@ -433,14 +439,14 @@ def flash_backward_rows(rng, dev) -> dict:
 
 
 def flash_f32_rows(rng, dev) -> dict:
-    """K4 (3xTF32 on the tensor cores), K5 and K6 (SIMT) on float32
-    operands against the float32 plain versions at a ragged N and at the
-    global blocks' shape, two calls of K4 bitwise equal, with SDPA in
-    float32 (forward; backward as forward + backward less forward) as the
-    yardstick. K4's bound is its design's, three TF32 products at 495
+    """K4, K5 and K6 on float32 operands (3xTF32 on the tensor cores)
+    against the float32 plain versions at a ragged N and at the global
+    blocks' shape, two calls of each bitwise equal, with SDPA in float32
+    (forward; backward as forward + backward less forward) as the
+    yardstick. Each bound is its design's, three TF32 products at 495
     TFLOP/s, printed with the exp floor and the FP32 FFMA bound (what a
-    SIMT kernel could reach) beside it; K5's and K6's is FP32 operations at
-    67 TFLOP/s. Returns K4's row of the kernels line."""
+    kernel off the tensor cores could reach) beside it. Returns the three
+    rows of the kernels line."""
     from cra5_tpu_torch.ops.attention import (
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
@@ -466,6 +472,9 @@ def flash_f32_rows(rng, dev) -> dict:
                                          flash_attention_backward_dq_plain(*ops))}
         got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
                                          flash_attention_backward_dkv_plain(*ops))))
+        same = (same and torch.equal(got["dq"][0], flash_attention_backward_dq(*ops))
+                and all(torch.equal(got[n][0], a) for n, a in
+                        zip(("dk", "dv"), flash_attention_backward_dkv(*ops))))
         torch.cuda.synchronize()
         errs = {n: ((a - b).abs().max().item(), FLASH_F32_RTOL * b.abs().max().item())
                 for n, (a, b) in got.items()}
@@ -474,18 +483,19 @@ def flash_f32_rows(rng, dev) -> dict:
         if (not finite or not same or lerr > FLASH_F32_LSE_ATOL
                 or any(e > b for e, b in errs.values())):
             raise RuntimeError(f"float32 K4-K6 at N={N}: (err, bound) {errs}, lse err {lerr}, "
-                               f"finite {finite}, two K4 calls bitwise equal {same}")
+                               f"finite {finite}, two calls of each bitwise equal {same}")
         log(f"[K4-K6 float32] (B, H, N, D) = ({B}, {H}, {N}, 64): (err, bound {FLASH_F32_RTOL} "
             f"x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
-            + f", lse err {lerr:.3g} (atol {FLASH_F32_LSE_ATOL}), two K4 calls bitwise equal")
+            + f", lse err {lerr:.3g} (atol {FLASH_F32_LSE_ATOL}), two calls of K4, K5 and K6 "
+            "each bitwise equal")
         del got, out, ref, ref_lse
         torch.cuda.empty_cache()
         if N != 10368:
             del q, k, v, do, lse, delta, ops
             continue
         ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 5),
-              "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
-              "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
+              "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 5),
+              "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 5)}
         plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
                  "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
                  "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
@@ -495,23 +505,90 @@ def flash_f32_rows(rng, dev) -> dict:
                                                         (qg, kg, vg), do), 3)
         flops = {"fwd": 4 * B * H * N * N * 64, "dq": 6 * B * H * N * N * 64,
                  "dkv": 8 * B * H * N * N * 64}
-        bounds = {n: f / FP32_FLOPS * 1e3 for n, f in flops.items()}  # FP32 FFMA
-        kinds = {n: "operations, FP32" for n in flops}
-        kinds["fwd"] = (f"operations, 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s; exp floor "
-                        f"{exp_floor_ms(B * H * N * N):.4f} ms, FP32 FFMA {bounds['fwd']:.4f} ms")
-        bounds["fwd"] = max(3 * flops["fwd"] / TF32_FLOPS * 1e3,
-                            bytes_bound_ms(4 * B * H * N * 64 * 4 + B * H * N * 4))
+        io = B * H * N * 64 * 4
+        nbytes = {"fwd": 4 * io + B * H * N * 4, "dq": 5 * io + 2 * B * H * N * 4,
+                  "dkv": 6 * io + 2 * B * H * N * 4}
+        ffma = {n: f / FP32_FLOPS * 1e3 for n, f in flops.items()}
+        bounds = {n: max(3 * f / TF32_FLOPS * 1e3, bytes_bound_ms(nbytes[n]))
+                  for n, f in flops.items()}
+        floor = exp_floor_ms(B * H * N * N)
         for name, lib in (("fwd", lib_fwd), ("dq", lib_both - lib_fwd),
                           ("dkv", lib_both - lib_fwd)):
             log(f"[K4-K6 float32 {name}] kernel {ms[name]:.4f} ms "
                 f"({flops[name] / ms[name] / 1e9:.2f} TFLOP/s, {bounds[name] / ms[name]:.1%} of "
                 f"the bound), plain {plain[name]:.2f} ms, bound {bounds[name]:.4f} ms "
-                f"({kinds[name]}), sdpa float32 {lib:.4f} ms")
-        row = dict(max_abs_err=errs["out"][0], ms=ms["fwd"], plain_ms=plain["fwd"],
-                   bound_ms=bounds["fwd"], bound_by="operations", library_ms=lib_fwd)
+                f"(operations, 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s; exp floor {floor:.4f} "
+                f"ms, FP32 FFMA {ffma[name]:.4f} ms), sdpa float32 {lib:.4f} ms")
+        err = {"fwd": errs["out"][0], "dq": errs["dq"][0],
+               "dkv": max(errs["dk"][0], errs["dv"][0])}
+        rows = {f"flash_attn_{k}_f32": dict(
+                    max_abs_err=err[n], ms=ms[n], plain_ms=plain[n], bound_ms=bounds[n],
+                    bound_by="operations", library_ms=lib)
+                for n, k, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd_dq", lib_both - lib_fwd),
+                                  ("dkv", "bwd_dkv", lib_both - lib_fwd))}
         del q, k, v, do, lse, delta, ops, qg, kg, vg
         torch.cuda.empty_cache()
-    return row
+    return rows
+
+
+def flash_any_check(rng, dev) -> None:
+    """The SIMT K4, K5 and K6 (csrc/flash_attn_any.cu), which take every
+    head dim and dtype the tensor-core kernels do not, at the 268v
+    hyperprior's head dim 72 and N = 2048 (where attention takes the flash
+    route) in float32, bf16 and float16, against the plain versions within
+    the bounds of the kernels of the same width, two calls bitwise equal,
+    with the time of each. No main path reaches them (the 268v global
+    blocks have head dim 64), so they have no row in the kernels line."""
+    from cra5_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
+        flash_attention_forward,
+        flash_attention_plain,
+    )
+
+    B, H, N, D = 1, 5, 2048, 72
+    scale = D ** -0.5
+    for dtype, rtol in ((torch.float32, FLASH_F32_RTOL), (torch.bfloat16, FLASH_GRAD_RTOL),
+                        (torch.float16, FLASH_GRAD_RTOL)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
+                       .to(dev, dtype) for _ in range(4))
+        out, lse = flash_attention_forward(q, k, v, scale)
+        ref, ref_lse = flash_attention_plain(q, k, v, scale)
+        delta = (do.float() * out.float()).sum(-1)
+        ops = (q, k, v, do, lse, delta, scale)
+        got = {"out": (out, ref), "dq": (flash_attention_backward_dq(*ops),
+                                         flash_attention_backward_dq_plain(*ops))}
+        got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
+                                         flash_attention_backward_dkv_plain(*ops))))
+        again = (*flash_attention_forward(q, k, v, scale), flash_attention_backward_dq(*ops),
+                 *flash_attention_backward_dkv(*ops))
+        same = all(torch.equal(a, b) for a, b in zip(
+            (out, lse, got["dq"][0], got["dk"][0], got["dv"][0]), again))
+        errs = {n: ((a.float() - b.float()).abs().max().item(),
+                    rtol * b.float().abs().max().item()) for n, (a, b) in got.items()}
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in got.values())
+        if not finite or not same or any(e > b for e, b in errs.values()):
+            raise RuntimeError(f"SIMT K4-K6 {dtype} D={D}: (err, bound) {errs}, finite "
+                               f"{finite}, two calls bitwise equal {same}")
+        ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 3),
+              "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
+              "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
+        plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
+                 "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
+                 "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
+        # FP32 FMA operations at the head dim itself (the kernels pad it to 128)
+        bound = {n: max(f * B * H * N * N * D / FP32_FLOPS * 1e3,
+                        bytes_bound_ms(io * B * H * N * D * q.element_size() + 2 * B * H * N * 4))
+                 for n, f, io in (("fwd", 4, 4), ("dq", 6, 5), ("dkv", 8, 6))}
+        log(f"[K4-K6 SIMT {str(dtype)[6:]}] (B, H, N, D) = ({B}, {H}, {N}, {D}): (err, bound "
+            f"{rtol} x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+            + ", two calls bitwise equal; " + ", ".join(
+                f"{n} kernel {ms[n]:.4f} ms ({bound[n] / ms[n]:.1%} of the bound {bound[n]:.4f} ms, "
+                f"FP32 FMA), plain {plain[n]:.4f} ms" for n in ms))
+        del q, k, v, do, out, lse, ref, ref_lse, delta, ops, got, again
+    torch.cuda.empty_cache()
 
 
 def perm_rows(rng, dev) -> dict:
@@ -837,8 +914,9 @@ def device_profile(prof, wall: float, tag: str, top: int = 20) -> None:
         log(f"[{tag}] {ms:10.3f} ms {n:5d}x  {name[:100]}")
 
 
-def phase_train(dev) -> dict:
-    """Trainer.fit on the full-width 268v VAEformer, bf16, remat."""
+def phase_train(dev, dtype=torch.bfloat16) -> dict:
+    """Trainer.fit on the full-width 268v VAEformer in ``dtype`` (bf16, or
+    float32: the JAX package's training default), remat, batch 1."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -847,21 +925,23 @@ def phase_train(dev) -> dict:
     from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
     from cra5_tpu_torch.train import Trainer, TrainerConfig
 
+    tag = "train" if dtype == torch.bfloat16 else "train f32"
+    name = "bf16" if dtype == torch.bfloat16 else "float32"
     cfg = dataclasses.replace(vaeformer_268(), remat=True)
     t0 = time.time()
-    model = VAEformer(cfg, dtype=torch.bfloat16, device=dev)
+    model = VAEformer(cfg, dtype=dtype, device=dev)
     trainer = Trainer(model, TrainerConfig(log_every=1, ckpt_every=10**9), seed=SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     fields = [torch.randn((1, cfg.in_chans, *cfg.img_size), generator=gen, device=dev) * 0.5
               for _ in range(TRAIN_STEPS + 2)]
     torch.cuda.synchronize()
-    log(f"[train] vaeformer_268 bf16 remat, {sum(p.numel() for p in model.parameters())} "
+    log(f"[{tag}] vaeformer_268 {name} remat, {sum(p.numel() for p in model.parameters())} "
         f"float32 params; model and {len(fields)} fields {time.time() - t0:.2f} s")
 
     t0 = time.time()
     state = trainer.fit(fields[:1], num_steps=1, log_fn=lambda *a: None)  # init + warm-up
     torch.cuda.synchronize()
-    log(f"[train] init_state + warm-up step {time.time() - t0:.2f} s")
+    log(f"[{tag}] init_state + warm-up step {time.time() - t0:.2f} s")
     first_global = next(i for i, b in enumerate(model.g_a.blocks) if b.window_size is None)
     watch = (f"g_a.blocks.{first_global}.attn.qkv.weight", "quant_conv.weight",
              "entropy_bottleneck.quantiles")
@@ -887,25 +967,26 @@ def phase_train(dev) -> dict:
 
     steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
     for i, (sec, m) in enumerate(zip(steps_s, metrics)):
-        log(f"[train] step {state.step - TRAIN_STEPS + i + 1}: {sec:.4f} s; loss "
+        log(f"[{tag}] step {state.step - TRAIN_STEPS + i + 1}: {sec:.4f} s; loss "
             f"{m['loss']:.6g} bpp {m['bpp_loss']:.6g} mse {m['mse_loss']:.6g} "
             f"aux {m['aux_loss']:.6g} total {m['total_loss']:.6g}")
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
-        raise RuntimeError(f"train metrics are not all finite: {metrics}")
+        raise RuntimeError(f"{tag} metrics are not all finite: {metrics}")
     per_step = {"flash_attention_forward": 14, "flash_attention_backward_dq": 7,
                 "flash_attention_backward_dkv": 7}
     want = {k: v * TRAIN_STEPS if k in per_step else 0 for k, v in launches.items()}
     want.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
     if launches != want:
-        raise RuntimeError(f"train launches over {TRAIN_STEPS} steps {launches}, expected {want}")
+        raise RuntimeError(f"{tag} launches over {TRAIN_STEPS} steps {launches}, "
+                           f"expected {want}")
     moved = {k: (state.params[k].detach() - before[k]).abs().max().item() for k in watch}
     if not all(v > 0 for v in moved.values()):
-        raise RuntimeError(f"parameters did not move: {moved}")
+        raise RuntimeError(f"{tag}: parameters did not move: {moved}")
     median = statistics.median(steps_s)
-    log(f"[train] median step {median:.4f} s over {TRAIN_STEPS} (host clock ending in a "
+    log(f"[{tag}] median step {median:.4f} s over {TRAIN_STEPS} (host clock ending in a "
         f"synchronize); peak {peak / 2**30:.2f} GiB; launches {launches}; max |change| {moved}")
     fields_b = sum(f.numel() * f.element_size() for f in fields)
-    log(f"[train] resident before the timed steps {resident / 2**30:.2f} GiB: float32 params, "
+    log(f"[{tag}] resident before the timed steps {resident / 2**30:.2f} GiB: float32 params, "
         f"two Adam moments and the EMA {4 * n_params * 4 / 2**30:.2f} GiB, {len(fields)} input "
         f"fields {fields_b / 2**30:.2f} GiB; a step's own peak above that "
         f"{(peak - resident) / 2**30:.2f} GiB (activations, grads, optimizer temporaries)")
@@ -916,7 +997,8 @@ def phase_train(dev) -> dict:
         state = trainer.fit(fields[-1:], state=state, num_steps=1, log_fn=lambda *a: None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_profile(prof, wall, "train profile", top=25)
+    device_profile(prof, wall, f"{tag} profile", top=25)
+    del model, trainer, state, fields, prof
     return dict(median_step_s=median, peak_bytes=peak, launches=launches)
 
 
@@ -1055,16 +1137,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_res = phase_train(dev)
     torch.cuda.empty_cache()
+    train_f32_res = phase_train(dev, torch.float32)
+    torch.cuda.empty_cache()
     probe_launches = phase_probe(dev)
     api_launches = phase_api(dev)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
-    # codec's decompress on the card, the three timed train steps, the
-    # probe and the API's two .bin roundtrips. K2 (rans_decode_generic)
-    # replaces both decode_scan_pallas (:705) and decode_rowplan_pallas
-    # (:368); its entry names the former.
+    # codec's decompress on the card, the three timed steps of each train
+    # path, the probe and the API's two .bin roundtrips. K2
+    # (rans_decode_generic) replaces both decode_scan_pallas (:705) and
+    # decode_rowplan_pallas (:368); its entry names the former.
     paths = {"codec": main_res["launches"], "tiny": ref_launches, "train": train_res["launches"],
-             "probe": probe_launches, "api": api_launches}
+             "train_f32": train_f32_res["launches"], "probe": probe_launches,
+             "api": api_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -1082,14 +1167,24 @@ def main() -> int:
         "flash_attn_bwd_dkv": ("flash_attention_backward_dkv",
                                "cra5_tpu_torch/csrc/flash_attn_bwd.cu",
                                "cra5_tpu/ops/attention.py:189"),
+        "flash_attn_bwd_dq_f32": ("flash_attention_backward_dq",
+                                  "cra5_tpu_torch/csrc/flash_attn_bwd_f32.cu",
+                                  "cra5_tpu/ops/attention.py:140"),
+        "flash_attn_bwd_dkv_f32": ("flash_attention_backward_dkv",
+                                   "cra5_tpu_torch/csrc/flash_attn_bwd_f32.cu",
+                                   "cra5_tpu/ops/attention.py:189"),
         "perm_expand": ("expand", "cra5_tpu_torch/csrc/perm_probe.cu",
                         "profiling/_perm_probe.py:141"),
         "perm_dynroll": ("dynroll", "cra5_tpu_torch/csrc/perm_probe.cu",
                          "profiling/_perm_probe.py:160"),
     }
-    # the bf16 K4 and the float32 K4 share one wrapper and counter: the
-    # float32 path is the API's, every other path is bf16
-    only = {"flash_attn_fwd": ("codec", "tiny", "train", "probe"), "flash_attn_fwd_f32": ("api",)}
+    # the bf16 and float32 flash kernels share one wrapper and counter each:
+    # the float32 paths are the API's and the float32 train step's, every
+    # other path is bf16
+    bf16 = ("codec", "tiny", "train", "probe")
+    only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
+            "flash_attn_fwd_f32": ("api", "train_f32"), "flash_attn_bwd_dq_f32": ("train_f32",),
+            "flash_attn_bwd_dkv_f32": ("train_f32",)}
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():
         launches = sum(paths[p][counter] for p in only.get(name, paths))

@@ -282,26 +282,6 @@ struct alignas(1024) F32Smem {
 };
 constexpr int kSmemBytes = sizeof(F32Smem) + 1024;  // + the alignment slack
 
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = hw::tf32_rna(x);
-  lo = hw::tf32_rna(x - hi);  // x - hi is exact
-}
-
-// Splits x and stores hi and lo as whole 16-byte chunks.
-__device__ __forceinline__ void split4(float4 x, float4* hi, float4* lo) {
-  float4 h, l;
-  split(x.x, h.x, l.x);
-  split(x.y, h.y, l.y);
-  split(x.z, h.z, l.z);
-  split(x.w, h.w, l.w);
-  *hi = h;
-  *lo = l;
-}
-
-// Byte offset of 16-byte chunk c of row r in a half (128-byte rows, 128-byte
-// swizzle).
-__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
 // The producer warpgroup: thread 0 issues the TMA loads (q once, then raw K
 // and V of each stage); all 128 threads split each raw tile into its split
 // stage once the consumers have released it.
@@ -323,38 +303,14 @@ __device__ __forceinline__ void producer(F32Smem& s, const CUtensorMap* map_q,
     hw::tma_load_3d(s.q_hi[1], map_q, &s.q_full, 32, q0, bh);
     load_kv(0);
   }
-  const int lane = t % 32;
   for (int j = 0; j < nkb; ++j) {
     const int ss = j % kSplitStages;
     hw::mbar_wait(&s.raw_full, j & 1);
     if (j >= kSplitStages) hw::mbar_wait(&s.split_empty[ss], (j / kSplitStages - 1) & 1);
-
-    {  // K: hi and lo at the raw tile's own positions
-      const float4* src = reinterpret_cast<const float4*>(&s.k_raw[0][0]);
-      float4* hi = reinterpret_cast<float4*>(&s.k_hi[ss][0][0]);
-      float4* lo = reinterpret_cast<float4*>(&s.k_lo[ss][0][0]);
-      for (int i = t; i < 2 * BK * 32 / 4; i += 128) split4(src[i], hi + i, lo + i);
-    }
-    // V^T: head dim d = 32 dh + lane (the lanes read one swizzled 128-byte
-    // row of a raw half, and write 32 rows of V^T at one chunk), four
-    // columns 4 kc .. 4 kc + 3 of V^T a step: keys 8 (kc / 2) + (kc % 2) +
-    // {0, 2, 4, 6}
-    for (int u = t / 32; u < 32; u += 4) {
-      const int dh = u & 1, kc = u >> 1;
-      const int d = 32 * dh + lane;
-      const int key0 = 8 * (kc >> 1) + (kc & 1);
-      const uint8_t* raw = reinterpret_cast<const uint8_t*>(s.v_raw[dh]);
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + 2 * e;
-        x[e] = *reinterpret_cast<const float*>(raw + swz(key, lane >> 2) + 4 * (lane & 3));
-      }
-      const int off = swz(d, kc & 7);
-      split4(make_float4(x[0], x[1], x[2], x[3]),
-             reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(s.vt_hi[ss][kc >> 3]) + off),
-             reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(s.vt_lo[ss][kc >> 3]) + off));
-    }
+    // K: hi and lo at the raw tile's own positions; V transposed
+    hw::tf32_split_planes(s.k_raw[0], s.k_hi[ss][0], s.k_lo[ss][0], 2 * BK * 32 / 4, 1.f, t,
+                          128);
+    hw::tf32_split_transposed<BK>(s.v_raw[0], s.vt_hi[ss][0], s.vt_lo[ss][0], t);
     hw::fence_proxy_async();  // the planes are read by wgmma, the raw tiles rewritten by TMA
     hw::mbar_arrive(&s.split_full[ss]);
     hw::named_sync(3, 128);  // every producer thread is done with the raw tiles
@@ -374,12 +330,8 @@ __device__ __forceinline__ void consumer(F32Smem& s, float* __restrict__ out,
   hw::mbar_wait(&s.q_full, 0);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {  // q * scale in float32, split in place
-    float4* hi = reinterpret_cast<float4*>(&s.q_hi[h][c * 64 * 32]);
-    float4* lo = reinterpret_cast<float4*>(&s.q_lo[h][c * 64 * 32]);
-    for (int i = t; i < 64 * 32 / 4; i += 128) {
-      const float4 x = hi[i];
-      split4(make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale), hi + i, lo + i);
-    }
+    float* hi = &s.q_hi[h][c * 64 * 32];
+    hw::tf32_split_planes(hi, hi, &s.q_lo[h][c * 64 * 32], 64 * 32 / 4, scale, t, 128);
   }
   hw::fence_proxy_async();
   hw::named_sync(1 + c, 128);
@@ -459,7 +411,7 @@ __device__ __forceinline__ void consumer(F32Smem& s, float* __restrict__ out,
         const float p = hw::ex2(fmaf(sc[4 * kk + e], kLog2e, neg_m[h]));
         l[h] += p;
         float hi, lo;
-        split(p, hi, lo);
+        hw::tf32_split(p, hi, lo);
         const int a = (e & 1) * 2 + h;  // register 4kk + e is A element a
         ph[kk][a] = __float_as_uint(hi);
         pl[kk][a] = __float_as_uint(lo);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels K4
-// (flash_attn_fwd.cu) and K5/K6 (flash_attn_bwd.cu), as inline PTX:
+// (flash_attn_fwd.cu) and K5/K6 (flash_attn_bwd.cu, and on float32
+// flash_attn_bwd_f32.cu), as inline PTX:
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase parity;
 //   - TMA: cp.async.bulk.tensor 3-D loads that complete on an mbarrier, and
@@ -7,9 +8,10 @@
 //     128-byte swizzle;
 //   - wgmma: fence, commit_group, wait_group, the shared-memory matrix
 //     descriptor for 128-byte swizzle, m64nNk16 f32 += bf16 x bf16 with A
-//     from shared memory or from registers, and m64n64k8 f32 += tf32 x tf32
-//     (both operands K-major: the tf32 forms have no transpose);
-//   - cvt.rna.tf32.f32, the split of 3xTF32 products;
+//     from shared memory or from registers, and m64n64k8 / m64n32k8 f32 +=
+//     tf32 x tf32 (both operands K-major: the tf32 forms have no transpose);
+//   - cvt.rna.tf32.f32 and the split of float32 tiles into the hi and lo
+//     planes of 3xTF32 products, as stored or transposed;
 //   - setmaxnreg, named barriers and fence.proxy.async.
 //
 // Layouts. A tile of R rows of 64 bf16 (128 bytes a row), loaded by TMA
@@ -290,6 +292,21 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t 
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 32, f32) += A (64 x 8) * B (8 x 32), tf32, both in shared memory,
+// K-major; D is only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x 64, f32) += A (64 x 8, tf32 registers, the m16n8k8 A fragment of
 // each warp's 16 rows) * B (8 x 64, tf32, shared memory, K-major); D is
 // only read when scale_d != 0.
@@ -308,6 +325,76 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ------------------------------------------------------------------ 3xTF32 planes
+// x = hi + lo + (~2^-22 x): hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// Splits x and stores hi and lo as whole 16-byte chunks.
+__device__ __forceinline__ void tf32_split4(float4 x, float4* hi, float4* lo) {
+  float4 h, l;
+  tf32_split(x.x, h.x, l.x);
+  tf32_split(x.y, h.y, l.y);
+  tf32_split(x.z, h.z, l.z);
+  tf32_split(x.w, h.w, l.w);
+  *hi = h;
+  *lo = l;
+}
+
+// Byte offset of 16-byte chunk c of row r in a half (128-byte rows, 128-byte
+// swizzle).
+__device__ __forceinline__ int swz128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// Splits `n4` float4 chunks of src, times `scale`, into hi and lo at the
+// same positions (any layout; src may be hi). Thread t of `threads`.
+__device__ __forceinline__ void tf32_split_planes(const float* src, float* hi, float* lo, int n4,
+                                                  float scale, int t, int threads) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+#pragma unroll 1
+  for (int i = t; i < n4; i += threads) {
+    const float4 x = s4[i];
+    tf32_split4(make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale), h4 + i, l4 + i);
+  }
+}
+
+// Splits a raw float32 tile of R rows x 64 columns, as TMA brings it (two
+// halves of R rows x 32, 128-byte swizzled), into hi and lo planes of its
+// transpose, 64 rows x R columns in R / 32 halves of 64 rows x 32 (each
+// half 64 * 32 floats, swizzled), ready as the K-major B operand of a
+// product that sums over the R rows. The rows of each group of 8 are
+// reordered for the tf32 register A fragment, which takes columns tg and
+// tg + 4 of a K step where the accumulator holds 2 tg and 2 tg + 1: row 2c
+// of the group goes to column c, row 2c + 1 to column c + 4. Called by the
+// 128 threads of a warpgroup (t = 0..127): each warp writes 32 transposed
+// rows at one chunk, four raw rows a step (8 (kc / 2) + (kc % 2) + {0, 2,
+// 4, 6}), reading one swizzled 128-byte raw row per load.
+template <int R>
+__device__ __forceinline__ void tf32_split_transposed(const float* raw, float* hi, float* lo,
+                                                      int t) {
+  const int lane = t % 32;
+#pragma unroll 1
+  for (int u = t / 32; u < R / 2; u += 4) {
+    const int dh = u & 1, kc = u >> 1;
+    const int d = 32 * dh + lane;
+    const int row0 = 8 * (kc >> 1) + (kc & 1);
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(raw + dh * R * 32);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = *reinterpret_cast<const float*>(src + swz128(row0 + 2 * e, lane >> 2) +
+                                             4 * (lane & 3));
+    }
+    const int off = (kc >> 3) * 64 * 128 + swz128(d, kc & 7);
+    tf32_split4(make_float4(x[0], x[1], x[2], x[3]),
+                reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(hi) + off),
+                reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(lo) + off));
+  }
 }
 
 // ------------------------------------------------------------------ host

@@ -31,7 +31,8 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                       ctypes.c_double)
 _SIGNATURES = {
     "cra5_rans_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
     "cra5_rans_decode_lanes": [_P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "cra5_flash_attn_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "cra5_flash_attn_fwd_any": [_P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
+    "cra5_flash_attn_bwd_dq_any": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
+    "cra5_flash_attn_bwd_dkv_any": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
     "cra5_perm_expand": [_P, _P, _P, _I, _P],
     "cra5_perm_dynroll": [_P, _P, _P, _I, _I, _P],
 }

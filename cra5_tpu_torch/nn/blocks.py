@@ -13,7 +13,12 @@ would reach 1 GiB. On the 268v main path that selects the seven global
 blocks and no window or hyperprior block. The route is the differentiable
 ``flash_attention`` (K4 forward, K5/K6 backward), so the global blocks'
 weights get their gradients. Elsewhere attention is plain matmul +
-softmax, as the JAX package leaves it to XLA.
+softmax, as the JAX package leaves it to XLA. The route looks at the shape
+only, as the JAX package's does: its Pallas kernels take the head dim
+from the operands, and so do the port's (head dim 64 in bf16 and float32
+on the tensor cores, every other head dim and float dtype on the SIMT
+kernels), so nothing the TPU kernels compute is computed plainly on the
+card.
 """
 
 from __future__ import annotations

@@ -2,13 +2,16 @@
 plain PyTorch version, and the differentiable ``flash_attention``.
 
 Counterpart of ``cra5_tpu/ops/attention.py``. Given CUDA tensors a wrapper
-launches its kernel (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``;
-head dim 64, bf16 on tensor cores or float32 on a SIMT tile in full
-float32) and counts the launch; given CPU tensors it runs the plain
-version. ``FlashAttention`` is the ``custom_vjp`` of the JAX package
-as a ``torch.autograd.Function``: its forward keeps (q, k, v, out, lse)
-and its backward runs the two backward kernels, so no (N, N) logits are
-ever kept for autograd.
+launches its kernel and counts the launch; given CPU tensors it runs the
+plain version. At head dim 64 in bf16 or float32 the kernels run on the
+tensor cores (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu`` and,
+for float32, ``csrc/flash_attn_bwd_f32.cu``, as 3xTF32 split products);
+every other head dim up to ``FLASH_MAX_HEAD_DIM``, and float16 and
+float64, take the SIMT kernels of ``csrc/flash_attn_any.cu``, as the TPU
+kernels take any head dim. ``FlashAttention`` is the ``custom_vjp`` of the
+JAX package as a ``torch.autograd.Function``: its forward keeps (q, k, v,
+out, lse) and its backward runs the two backward kernels, so no (N, N)
+logits are ever kept for autograd.
 
 Numerics follow the TPU kernels. Forward: q is scaled in float32 and
 rounded back to its dtype once, logits and softmax statistics are float32,
@@ -31,7 +34,16 @@ import torch
 from .. import kernels
 
 
-_KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+# the tensor-core kernels' dtypes (head dim 64) and the SIMT kernels' codes
+_HOPPER_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
+_ANY_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.float64: 3}
+FLASH_MAX_HEAD_DIM = 256
+
+
+def flash_supports(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the flash kernels compute attention of this dtype and head
+    dim on the card."""
+    return dtype in _ANY_DTYPES and 1 <= head_dim <= FLASH_MAX_HEAD_DIM
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -52,16 +64,22 @@ def _check_qkv(*ts: torch.Tensor) -> None:
 
 
 def _kernel_entry(name: str, *ts: torch.Tensor):
-    """The C entry for the operands' dtype: ``name`` for bf16, ``name_f32``
-    for float32 (a SIMT tile in full float32), head dim 64 both."""
-    D = ts[0].shape[-1]
-    if ts[0].dtype not in _KERNEL_DTYPES or D != 64:
+    """The C entry for the operands: ``name`` (bf16) or ``name_f32``
+    (float32, 3xTF32) on the tensor cores at head dim 64, else ``name_any``
+    (SIMT), which is given the dtype's code before the stream. What no
+    kernel computes raises."""
+    dtype, D = ts[0].dtype, ts[0].shape[-1]
+    if not flash_supports(dtype, D):
         raise NotImplementedError(
-            f"the flash kernels take bf16 or float32 with head dim 64, got {ts[0].dtype} and {D}")
+            f"the flash kernels take bf16, float16, float32 or float64 with a head dim up to "
+            f"{FLASH_MAX_HEAD_DIM}, got {dtype} and {D}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the flash kernels' operands must be contiguous and 16-byte aligned")
-    return getattr(kernels.lib(), name + _KERNEL_DTYPES[ts[0].dtype])
+    if D == 64 and dtype in _HOPPER_DTYPES:
+        return getattr(kernels.lib(), name + _HOPPER_DTYPES[dtype])
+    entry, code = getattr(kernels.lib(), name + "_any"), _ANY_DTYPES[dtype]
+    return lambda *args: entry(*args[:-1], code, args[-1])
 
 
 def _stream(t: torch.Tensor):
@@ -100,7 +118,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry = _kernel_entry("cra5_flash_attn_fwd", q, k, v)
     B, H, N, D = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, N), dtype=_acc_dtype(q.dtype), device=q.device)
     status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B * H, N, D, float(scale), _stream(q),

@@ -5,11 +5,11 @@ with the bound the card's float32 kernels are held to: max |got - ref| <=
 point differs in float32; the JAX kernels sum in 128-wide tiles, the plain
 versions over whole rows.
 
-The card's float32 K4 runs its products on the tensor cores as 3xTF32
-(each operand split into hi = tf32(x) and lo = tf32(x - hi), each product
-hi hi + hi lo + lo hi). That arithmetic is emulated here, bit for bit in
-its roundings, and held to the same bound against the float32 plain
-version and float64, where the kernel itself cannot run."""
+The card's float32 K4, K5 and K6 run their products on the tensor cores
+as 3xTF32 (each operand split into hi = tf32(x) and lo = tf32(x - hi), each
+product hi hi + hi lo + lo hi). That arithmetic is emulated here, bit for
+bit in its roundings, and held to the same bound against the float32 plain
+versions and float64, where the kernels themselves cannot run."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +21,8 @@ from cra5_tpu.ops.attention import _flash_forward as j_flash_forward
 from cra5_tpu.ops.attention import flash_attention as j_flash
 from cra5_tpu_torch.ops.attention import (
     flash_attention,
+    flash_attention_backward_dkv_plain,
+    flash_attention_backward_dq_plain,
     flash_attention_forward,
     flash_attention_plain,
 )
@@ -98,6 +100,67 @@ def _forward_tf32(q, k, v, scale, products, block_k=64):
         m = m_new
     l = l.clamp_min(1e-30)
     return o / l, (m / log2e + torch.log(l))[:, 0]
+
+
+def _backward_tf32(q, k, v, do, lse, delta, scale, products, step=32):
+    """The card's float32 K5 and K6 in float32 on the CPU, one (N, 64)
+    head: the walked rows in stages of ``step`` (32 keys in K5, 32 queries
+    in K6), P in log2 units, dS and P split like the operands, and each
+    stage's dQ, dK and dV product summed fresh and then added to the
+    running sum. K5 scales q in float32; K6 scales the logits of raw q."""
+    log2e = 1.4426950408889634
+    l2, dl = lse[:, None] * log2e, delta[:, None]
+    qs = q * scale
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], step):
+        kj, vj = k[k0:k0 + step], v[k0:k0 + step]
+        p = torch.exp2(_mm(qs, kj.T, products) * log2e - l2)
+        ds = p * (_mm(do, vj.T, products) - dl)
+        dq = dq + _mm(ds, kj, products)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, q.shape[0], step):
+        qi, oi = q[q0:q0 + step], do[q0:q0 + step]
+        pt = torch.exp2(_mm(k, qi.T, products) * (scale * log2e) - l2[q0:q0 + step].T)
+        dst = pt * (_mm(v, oi.T, products) - dl[q0:q0 + step].T)
+        dv = dv + _mm(pt, oi, products)
+        dk = dk + _mm(dst, qi, products)
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
+def test_3xtf32_backward_within_the_f32_bound(B, H, N):
+    """The float32 K5 and K6 arithmetic: dq, dk and dv within RTOL x max
+    |ref| of the float32 plain versions and of float64 (inputs N(0, 1.5^2),
+    scale 0.125, lse and delta of the float32 plain forward), while one TF32
+    product misses the float64 bound by more than 10x. This emulation sums
+    in float32 rounded to nearest; the card's tensor cores truncate their
+    sums, which no CPU run sees: the card test
+    test_268v_global_block_f32_through_flash_matches_the_plain_path is the
+    one that holds the kernels to this bound at N = 10368."""
+    rng = np.random.default_rng(N + 1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64)).astype(np.float32) * 1.5)
+                   for _ in range(4))
+    scale = 0.125
+    out, lse = flash_attention_plain(q, k, v, scale)
+    delta = (do * out).sum(-1)
+    ops = (q, k, v, do, lse, delta)
+    ref32 = (flash_attention_backward_dq_plain(*ops, scale),
+             *flash_attention_backward_dkv_plain(*ops, scale))
+    ops64 = tuple(t.double() for t in ops)
+    ref64 = (flash_attention_backward_dq_plain(*ops64, scale),
+             *flash_attention_backward_dkv_plain(*ops64, scale))
+    for b in range(B):
+        for h in range(H):
+            head = tuple(t[b, h] for t in ops)
+            got = _backward_tf32(*head, scale, products=3)
+            for refs in (ref32, ref64):
+                for a, ref in zip(got, refs):
+                    bound = RTOL * ref[b, h].abs().max().item()
+                    assert (a.double() - ref[b, h].double()).abs().max().item() <= bound
+            one = _backward_tf32(*head, scale, products=1)
+            for a, ref in zip(one, ref64):
+                miss = (a.double() - ref[b, h]).abs().max().item()
+                assert miss > 10 * RTOL * ref[b, h].abs().max().item()
 
 
 @pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from cra5_tpu_torch import kernels
 from cra5_tpu_torch.coder.lane_coder import LaneCoder
 from cra5_tpu_torch.entropy import gc_update, get_scale_table
 from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268, vaeformer_tiny
 from cra5_tpu_torch.nn.blocks import _use_flash
 from cra5_tpu_torch.nn.vit import _win_for_block
+from cra5_tpu_torch.ops import attention
 from cra5_tpu_torch.ops.attention import flash_attention_forward
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,3 +99,46 @@ def test_flash_routing_selects_the_seven_global_blocks_of_268v():
     hz = cfg.hyper_grid[0] * cfg.hyper_grid[1]
     assert not _use_flash(hz, cfg.hyper_num_heads, cuda)
     assert flash == 7
+
+
+@pytest.mark.parametrize("head_dim,dtype,entry,code", [
+    (64, torch.bfloat16, "cra5_flash_attn_fwd", None),
+    (64, torch.float32, "cra5_flash_attn_fwd_f32", None),
+    (72, torch.float32, "cra5_flash_attn_fwd_any", 2),
+    (72, torch.bfloat16, "cra5_flash_attn_fwd_any", 0),
+    (64, torch.float16, "cra5_flash_attn_fwd_any", 1),
+    (256, torch.float64, "cra5_flash_attn_fwd_any", 3),
+])
+def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, head_dim, dtype,
+                                                                entry, code):
+    """At N = 4096 on the card attention takes the flash route whatever its
+    head dim and dtype, as the JAX package's takes its Pallas kernels; the
+    route picks the tensor-core kernels at head dim 64 in bf16 and float32
+    and the SIMT kernels, told the dtype's code, for everything else. The
+    library is replaced by a recorder, so no card and no build is needed."""
+    assert _use_flash(4096, 16, torch.device("cuda"))
+    assert not _use_flash(4096, 16, torch.device("cpu"))
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(kernels, "lib", Recorder)
+    q = torch.zeros((1, 2, 8, head_dim), dtype=dtype)
+    assert attention._kernel_entry("cra5_flash_attn_fwd", q, q, q)(1, 0.5, "stream") == 0
+    want = (1, 0.5, "stream") if code is None else (1, 0.5, code, "stream")
+    assert calls == [(entry, want)]
+
+
+@pytest.mark.parametrize("head_dim,dtype", [(257, torch.float32), (0, torch.bfloat16),
+                                            (64, torch.int32), (64, torch.complex64)])
+def test_flash_kernels_raise_for_what_none_computes(monkeypatch, head_dim, dtype):
+    """No kernel takes a head dim past 256 or a dtype that is not a float:
+    the entry raises before any build, and never hands such operands to a
+    plain version."""
+    monkeypatch.setattr(kernels, "lib", lambda: pytest.fail("built a library"))
+    q = torch.zeros((1, 1, 4, head_dim), dtype=dtype)
+    assert not attention.flash_supports(dtype, head_dim)
+    with pytest.raises(NotImplementedError, match="head dim up to 256"):
+        attention._kernel_entry("cra5_flash_attn_fwd", q, q, q)
