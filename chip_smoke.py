@@ -12,7 +12,10 @@ result line is printed then:
      each kernel's registers, shared memory and spills;
   3. kernels: each kernel against its plain PyTorch version at the 268v
      main paths' shapes (K1-K3 exact, the lane decode K2 on the z stream
-     and on the y geometry written unsorted on 1024 lanes, K4-K6
+     and on the y geometry written unsorted on 1024 lanes, with the time a
+     step beside each decode; then streams wider than one block, 32768
+     lanes sorted (K3 on a cluster) and 2**20 - 1 unsorted (K2 on a
+     cooperative grid), each timed once; K4-K6
      within stated bf16 tolerances, two calls of the bf16 K4, K5 and K6
      bitwise equal), with the kernel's time, the plain version's, the
      card's bound and, for attention, the time of
@@ -251,19 +254,20 @@ def phase_kernels(dev) -> dict:
     M = -(-n // K)
     idx2 = t(z_idx).reshape(M, K)
     tabs = (z_coder._max_values, z_coder._offsets)
-    got = rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs)
+    got = rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs, z_coder._slots)
     want = rk.lane_decode_plain(z_coder._cdf, idx2, states, words, *tabs)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise RuntimeError("K2 rans_decode_generic differs from lane_decode_plain on z")
     if not np.array_equal(z_coder.decode(data, z_idx), z_sym):
         raise RuntimeError("z stream does not roundtrip")
-    ms = timed_ms(lambda: rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs), 20)
+    ms = timed_ms(lambda: rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs,
+                                                 z_coder._slots), 20)
     plain = timed_ms(lambda: rk.lane_decode_plain(z_coder._cdf, idx2, states, words, *tabs), 2)
     ncd, L = z_coder._cdf.shape
     bound = bytes_bound_ms(M * K * 4 + K * 4 + n_words * 2 + ncd * (L + 2) * 4 + M * K * 5)
     log(f"[K2 rans_decode_generic z] (M, K, L) = ({M}, {K}, {L}), {n_words} words, "
-        f"{n_esc} escapes; exact; kernel {ms:.4f} ms, plain {plain:.2f} ms, "
-        f"bound {bound:.4f} ms (bytes)")
+        f"{n_esc} escapes; exact; kernel {ms:.4f} ms ({ms / M * 1e3:.3f} us a step; "
+        f"{rk.decode_geometry(K)}), plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
     rows["rans_decode_generic"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                        bound_by="bytes", library_ms=None)
 
@@ -280,19 +284,19 @@ def phase_kernels(dev) -> dict:
     r0, r1, split = sorted_rows(idx2)
     tabs = (y_coder._max_values, y_coder._offsets)
     args = (y_coder._cdf, r0, r1, split, states, words, *tabs)
-    got = rk.rans_decode_sorted(*args)
+    got = rk.rans_decode_sorted(*args, y_coder._slots)
     want = rk.rans_decode_sorted_plain(*args)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise RuntimeError("K3 rans_decode_sorted differs from its plain version")
     if not np.array_equal(y_coder.decode(data, y_idx), y_sym):
         raise RuntimeError("y stream does not roundtrip")
-    ms = timed_ms(lambda: rk.rans_decode_sorted(*args), 20)
+    ms = timed_ms(lambda: rk.rans_decode_sorted(*args, y_coder._slots), 20)
     plain = timed_ms(lambda: rk.rans_decode_sorted_plain(*args), 2)
     ncd, L = y_coder._cdf.shape
     bound = bytes_bound_ms(M * 12 + K * 4 + n_words * 2 + ncd * (L + 2) * 4 + M * K * 5)
     log(f"[K3 rans_decode_sorted y] (M, K, L) = ({M}, {K}, {L}), {n_words} words, "
-        f"{n_esc} escapes; exact; kernel {ms:.4f} ms, plain {plain:.2f} ms, "
-        f"bound {bound:.4f} ms (bytes)")
+        f"{n_esc} escapes; exact; kernel {ms:.4f} ms ({ms / M * 1e3:.3f} us a step; "
+        f"{rk.decode_geometry(K)}), plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
     rows["rans_decode_sorted"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                       bound_by="bytes", library_ms=None)
 
@@ -307,21 +311,23 @@ def phase_kernels(dev) -> dict:
     M = -(-n // K)
     idx2 = t(y_idx).reshape(M, K)
     tabs = (g_coder._max_values, g_coder._offsets)
-    got = rk.rans_decode_generic(g_coder._cdf, idx2, states, words, *tabs)
+    got = rk.rans_decode_generic(g_coder._cdf, idx2, states, words, *tabs, g_coder._slots)
     want = rk.lane_decode_plain(g_coder._cdf, idx2, states, words, *tabs)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise RuntimeError("K2 rans_decode_generic differs from lane_decode_plain on y")
     if not np.array_equal(g_coder.decode(data, y_idx), y_sym):
         raise RuntimeError("the unsorted y stream does not roundtrip")
-    ms = timed_ms(lambda: rk.rans_decode_generic(g_coder._cdf, idx2, states, words, *tabs), 10)
+    ms = timed_ms(lambda: rk.rans_decode_generic(g_coder._cdf, idx2, states, words, *tabs,
+                                                 g_coder._slots), 10)
     plain = timed_ms(lambda: rk.lane_decode_plain(g_coder._cdf, idx2, states, words, *tabs),
                      1, warmup=0)
     ncd, L = g_coder._cdf.shape
     bound = bytes_bound_ms(M * K * 4 + K * 4 + n_words * 2 + ncd * (L + 2) * 4 + M * K * 5)
     log(f"[K2 rans_decode_generic y unsorted] (M, K, L) = ({M}, {K}, {L}), {n_words} "
-        f"words, {n_esc} escapes; exact; kernel {ms:.4f} ms, plain {plain:.2f} ms, "
-        f"bound {bound:.4f} ms (bytes)")
+        f"words, {n_esc} escapes; exact; kernel {ms:.4f} ms ({ms / M * 1e3:.3f} us a step), "
+        f"plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
     del g_coder, idx2, states, words, got, want
+    wide_lane_checks(rng, dev, gc_table)
 
     # K4 at the global blocks' shape, and at a ragged N
     for B, H, N in ((1, 2, 1000), (1, 16, 10368)):
@@ -359,6 +365,57 @@ def phase_kernels(dev) -> dict:
     flash_any_check(rng, dev)
     rows.update(perm_rows(rng, dev))
     return rows
+
+
+def wide_lane_checks(rng, dev, gc_table) -> None:
+    """Streams wider than one block of the decode kernels: 32768 lanes
+    sorted on the GC table (K3 on a cluster of 8 blocks, 4 lanes a thread)
+    and 2**20 - 1 lanes unsorted on a 256-channel EB table (K2 on a
+    cooperative grid, 8 lanes a thread), M = 3 each, encoded on the card:
+    each kernel equals its plain version and the coder decodes the symbols;
+    one timed call each (the cooperative route is the slow one)."""
+    from cra5_tpu_torch.coder import rans_kernels as rk
+    from cra5_tpu_torch.coder.lane_coder import (
+        LaneCoder, _sort_by_index, merge_tiny_buckets, parse_v2_header, sorted_rows,
+    )
+    from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update
+
+    eb = EntropyBottleneck(256, device=dev)
+    eb.reset_parameters(torch.Generator(device=dev).manual_seed(SEED + 1))
+    eb_table = eb_update(eb.params_numpy())
+    for name, table, K in (("sorted GC", gc_table, 32768), ("unsorted EB", eb_table, 2**20 - 1)):
+        n = 3 * K - 5
+        sorted_ = name.startswith("sorted")
+        idx = (rng.integers(20, 23, n) if sorted_ else rng.integers(0, 256, n)).astype(np.int32)
+        sym = sample_symbols(rng, table, idx, 0.01)
+        coder = LaneCoder(table, num_lanes=K, device=dev)
+        data = coder.encode(sym, idx)
+        hdr = parse_v2_header(data)
+        (_, _, n_esc, n_words, srt, safe, _), states, words, _ = coder._upload(data, hdr)
+        if (srt and safe) != sorted_ or hdr[1] != K:
+            raise RuntimeError(f"{name} stream at K={K}: header {hdr}")
+        t = torch.as_tensor(idx, device=dev)
+        tabs = (coder._max_values, coder._offsets)
+        if sorted_:
+            sidx = merge_tiny_buckets(_sort_by_index(t)[0], coder.num_indexes, K)
+            idx2 = torch.cat([sidx, sidx[-1:].expand(3 * K - n)]).reshape(3, K)
+            args = (coder._cdf, *sorted_rows(idx2), states, words, *tabs)
+            fn, plain_fn = rk.rans_decode_sorted, rk.rans_decode_sorted_plain
+        else:
+            idx2 = torch.cat([t, t.new_zeros(3 * K - n)]).reshape(3, K)
+            args = (coder._cdf, idx2, states, words, *tabs)
+            fn, plain_fn = rk.rans_decode_generic, rk.lane_decode_plain
+        got, want = fn(*args, coder._slots), plain_fn(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"{fn.__name__} differs from its plain version at K={K}")
+        if not np.array_equal(coder.decode(data, idx), sym):
+            raise RuntimeError(f"the {name} stream of {K} lanes does not roundtrip on the card")
+        ms = timed_ms(lambda: fn(*args, coder._slots), 1, warmup=0)
+        log(f"[wide lanes {name}] (M, K) = (3, {K}), {n_words} words, {n_esc} escapes; "
+            f"{fn.__name__} on {rk.decode_geometry(K)} equals its plain version, symbols "
+            f"roundtrip; one call {ms:.4f} ms ({ms / 3 * 1e3:.3f} us a step)")
+        del coder, got, want, args, idx2, states, words
+    torch.cuda.empty_cache()
 
 
 def flash_backward_rows(rng, dev) -> dict:
@@ -537,7 +594,8 @@ def flash_any_check(rng, dev) -> None:
     hyperprior's head dim 72 and N = 2048 (where attention takes the flash
     route) in float32, bf16 and float16, against the plain versions within
     the bounds of the kernels of the same width, two calls bitwise equal,
-    with the time of each. No main path reaches them (the 268v global
+    with the time of each and of SDPA's forward and backward (the library
+    yardstick, none of the port's routes). No main path reaches them (the 268v global
     blocks have head dim 64), so they have no row in the kernels line."""
     from cra5_tpu_torch.ops.attention import (
         flash_attention_backward_dkv,
@@ -578,6 +636,14 @@ def flash_any_check(rng, dev) -> None:
         plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
                  "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
                  "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
+        # the library yardstick: SDPA forward, and its backward as forward +
+        # backward less forward (all three gradients)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+        lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 3)
+        lib_bwd = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
+                                                       (qg, kg, vg), do), 3) - lib_fwd
+        del qg, kg, vg
         # FP32 FMA operations at the head dim itself (the kernels pad it to 128)
         bound = {n: max(f * B * H * N * N * D / FP32_FLOPS * 1e3,
                         bytes_bound_ms(io * B * H * N * D * q.element_size() + 2 * B * H * N * 4))
@@ -586,7 +652,8 @@ def flash_any_check(rng, dev) -> None:
             f"{rtol} x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
             + ", two calls bitwise equal; " + ", ".join(
                 f"{n} kernel {ms[n]:.4f} ms ({bound[n] / ms[n]:.1%} of the bound {bound[n]:.4f} ms, "
-                f"FP32 FMA), plain {plain[n]:.4f} ms" for n in ms))
+                f"FP32 FMA), plain {plain[n]:.4f} ms" for n in ms)
+            + f"; sdpa forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
         del q, k, v, do, out, lse, ref, ref_lse, delta, ops, got, again
     torch.cuda.empty_cache()
 

@@ -37,6 +37,7 @@ from .rans_kernels import (
     rans_decode_generic,
     rans_decode_sorted,
     rans_encode,
+    slot_table,
 )
 
 PRECISION = 16
@@ -61,8 +62,10 @@ def default_num_lanes(n_symbols: int) -> int:
 
 def padded_search_table(table: CdfTable) -> np.ndarray:
     """Rows padded with 2**16 beyond cdf_length, so that a search for
-    cum < 2**16 never selects a padding bin."""
+    cum < 2**16 never selects a padding bin, and widened to a multiple of 4
+    entries (16-byte rows, which the decode kernels copy in bulk)."""
     cdf = table.quantized_cdf.astype(np.int32)
+    cdf = np.pad(cdf, ((0, 0), (0, -cdf.shape[1] % 4)))
     cols = np.arange(cdf.shape[1])[None, :]
     return np.where(cols < table.cdf_length[:, None], cdf, 1 << PRECISION).astype(np.int32)
 
@@ -208,6 +211,7 @@ class LaneCoder:
         self.sorted_lanes = sorted_lanes
         as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=self.device)
         self._cdf = as_t(padded_search_table(table))
+        self._slots = slot_table(self._cdf)  # the decode kernels' O(1) symbol lookup
         self._max_values = as_t(table.cdf_length - 2)
         self._offsets = as_t(table.offset)
 
@@ -371,9 +375,11 @@ class LaneCoder:
         idx2 = torch.cat([idx, pidx.expand(pad)]).reshape(M, K) if pad else idx.reshape(M, K)
         tabs = (self._max_values, self._offsets)
         if sorted_mode and kernel_safe:
-            values, sentinel = rans_decode_sorted(self._cdf, *sorted_rows(idx2), states, stream, *tabs)
+            values, sentinel = rans_decode_sorted(self._cdf, *sorted_rows(idx2), states, stream,
+                                                  *tabs, self._slots)
         else:
-            values, sentinel = rans_decode_generic(self._cdf, idx2, states, stream, *tabs)
+            values, sentinel = rans_decode_generic(self._cdf, idx2, states, stream, *tabs,
+                                                   self._slots)
         values, n_sent = _apply_escapes(values, sentinel, escs, n)
         if perm is not None:
             values = torch.empty_like(values).index_copy_(0, perm, values)

@@ -6,6 +6,13 @@ tensors launches its hand-written kernel (``csrc/rans_encode.cu``,
 the plain version, which repeats the kernel's arithmetic step by step.
 There is no other route: a kernel that fails to build or launch raises.
 
+The decode kernels K2/K3 share one skeleton (``cra5_rans_decode``): the
+launch shape for any lane count the format allows comes from
+``decode_geometry``, and each cdf row's ``slot_table`` makes the symbol
+lookup O(1). ``slot_search_plain``, ``geometry_lanes`` and
+``refill_ranks_plain`` state that arithmetic in plain PyTorch for the
+tests; the plain decodes themselves search the rows directly.
+
 Conventions: lane states are u32 values carried in int32 tensors (bit
 patterns), stream words are u16 values in int16 tensors, and flags are
 bool. Every (M, K) grid is step-major: symbol g sits at step g // K, lane
@@ -14,13 +21,16 @@ g % K.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from .. import kernels
 
 PRECISION = 16
 LANE_L = 1 << PRECISION
-_MAX_LANES_PER_THREAD = 16  # decode kernels: one block of <= 1024 threads
+MAX_LANES = 1 << 20  # the CRX2 header's bound on K
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -61,17 +71,161 @@ def _check_rows(rows: torch.Tensor, ncdfs: int, name: str) -> None:
                          f"the table has {ncdfs} rows")
 
 
-def _lanes_per_thread(K: int) -> int:
-    lpt = 1
-    while K > 1024 * lpt:
-        lpt *= 2
-    if lpt > _MAX_LANES_PER_THREAD:
-        raise ValueError(f"K={K} lanes exceed the decode kernels' 16384-lane block")
-    return lpt
+def slot_bits(L: int) -> int:
+    """Resolution of the slot table of rows of L entries: 2**bits + 1 slots
+    a row, fine enough that a slot's range spans few bins (at most 16 on the
+    GC table's 3133-entry rows at 12 bits, at most 2 on a 23-entry EB row at
+    6), small enough that a narrow table stays small."""
+    return min(12, max(4, (L - 1).bit_length() + 1))
+
+
+def slot_table(cdf: torch.Tensor, bits: Optional[int] = None) -> torch.Tensor:
+    """(ncdfs, 2**bits + 8) int16 slot table of a padded search table:
+    ``slot[r, c]`` is the largest s with ``cdf[r, s] <= min(c << (16 -
+    bits), 2**16 - 1)``, so the bin of any cum < 2**16 in row r lies in
+    ``[slot[r, cum >> (16 - bits)], slot[r, (cum >> (16 - bits)) + 1]]``.
+    The last 7 columns repeat ``slot[r, 2**bits]``: they pad a row to 16
+    bytes, which the decode kernels copy in bulk."""
+    ncdfs, L = cdf.shape
+    if L > 1 << 15:
+        raise ValueError(f"cdf rows of {L} entries do not fit int16 slots")
+    bits = slot_bits(L) if bits is None else bits
+    c = torch.arange((1 << bits) + 8, device=cdf.device).clamp(max=1 << bits)
+    edges = (c << (PRECISION - bits)).clamp(max=LANE_L - 1).to(cdf.dtype)
+    s = torch.searchsorted(cdf.contiguous(), edges.expand(ncdfs, -1).contiguous(), right=True)
+    return (s - 1).clamp(min=0).to(torch.int16)
+
+
+def slot_search_plain(cdf: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor,
+                      cum: torch.Tensor) -> torch.Tensor:
+    """The kernels' symbol lookup, vectorised: for each (row, cum) the bin
+    found by a binary search of ``cdf[row]`` bounded by the two slots around
+    cum. Equals ``searchsorted(cdf[row], cum, right=True) - 1``."""
+    L, S = cdf.shape[1], slots.shape[1]
+    shift = PRECISION - (S - 8).bit_length() + 1  # S = 2**bits + 8
+    rows, cum = rows.to(torch.int64), cum.to(torch.int64)
+    flat, sflat = cdf.reshape(-1).to(torch.int64), slots.reshape(-1).to(torch.int64)
+    c = rows * S + (cum >> shift)
+    lo, hi = sflat[c], sflat[c + 1]
+    while bool((lo < hi).any()):
+        mid = (lo + hi + 1) >> 1
+        ok = flat[rows * L + mid] <= cum
+        lo, hi = torch.where((lo < hi) & ok, mid, lo), torch.where((lo < hi) & ~ok, mid - 1, hi)
+    return lo
+
+
+class DecodeGeometry(NamedTuple):
+    """How K2/K3 spread K lanes: ``blocks`` blocks of ``threads`` threads,
+    thread g (of blocks x threads) owning lanes g + j x blocks x threads for
+    j < ``lanes_per_thread``; the blocks form one cluster of ``cluster``
+    (1, 2, 4 or 8) or, when ``cooperative``, a cooperative grid of blocks
+    that all reside on the card at once."""
+
+    blocks: int
+    cluster: int
+    threads: int
+    lanes_per_thread: int
+    cooperative: bool
+
+
+def decode_geometry(K: int, sms: int = 132) -> DecodeGeometry:
+    """The decode kernels' launch shape for K lanes: one lane a thread on
+    a cluster of up to 8 blocks of 1024 while K allows (K3's 8192 lanes:
+    8 x 1024), then 2 and 4 lanes a thread; beyond 32768 lanes a
+    cooperative grid of at most ``sms`` blocks of 1024 threads with 8 or 16
+    lanes each. A shape rule: every K in [1, 2**20] has a kernel route."""
+    if not 1 <= K <= MAX_LANES:
+        raise ValueError(f"K={K} lanes: the CRX2 format allows 1 to {MAX_LANES}")
+    up32 = lambda n: -(-n // 32) * 32
+    if K <= 1024:
+        return DecodeGeometry(1, 1, up32(K), 1, False)
+    for lpt in (1, 2, 4):
+        blocks = -(-K // (1024 * lpt))
+        if blocks <= 8:
+            blocks = 1 << (blocks - 1).bit_length()  # cluster sizes 2, 4, 8
+            return DecodeGeometry(blocks, blocks, up32(-(-K // (blocks * lpt))), lpt, False)
+    for lpt in (8, 16):
+        blocks = -(-K // (1024 * lpt))
+        if blocks <= sms:
+            return DecodeGeometry(blocks, 1, up32(-(-K // (blocks * lpt))), lpt, True)
+    raise ValueError(f"K={K} lanes do not fit a cooperative grid of {sms} blocks")
+
+
+def geometry_lanes(geo: DecodeGeometry, K: int) -> torch.Tensor:
+    """(blocks, threads, lanes_per_thread) int64: the lane each thread of
+    the geometry decodes in slot j, -1 past K (the kernels' lane map)."""
+    nt = geo.blocks * geo.threads
+    g = torch.arange(nt).reshape(geo.blocks, geo.threads, 1)
+    lanes = g + torch.arange(geo.lanes_per_thread) * nt
+    return torch.where(lanes < K, lanes, -1)
+
+
+def refill_ranks_plain(refill: torch.Tensor, geo: DecodeGeometry) -> torch.Tensor:
+    """The kernels' rank of each refilling lane among a step's refills, in
+    lane order, built as they build it: within the warp (ballot and popc),
+    the warp's offset in its block (a scan of the warp totals), the block's
+    offset in the cluster or grid (a scan of the block totals), and the
+    totals of the lane slots j before it. ``refill`` (K,) bool; returns
+    (K,) int64, meaningful where refill is set."""
+    K = refill.numel()
+    lanes = geometry_lanes(geo, K)  # (blocks, threads, lpt)
+    f = torch.where(lanes >= 0, refill.to(torch.int64)[lanes.clamp(min=0)], 0)
+    nb, T, lpt = f.shape
+    w = f.reshape(nb, T // 32, 32, lpt)
+    in_warp = torch.cumsum(w, 2) - w                       # popc of the lower lanes' ballot bits
+    warp_tot = w.sum(2)                                    # (blocks, warps, lpt)
+    warp_off = torch.cumsum(warp_tot, 1) - warp_tot        # one warp's scan after one barrier
+    block_tot = warp_tot.sum(1)                            # (blocks, lpt)
+    block_off = torch.cumsum(block_tot, 0) - block_tot     # DSMEM or global exchange
+    slot_tot = block_tot.sum(0)                            # (lpt,)
+    slot_base = torch.cumsum(slot_tot, 0) - slot_tot
+    rank = in_warp + warp_off[:, :, None] + block_off[:, None, None] + slot_base
+    rank = rank.reshape(nb, T, lpt)
+    out = torch.zeros(K, dtype=torch.int64)
+    valid = lanes >= 0
+    out[lanes[valid]] = rank[valid]
+    return out
 
 
 def _stream_args(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_on_card(sorted_, cdf, slots, rows, states, words, max_values, offsets, M, K):
+    """Launch K3 (sorted_) or K2 in the geometry ``decode_geometry`` gives
+    K on this card; ``rows`` is (idx, r0, r1, split), the unused ones None."""
+    dev = states.device
+    if cdf.shape[1] % 4:  # the kernels copy 16-byte rows (LaneCoder's tables have them)
+        cdf = torch.nn.functional.pad(cdf, (0, -cdf.shape[1] % 4), value=LANE_L)
+    slots = slot_table(cdf) if slots is None else slots
+    _require(slots, "slots", torch.int16, 2)
+    if slots.shape[0] != cdf.shape[0] or slots.device != dev:
+        raise ValueError("slots must be the slot_table of cdf, on its device")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    geo = decode_geometry(K, _sm_count(index))
+    W = words.numel()
+    if W >= 1 << 31 or M * K >= 1 << 31:  # the kernels count positions in 32 bits
+        raise ValueError(f"{W} words or {M} x {K} symbols exceed the decode kernels' 2**31")
+    if W % 8 or words.data_ptr() % 16:  # the bulk copies move 16-byte chunks
+        words = torch.cat([words, words.new_zeros(-W % 8)])
+    sync = (torch.zeros(32 + 2 * geo.blocks * geo.lanes_per_thread, dtype=torch.int32, device=dev)
+            if geo.cooperative else None)
+    values = torch.empty((M, K), dtype=torch.int32, device=dev)
+    sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    status = kernels.lib().cra5_rans_decode(
+        int(sorted_), cdf.data_ptr(), slots.data_ptr(), cdf.shape[0], cdf.shape[1],
+        slots.shape[1], *(ptr(t) for t in rows), max_values.data_ptr(), offsets.data_ptr(),
+        states.data_ptr(), ptr(words), W, M, K, geo.blocks, geo.threads, geo.lanes_per_thread,
+        int(geo.cooperative), ptr(sync), values.data_ptr(), sentinel.data_ptr(), _stream_args(dev),
+    )
+    kernels.check(status, "rans_decode_sorted" if sorted_ else "rans_decode_generic")
+    return values, sentinel
 
 
 # ------------------------------------------------------------------ K1
@@ -159,13 +313,14 @@ def _refill(x, w_all, W, ptr):
 
 
 @kernels.counted
-def rans_decode_generic(cdf, idx, states, words, max_values, offsets):
+def rans_decode_generic(cdf, idx, states, words, max_values, offsets, slots=None):
     """The lane decode K2 (counterpart of ``decode_scan_pallas`` and of
     ``decode_rowplan_pallas``): any (M, K) index grid, each lane searching
     its own cdf row. ``cdf`` (ncdfs, L) int32 padded search table, ``idx``
     (M, K) int32, ``states`` (K,) int32 [u32], ``words`` (W,) int16 [u16],
-    ``max_values``/``offsets`` (ncdfs,) int32. Returns (values (M, K)
-    int32, sentinel (M, K) bool)."""
+    ``max_values``/``offsets`` (ncdfs,) int32; ``slots`` the table's
+    ``slot_table`` (made here when not given). Returns (values (M, K) int32,
+    sentinel (M, K) bool)."""
     for t, name, nd in ((cdf, "cdf", 2), (idx, "idx", 2), (states, "states", 1),
                         (max_values, "max_values", 1), (offsets, "offsets", 1)):
         _require(t, name, torch.int32, nd)
@@ -177,15 +332,8 @@ def rans_decode_generic(cdf, idx, states, words, max_values, offsets):
     _check_rows(idx, cdf.shape[0], "idx")
     if dev.type == "cpu":
         return lane_decode_plain(cdf, idx, states, words, max_values, offsets)
-    values = torch.empty((M, K), dtype=torch.int32, device=dev)
-    sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
-    status = kernels.lib().cra5_rans_decode_lanes(
-        cdf.data_ptr(), cdf.shape[1], idx.data_ptr(),
-        max_values.data_ptr(), offsets.data_ptr(), states.data_ptr(),
-        words.data_ptr(), words.numel(), M, K, _lanes_per_thread(K),
-        values.data_ptr(), sentinel.data_ptr(), _stream_args(dev),
-    )
-    kernels.check(status, "rans_decode_generic")
+    values, sentinel = _decode_on_card(False, cdf, slots, (idx, None, None, None), states,
+                                       words, max_values, offsets, M, K)
     rans_decode_generic.launches += 1
     return values, sentinel
 
@@ -223,15 +371,16 @@ def rans_decode_sorted_plain(cdf, r0, r1, split, states, words, max_values, offs
 
 
 @kernels.counted
-def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets):
+def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets, slots=None):
     """Decode an index-sorted stream: at step t the lanes below
     ``split[t]`` use cdf row ``r0[t]`` and the others ``r1[t]`` (every step
     of a kernel-safe sorted stream spans at most two rows). ``cdf`` (ncdfs,
     L) int32 padded search table; ``r0``/``r1``/``split`` (M,) int32;
     ``states`` (K,) int32 [u32]; ``words`` (W,) int16 [u16];
-    ``max_values``/``offsets`` (ncdfs,) int32. Returns (values (M, K)
-    int32, sentinel (M, K) bool): values are bin + offset, and sentinel
-    marks bin == max_value."""
+    ``max_values``/``offsets`` (ncdfs,) int32; ``slots`` the table's
+    ``slot_table`` (made here when not given). Returns (values (M, K) int32,
+    sentinel (M, K) bool): values are bin + offset, and sentinel marks bin
+    == max_value."""
     for t, name, nd in ((cdf, "cdf", 2), (r0, "r0", 1), (r1, "r1", 1),
                         (split, "split", 1), (states, "states", 1),
                         (max_values, "max_values", 1), (offsets, "offsets", 1)):
@@ -244,18 +393,7 @@ def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets):
     _check_rows(torch.cat([r0, r1]), cdf.shape[0], "r0/r1")
     if dev.type == "cpu":
         return rans_decode_sorted_plain(cdf, r0, r1, split, states, words, max_values, offsets)
-    L = cdf.shape[1]
-    if 2 * L * 4 > 227 * 1024:
-        raise ValueError(f"cdf rows of {L} entries exceed the kernel's shared memory")
-    values = torch.empty((M, K), dtype=torch.int32, device=dev)
-    sentinel = torch.empty((M, K), dtype=torch.bool, device=dev)
-    status = kernels.lib().cra5_rans_decode_sorted(
-        cdf.data_ptr(), L, r0.data_ptr(), r1.data_ptr(),
-        split.data_ptr(), max_values.data_ptr(), offsets.data_ptr(),
-        states.data_ptr(), words.data_ptr(), words.numel(), M, K,
-        _lanes_per_thread(K), values.data_ptr(), sentinel.data_ptr(),
-        _stream_args(dev),
-    )
-    kernels.check(status, "rans_decode_sorted")
+    values, sentinel = _decode_on_card(True, cdf, slots, (None, r0, r1, split), states,
+                                       words, max_values, offsets, M, K)
     rans_decode_sorted.launches += 1
     return values, sentinel

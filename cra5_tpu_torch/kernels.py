@@ -35,8 +35,8 @@ _P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.
                        ctypes.c_double)
 _SIGNATURES = {
     "cra5_rans_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
-    "cra5_rans_decode_lanes": [_P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
-    "cra5_rans_decode_sorted": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "cra5_rans_decode": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                         _I, _I, _I, _I, _P, _P, _P, _P],
     "cra5_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -162,31 +162,46 @@ def test_rans_decode_rowplan_equals_plain(card, rng, eb_table, C, HW, K, esc):
     assert rk.rans_decode_generic.launches == before + 2
 
 
-@pytest.mark.parametrize("K,steps,rows", [(2048, 5, 4), (4096, 6, 4), (8192, 4, 3)])
-def test_rans_decode_sorted_equals_plain(card, rng, gc_table, K, steps, rows):
-    """GC table (max_len 3133), a ragged tail, about 1% escapes; the
-    symbols fall mostly on a few rows of >= K symbols each, so the stream
-    is kernel-safe, and a few on other rows, which get merged."""
+# K3 cases (K, steps, rows, escape share, empty word stream): whole and
+# ragged clusters (2176 lanes: 4 blocks of 544 threads), one and two lanes a
+# thread (8192, 16384), 40 steps over 26 rows of >= K symbols so the rows
+# change every step, 30% escapes, and no words at all (every refill past
+# the stream's end reads 0).
+SORTED_CASES = [(2048, 5, 4, 0.01, False), (4096, 6, 4, 0.01, False), (8192, 4, 3, 0.01, False),
+                (8192, 40, 26, 0.01, False), (16384, 40, 26, 0.01, False),
+                (2176, 8, 4, 0.01, False), (8192, 6, 4, 0.3, False), (2048, 5, 4, 0.01, True)]
+
+
+@pytest.mark.parametrize("K,steps,rows,esc,empty", SORTED_CASES)
+def test_rans_decode_sorted_equals_plain(card, rng, gc_table, K, steps, rows, esc, empty):
+    """GC table (max_len 3133), a ragged tail, escapes; the symbols fall
+    mostly on a few rows of >= K symbols each, so the stream is
+    kernel-safe, and a few on other rows, which get merged."""
     n = K * steps + 333
     idx = np.concatenate([rng.integers(20, 20 + rows, n - 40),
                           rng.integers(0, 64, 40)]).astype(np.int32)
     rng.shuffle(idx)
-    sym = _sample(rng, gc_table, idx, 0.01)
+    sym = _sample(rng, gc_table, idx, esc)
     coder = LaneCoder(gc_table, num_lanes=K, device=card)
     data = coder.encode(sym, idx)
     hdr = parse_v2_header(data)
     assert hdr[4:7] == (True, True, True)
     _, states, words, _ = coder._upload(data, hdr)
+    if empty:
+        words = words[:0]
     M = -(-n // K)
     sidx, _ = _sort_by_index(torch.from_numpy(idx).to(card))
     sidx = merge_tiny_buckets(sidx, coder.num_indexes, K)
     idx2 = torch.cat([sidx, sidx[-1:].expand(M * K - n)]).reshape(M, K)
     args = (coder._cdf, *sorted_rows(idx2), states, words, coder._max_values, coder._offsets)
+    before = rk.rans_decode_sorted.launches
     got = rk.rans_decode_sorted(*args)
     want = rk.rans_decode_sorted_plain(*args)
     torch.cuda.synchronize()
+    assert rk.rans_decode_sorted.launches == before + 1
     assert _equal(got, want) and got[1].any()
-    np.testing.assert_array_equal(coder.decode(data, idx), sym)
+    if not empty:
+        np.testing.assert_array_equal(coder.decode(data, idx), sym)
 
 
 @pytest.mark.parametrize("kernel", ["rowplan", "sorted"])  # rowplan: the lane decode K2
@@ -282,18 +297,30 @@ def test_tiny_codec_on_the_card_writes_the_cpu_bytes(card):
     assert (x_gpu.cpu() - x_hat).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("M,K,ncdf", [(1, 1, 64), (128, 1, 64), (37, 300, 64), (9, 4097, 64)])
-def test_rans_decode_generic_equals_plain(card, rng, gc_table, M, K, ncdf):
-    """Random cdf rows per symbol (no row plan, unsorted): the generic
-    decode equals the plain per-lane decode exactly, and the coder
-    routes such a stream to it."""
+# K2 cases (M, K, rows, escape share, empty word stream): one lane, a
+# ragged block, one lane a thread on a cluster of 8 and two on 8 (written
+# unsorted), a ragged cluster (2175 lanes), 30% escapes, no words at all.
+GENERIC_CASES = [(1, 1, 64, 0.02, False), (128, 1, 64, 0.02, False), (37, 300, 64, 0.02, False),
+                 (9, 4097, 64, 0.02, False), (40, 8192, 64, 0.02, False),
+                 (40, 16384, 64, 0.02, False), (9, 2175, 64, 0.02, False),
+                 (37, 300, 64, 0.3, False), (37, 300, 64, 0.02, True)]
+
+
+@pytest.mark.parametrize("M,K,ncdf,esc,empty", GENERIC_CASES)
+def test_rans_decode_generic_equals_plain(card, rng, gc_table, M, K, ncdf, esc, empty):
+    """Random cdf rows per symbol (no row plan, unsorted, a row change at
+    every step): the generic decode equals the plain per-lane decode
+    exactly, and the coder routes such a stream to it."""
     n = M * K - (K // 3)
     idx = rng.integers(0, ncdf, max(n, 1)).astype(np.int32)
-    sym = _sample(rng, gc_table, idx, 0.02)
+    sym = _sample(rng, gc_table, idx, esc)
     coder = LaneCoder(gc_table, num_lanes=K, device=card)
+    coder._sorted_ok = lambda n, K: False  # unsorted at every K
     data = coder.encode(sym, idx)
     (n, _, _, _, srt, _, _), states, words, _ = coder._upload(data, parse_v2_header(data))
     assert not srt
+    if empty:
+        words = words[:0]
     Ms = -(-n // K)
     idx2 = torch.from_numpy(np.concatenate([idx, np.zeros(Ms * K - n, np.int32)]).reshape(Ms, K)).to(card)
     args = (coder._cdf, idx2, states, words, coder._max_values, coder._offsets)
@@ -303,8 +330,36 @@ def test_rans_decode_generic_equals_plain(card, rng, gc_table, M, K, ncdf):
     torch.cuda.synchronize()
     assert rk.rans_decode_generic.launches == before + 1
     assert _equal(got, want)
-    np.testing.assert_array_equal(coder.decode(data, idx), sym)
-    assert rk.rans_decode_generic.launches == before + 2
+    if not empty:
+        np.testing.assert_array_equal(coder.decode(data, idx), sym)
+        assert rk.rans_decode_generic.launches == before + 2
+
+
+@pytest.mark.parametrize("kind", ["sorted_32768", "unsorted_2^20-1"])
+def test_lane_coder_decodes_more_than_16384_lanes_on_the_card(card, rng, gc_table, eb_table, kind):
+    """Streams beyond the 16384 lanes one block held: 32768 lanes sorted
+    on the GC table (K3 on a cluster of 8 blocks, 4 lanes a thread) and
+    2**20 - 1 lanes unsorted on the EB table (K2 on a cooperative grid, 8
+    lanes a thread), three steps each, encoded on the card; the card
+    decodes them to the symbols the CPU's LaneCoder decodes."""
+    if kind.startswith("sorted"):
+        table, K, fn = gc_table, 32768, rk.rans_decode_sorted
+        idx = rng.integers(20, 23, 3 * K - 100).astype(np.int32)
+    else:
+        table, K, fn = eb_table, 2**20 - 1, rk.rans_decode_generic
+        idx = rng.integers(0, 16, 3 * K - 5).astype(np.int32)
+    sym = _sample(rng, table, idx, 0.01)
+    gpu = LaneCoder(table, num_lanes=K, device=card)
+    cpu = LaneCoder(table, num_lanes=K, device="cpu")
+    data = gpu.encode(sym, idx)
+    hdr = parse_v2_header(data)
+    assert hdr[1] == K and hdr[4:6] == ((True, True) if kind.startswith("sorted") else (False, False))
+    before = fn.launches
+    got = gpu.decode(data, idx)
+    assert fn.launches == before + 1
+    want = cpu.decode(data, idx)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, sym)
 
 
 def _grad_operands(rng, card, B, H, N):
