@@ -30,6 +30,13 @@ result line is printed then:
      block of the 268v towers (N = 10368, bf16, remat): its gradients
      through FlashAttention (K4, K5, K6) against the same block on the
      plain attention path, within FLASH_GRAD_RTOL x max |ref|;
+  4b. hyper_width path: one global ViT block at the 268v hyperprior's
+     width (360, 5 heads of 72) on N = 2048 tokens, forward and backward
+     through autograd in bf16 and then in float32, the launch counters
+     zeroed just before and read just after each (the any-head-dim K4 and
+     K6 on the tensor cores and the SIMT K5, once each), its gradients
+     against the same block on the plain attention path within
+     FLASH_GRAD_RTOL and FLASH_F32_RTOL x max |ref|;
   5. codec path: the 268-variable VAEformer in bf16 at full width with
      seeded random weights compresses a (1, 268, 721, 1440) field to bytes
      and decompresses it; the launch counters are zeroed just before the
@@ -59,15 +66,19 @@ result line is printed then:
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
 the float32 plain versions, within FLASH_F32_RTOL x max |ref|, two calls of
-each bitwise equal, with SDPA in float32 as the yardstick, the SIMT
-K4-K6 (every other head dim and dtype) at head dim 72 in float32, bf16
-and float16 against their plain versions, and K7 (perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
+each bitwise equal, with SDPA in float32 as the yardstick; the
+any-head-dim K4 and K6 on the tensor cores and the SIMT K5 (every head dim
+but 64) at head dim 72 in float32, bf16 and float16 at (1, 5, 2048, 72) and
+(1, 5, 10368, 72) against their plain versions, two calls bitwise equal,
+timed beside the SIMT K4 and K6, SDPA and their tensor-core bound; and K7
+(perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
 versions exactly, with the device time of each and of torch.roll; the
 reference phase adds the 268v global block in float32. The line before
 the last is a JSON object listing every kernel (the float32 K4, K5 and K6
 rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
-of the bf16 paths); the last is {"ok": true, "device": {...}}. It needs
+of the bf16 paths; the head-dim-72 rows those of the hyper_width path in
+their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
 """
 
@@ -134,6 +145,29 @@ def timed_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, iters: int = 20) -> float:
+    """Microseconds of device time a call (the kernels' and copies' own
+    durations under torch.profiler, summed and divided by ``iters``), where
+    a short kernel's event time is the host's issue rate. A trace that
+    recorded no device activity (seen once on an H100) is taken again, up
+    to three times; then the result is nan, printed as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            return us / iters
+    return float("nan")
 
 
 def bytes_bound_ms(nbytes: int) -> float:
@@ -362,7 +396,7 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     rows.update(flash_backward_rows(rng, dev))
     rows.update(flash_f32_rows(rng, dev))
-    flash_any_check(rng, dev)
+    rows.update(flash_anydim_rows(rng, dev))
     rows.update(perm_rows(rng, dev))
     return rows
 
@@ -588,15 +622,37 @@ def flash_f32_rows(rng, dev) -> dict:
     return rows
 
 
-def flash_any_check(rng, dev) -> None:
-    """The SIMT K4, K5 and K6 (csrc/flash_attn_any.cu), which take every
-    head dim and dtype the tensor-core kernels do not, at the 268v
-    hyperprior's head dim 72 and N = 2048 (where attention takes the flash
-    route) in float32, bf16 and float16, against the plain versions within
-    the bounds of the kernels of the same width, two calls bitwise equal,
-    with the time of each and of SDPA's forward and backward (the library
-    yardstick, none of the port's routes). No main path reaches them (the 268v global
-    blocks have head dim 64), so they have no row in the kernels line."""
+@contextlib.contextmanager
+def simt_route():
+    """K4 and K6 on the SIMT kernels (csrc/flash_attn_any.cu) at every head
+    dim but 64, so that they are timed beside the any-head-dim tensor-core
+    kernels in one run. Only this script does it; the port's route takes
+    the tensor-core kernels wherever ops/attention.py::anydim_supports."""
+    from cra5_tpu_torch.ops import attention
+
+    saved = attention.anydim_supports
+    attention.anydim_supports = lambda *a: False
+    try:
+        yield
+    finally:
+        attention.anydim_supports = saved
+
+
+def flash_anydim_rows(rng, dev) -> dict:
+    """The any-head-dim tensor-core K4 and K6 (csrc/flash_attn_anydim.cu,
+    csrc/flash_attn_anydim_f32.cu) and the SIMT K5 that the route gives
+    every head dim but 64, at the 268v hyperprior's head dim 72 in float32,
+    bf16 and float16, at (1, 5, 2048, 72) (where the hyperprior's width
+    takes the flash route) and (1, 5, 10368, 72) (three waves and more):
+    each against its plain version within the bound of the kernels of the
+    same width, two calls bitwise equal, the SIMT K4 and K6 held the same
+    way; the time of each beside the SIMT K4's and K6's, the plain
+    versions' (at N = 2048), SDPA's forward and backward (forward + backward
+    less forward; the library yardstick) and the tensor-core bound at D
+    itself (bf16/f16 at 989 TFLOP/s, float32 as three TF32 products at 495)
+    with the exp floor beside it; at N = 2048 also the device time a call of
+    each kernel and of SDPA (torch.profiler). Returns the float32 and bf16
+    rows of the kernels line at N = 2048."""
     from cra5_tpu_torch.ops.attention import (
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
@@ -606,56 +662,102 @@ def flash_any_check(rng, dev) -> None:
         flash_attention_plain,
     )
 
-    B, H, N, D = 1, 5, 2048, 72
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, D = 1, 5, 72
     scale = D ** -0.5
-    for dtype, rtol in ((torch.float32, FLASH_F32_RTOL), (torch.bfloat16, FLASH_GRAD_RTOL),
-                        (torch.float16, FLASH_GRAD_RTOL)):
-        q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
-                       .to(dev, dtype) for _ in range(4))
-        out, lse = flash_attention_forward(q, k, v, scale)
-        ref, ref_lse = flash_attention_plain(q, k, v, scale)
-        delta = (do.float() * out.float()).sum(-1)
-        ops = (q, k, v, do, lse, delta, scale)
-        got = {"out": (out, ref), "dq": (flash_attention_backward_dq(*ops),
-                                         flash_attention_backward_dq_plain(*ops))}
-        got.update(zip(("dk", "dv"), zip(flash_attention_backward_dkv(*ops),
-                                         flash_attention_backward_dkv_plain(*ops))))
-        again = (*flash_attention_forward(q, k, v, scale), flash_attention_backward_dq(*ops),
-                 *flash_attention_backward_dkv(*ops))
-        same = all(torch.equal(a, b) for a, b in zip(
-            (out, lse, got["dq"][0], got["dk"][0], got["dv"][0]), again))
-        errs = {n: ((a.float() - b.float()).abs().max().item(),
-                    rtol * b.float().abs().max().item()) for n, (a, b) in got.items()}
-        finite = all(bool(torch.isfinite(a).all()) for a, _ in got.values())
-        if not finite or not same or any(e > b for e, b in errs.values()):
-            raise RuntimeError(f"SIMT K4-K6 {dtype} D={D}: (err, bound) {errs}, finite "
-                               f"{finite}, two calls bitwise equal {same}")
-        ms = {"fwd": timed_ms(lambda: flash_attention_forward(q, k, v, scale), 3),
-              "dq": timed_ms(lambda: flash_attention_backward_dq(*ops), 3),
-              "dkv": timed_ms(lambda: flash_attention_backward_dkv(*ops), 3)}
-        plain = {"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
-                 "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
-                 "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
-        # the library yardstick: SDPA forward, and its backward as forward +
-        # backward less forward (all three gradients)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
-        lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 3)
-        lib_bwd = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
-                                                       (qg, kg, vg), do), 3) - lib_fwd
-        del qg, kg, vg
-        # FP32 FMA operations at the head dim itself (the kernels pad it to 128)
-        bound = {n: max(f * B * H * N * N * D / FP32_FLOPS * 1e3,
-                        bytes_bound_ms(io * B * H * N * D * q.element_size() + 2 * B * H * N * 4))
-                 for n, f, io in (("fwd", 4, 4), ("dq", 6, 5), ("dkv", 8, 6))}
-        log(f"[K4-K6 SIMT {str(dtype)[6:]}] (B, H, N, D) = ({B}, {H}, {N}, {D}): (err, bound "
-            f"{rtol} x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
-            + ", two calls bitwise equal; " + ", ".join(
-                f"{n} kernel {ms[n]:.4f} ms ({bound[n] / ms[n]:.1%} of the bound {bound[n]:.4f} ms, "
-                f"FP32 FMA), plain {plain[n]:.4f} ms" for n in ms)
-            + f"; sdpa forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
-        del q, k, v, do, out, lse, ref, ref_lse, delta, ops, got, again
-    torch.cuda.empty_cache()
+    rows = {}
+    for N in (2048, 10368):
+        for dtype, rtol, lse_atol, tag in (
+                (torch.float32, FLASH_F32_RTOL, FLASH_F32_LSE_ATOL, "_f32"),
+                (torch.bfloat16, FLASH_GRAD_RTOL, FLASH_LSE_ATOL, ""),
+                (torch.float16, FLASH_GRAD_RTOL, FLASH_LSE_ATOL, None)):
+            q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
+                           .to(dev, dtype) for _ in range(4))
+            fwd = lambda: flash_attention_forward(q, k, v, scale)
+            out, lse = fwd()
+            delta = (do.float() * out.float()).sum(-1)
+            ops = (q, k, v, do, lse, delta, scale)
+            dkv = lambda: flash_attention_backward_dkv(*ops)
+            dq = lambda: flash_attention_backward_dq(*ops)
+            got = {"out": out, "dq SIMT": dq()}
+            got["dk"], got["dv"] = dkv()
+            again = {"out": fwd()[0], "dq SIMT": dq()}
+            again["dk"], again["dv"] = dkv()
+            same = all(torch.equal(got[n], again[n]) for n in got)
+            with simt_route():
+                s_out, s_lse = fwd()
+                got["out SIMT"] = s_out
+                got["dk SIMT"], got["dv SIMT"] = dkv()
+            ref_out, ref_lse = flash_attention_plain(q, k, v, scale)
+            refs = {"out": ref_out, "dq SIMT": flash_attention_backward_dq_plain(*ops)}
+            refs["dk"], refs["dv"] = flash_attention_backward_dkv_plain(*ops)
+            refs.update({"out SIMT": ref_out, "dk SIMT": refs["dk"], "dv SIMT": refs["dv"]})
+            torch.cuda.synchronize()
+            errs = {n: ((a.float() - refs[n].float()).abs().max().item(),
+                        rtol * refs[n].float().abs().max().item()) for n, a in got.items()}
+            lerr = max((lse - ref_lse).abs().max().item(), (s_lse - ref_lse).abs().max().item())
+            finite = all(bool(torch.isfinite(a).all()) for a in got.values())
+            if not finite or not same or lerr > lse_atol or any(e > b for e, b in errs.values()):
+                raise RuntimeError(f"any-head-dim K4/K6 {dtype} at {(B, H, N, D)}: (err, bound) "
+                                   f"{errs}, lse err {lerr}, finite {finite}, two calls bitwise "
+                                   f"equal {same}")
+            del got, again, refs, ref_out, ref_lse, s_out, s_lse
+            torch.cuda.empty_cache()
+
+            it = 20 if N == 2048 else 10
+            ms = {"fwd": timed_ms(fwd, it), "dkv": timed_ms(dkv, it), "dq": timed_ms(dq, it)}
+            with simt_route():
+                simt = {"fwd": timed_ms(fwd, 3), "dkv": timed_ms(dkv, 3)}
+            plain = ({"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
+                      "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1),
+                      "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1)}
+                     if N == 2048 else None)
+            qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+            lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), it)
+            lib_bwd = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
+                                                           (qg, kg, vg), do), it) - lib_fwd
+            if N == 2048:  # event times at this size come near the host's issue rate
+                dev_us = {n: device_us(f) for n, f in (
+                    ("K4", fwd), ("K6", dkv), ("K5 SIMT", dq),
+                    ("sdpa forward", lambda: sdpa(qg, kg, vg, scale=scale)),
+                    ("sdpa forward + backward", lambda: torch.autograd.grad(
+                        sdpa(qg, kg, vg, scale=scale), (qg, kg, vg), do)))}
+                log(f"[K4/K6 anydim device {str(dtype)[6:]}] ({B}, {H}, {N}, {D}): " + ", ".join(
+                    f"{n} {u:.2f} us" for n, u in dev_us.items()) + " (device time a call)")
+            del qg, kg, vg
+            flops = {"fwd": 4 * B * H * N * N * D, "dkv": 8 * B * H * N * N * D,
+                     "dq": 6 * B * H * N * N * D}
+            io, stats = B * H * N * D * q.element_size(), B * H * N * 4
+            nbytes = {"fwd": 4 * io + stats, "dkv": 6 * io + 2 * stats, "dq": 5 * io + 2 * stats}
+            mult, peak = (3, TF32_FLOPS) if dtype == torch.float32 else (1, BF16_FLOPS)
+            bounds = {n: max(mult * f / peak * 1e3, bytes_bound_ms(nbytes[n]))
+                      for n, f in flops.items()}
+            floor = exp_floor_ms(B * H * N * N)
+            lib = {"fwd": lib_fwd, "dkv": lib_bwd, "dq": lib_bwd}
+            name = str(dtype)[6:]
+            log(f"[K4/K6 anydim {name}] (B, H, N, D) = ({B}, {H}, {N}, {D}): (err, bound {rtol} "
+                f"x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+                + f", lse err {lerr:.3g} (atol {lse_atol}), two calls of each bitwise equal")
+            for n, label in (("fwd", "K4 anydim"), ("dkv", "K6 anydim"), ("dq", "K5 SIMT")):
+                simt_txt = f", SIMT {simt[n]:.4f} ms" if n in simt else ""
+                plain_txt = f", plain {plain[n]:.4f} ms" if plain else ""
+                log(f"[{label} {name}] ({B}, {H}, {N}, {D}): kernel {ms[n]:.4f} ms "
+                    f"({flops[n] / ms[n] / 1e9:.2f} TFLOP/s, {bounds[n] / ms[n]:.1%} of the bound)"
+                    f"{simt_txt}{plain_txt}, bound {bounds[n]:.4f} ms (operations at D = {D}"
+                    f"{', 3xTF32' if mult == 3 else ''}; exp floor {floor:.4f} ms, FP32 FMA "
+                    f"{flops[n] / FP32_FLOPS * 1e3:.4f} ms), sdpa "
+                    f"{'forward' if n == 'fwd' else 'backward'} {lib[n]:.4f} ms")
+            if N == 2048 and tag is not None:
+                err = {"fwd": errs["out"][0], "dkv": max(errs["dk"][0], errs["dv"][0]),
+                       "dq": errs["dq SIMT"][0]}
+                for n, key in (("fwd", "flash_attn_fwd_anydim"),
+                               ("dkv", "flash_attn_bwd_dkv_anydim"), ("dq", "flash_attn_bwd_dq_any")):
+                    rows[key + tag] = dict(max_abs_err=err[n], ms=ms[n], plain_ms=plain[n],
+                                           bound_ms=bounds[n], bound_by="operations",
+                                           library_ms=lib[n])
+            del q, k, v, do, out, lse, delta, ops
+            torch.cuda.empty_cache()
+    return rows
 
 
 def perm_rows(rng, dev) -> dict:
@@ -810,43 +912,57 @@ def global_block_grads(dev, dtype, rtol) -> None:
     default): the gradients of its input, qkv and proj through
     FlashAttention (K4 twice, K5, K6) against the same block, weights and
     inputs with attention on the plain path, each within rtol x max |ref|."""
-    from cra5_tpu_torch import kernels
     from cra5_tpu_torch.models.vaeformer import vaeformer_268
+
+    cfg = vaeformer_268()
+    block_grads(dev, dtype, rtol, cfg.y_channels, cfg.num_heads, cfg.latent_grid,
+                layer_id=cfg.interval - 1, remat=True, tag="268v global block")
+
+
+def block_grads(dev, dtype, rtol, dim, heads, grid, layer_id, remat, tag) -> dict:
+    """A global ViT block of width ``dim`` over a ``grid`` of tokens, batch
+    1, seeded, forward and backward through autograd, first with attention
+    on the flash route (the launch counters zeroed just before and read
+    just after; K4 once, or twice under remat, K5 and K6 once), then on the
+    plain path (no launch): the gradients of its input, qkv and proj of the
+    flash route each within rtol x max |ref| of the plain path's. Returns
+    the flash route's launches."""
+    from cra5_tpu_torch import kernels
     from cra5_tpu_torch.nn import blocks
     from cra5_tpu_torch.nn.vit import _run_block
 
-    cfg = vaeformer_268()
-    Hp, Wp = cfg.latent_grid
+    Hp, Wp = grid
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    blk = blocks.Block(cfg.y_channels, cfg.num_heads, layer_id=cfg.interval - 1,
-                       dtype=dtype, device=dev)
+    blk = blocks.Block(dim, heads, layer_id=layer_id, dtype=dtype, device=dev)
     for m in blk.modules():
         if m is not blk and hasattr(m, "reset_parameters") and not isinstance(m, torch.nn.Linear):
             m.reset_parameters(gen)
-    x = torch.randn((1, Hp * Wp, cfg.y_channels), generator=gen, device=dev).to(dtype)
+    x = torch.randn((1, Hp * Wp, dim), generator=gen, device=dev).to(dtype)
     w = torch.randn(x.shape, generator=gen, device=dev)
     watch = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight")
-    grads = {}
+    grads, flash_launches = {}, None
     use_flash = blocks._use_flash
     for route in ("flash", "plain"):
         if route == "plain":
             blocks._use_flash = lambda *a: False
         try:
-            kernels.reset_launch_counts()
             blk.zero_grad(set_to_none=True)
             xg = x.clone().requires_grad_()
-            (_run_block(blk, xg, Hp, Wp, remat=True).float() * w).sum().backward()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            (_run_block(blk, xg, Hp, Wp, remat=remat).float() * w).sum().backward()
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
         finally:
             blocks._use_flash = use_flash
         params = dict(blk.named_parameters())
         grads[route] = {"x": xg.grad, **{k: params[k].grad.clone() for k in watch}}
-        want = (2, 1, 1) if route == "flash" else (0, 0, 0)
+        want = (1 + remat, 1, 1) if route == "flash" else (0, 0, 0)
         got = tuple(launches[k] for k in ("flash_attention_forward", "flash_attention_backward_dq",
                                           "flash_attention_backward_dkv"))
         if got != want:
-            raise RuntimeError(f"global block, {route} route: flash launches {got}, expected {want}")
+            raise RuntimeError(f"{tag}, {route} route: flash launches {got}, expected {want}")
+        flash_launches = flash_launches or launches
         del xg
         torch.cuda.empty_cache()
     errs = {k: ((grads["flash"][k].float() - ref.float()).abs().max().item(),
@@ -854,13 +970,32 @@ def global_block_grads(dev, dtype, rtol) -> None:
             for k, ref in grads["plain"].items()}
     finite = all(bool(torch.isfinite(g).all()) for g in grads["flash"].values())
     if not finite or any(not e <= b for e, b in errs.values()):
-        raise RuntimeError(f"global block gradients, flash vs plain: (err, bound) {errs}, "
+        raise RuntimeError(f"{tag} gradients, flash vs plain: (err, bound) {errs}, "
                            f"finite {finite}")
-    log(f"[reference] 268v global block (1, {Hp * Wp}, {cfg.y_channels}) {dtype} remat, "
-        f"gradients through FlashAttention vs the plain path, (err, bound {rtol} x max|ref|): "
+    log(f"[reference] {tag} (1, {Hp * Wp}, {dim}), {heads} heads of {dim // heads}, {dtype}"
+        f"{' remat' if remat else ''}, gradients through FlashAttention vs the plain path, "
+        f"(err, bound {rtol} x max|ref|): "
         + ", ".join(f"{k} ({e:.3g}, {b:.3g})" for k, (e, b) in errs.items()))
     del blk, grads, x, w
     torch.cuda.empty_cache()
+    return flash_launches
+
+
+def phase_hyper_width(dev) -> dict:
+    """The hyper_width path: one global ViT block at the 268v hyperprior's
+    width (360, 5 heads of 72) on N = 2048 tokens (a 32 x 64 grid, where
+    attention takes the flash route), batch 1, forward and backward in bf16
+    and then in float32, each against the plain path (block_grads). Its K4
+    and K6 are the any-head-dim tensor-core kernels, its K5 the SIMT dQ.
+    Returns each dtype's launches."""
+    from cra5_tpu_torch.models.vaeformer import vaeformer_268
+
+    cfg = vaeformer_268()
+    return {name: block_grads(dev, dtype, rtol, cfg.hyper_embed_dim, cfg.hyper_num_heads,
+                              (32, 64), layer_id=None, remat=False,
+                              tag=f"hyper_width {name} block")
+            for name, dtype, rtol in (("bf16", torch.bfloat16, FLASH_GRAD_RTOL),
+                                      ("f32", torch.float32, FLASH_F32_RTOL))}
 
 
 def phase_main_path(dev) -> dict:
@@ -1198,6 +1333,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     ref_launches = phase_reference(dev)
+    hyper_launches = phase_hyper_width(dev)
     main_res, codec, x = phase_main_path(dev)
     phase_profile(codec, x)
     del codec, x
@@ -1216,7 +1352,8 @@ def main() -> int:
     # decode_rowplan_pallas (:368); its entry names the former.
     paths = {"codec": main_res["launches"], "tiny": ref_launches, "train": train_res["launches"],
              "train_f32": train_f32_res["launches"], "probe": probe_launches,
-             "api": api_launches}
+             "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
+             "hyper_f32": hyper_launches["f32"]}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -1240,18 +1377,39 @@ def main() -> int:
         "flash_attn_bwd_dkv_f32": ("flash_attention_backward_dkv",
                                    "cra5_tpu_torch/csrc/flash_attn_bwd_f32.cu",
                                    "cra5_tpu/ops/attention.py:189"),
+        "flash_attn_fwd_anydim": ("flash_attention_forward",
+                                  "cra5_tpu_torch/csrc/flash_attn_anydim.cu",
+                                  "cra5_tpu/ops/attention.py:102"),
+        "flash_attn_fwd_anydim_f32": ("flash_attention_forward",
+                                      "cra5_tpu_torch/csrc/flash_attn_anydim_f32.cu",
+                                      "cra5_tpu/ops/attention.py:102"),
+        "flash_attn_bwd_dq_any": ("flash_attention_backward_dq",
+                                  "cra5_tpu_torch/csrc/flash_attn_any.cu",
+                                  "cra5_tpu/ops/attention.py:140"),
+        "flash_attn_bwd_dq_any_f32": ("flash_attention_backward_dq",
+                                      "cra5_tpu_torch/csrc/flash_attn_any.cu",
+                                      "cra5_tpu/ops/attention.py:140"),
+        "flash_attn_bwd_dkv_anydim": ("flash_attention_backward_dkv",
+                                      "cra5_tpu_torch/csrc/flash_attn_anydim.cu",
+                                      "cra5_tpu/ops/attention.py:189"),
+        "flash_attn_bwd_dkv_anydim_f32": ("flash_attention_backward_dkv",
+                                          "cra5_tpu_torch/csrc/flash_attn_anydim_f32.cu",
+                                          "cra5_tpu/ops/attention.py:189"),
         "perm_expand": ("expand", "cra5_tpu_torch/csrc/perm_probe.cu",
                         "profiling/_perm_probe.py:141"),
         "perm_dynroll": ("dynroll", "cra5_tpu_torch/csrc/perm_probe.cu",
                          "profiling/_perm_probe.py:160"),
     }
-    # the bf16 and float32 flash kernels share one wrapper and counter each:
-    # the float32 paths are the API's and the float32 train step's, every
-    # other path is bf16
+    # the flash kernels of every dtype and head dim share one wrapper and
+    # counter each: the head-dim-64 float32 paths are the API's and the
+    # float32 train step's, the head-dim-72 paths hyper_width's two, every
+    # other path is bf16 at head dim 64
     bf16 = ("codec", "tiny", "train", "probe")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
             "flash_attn_fwd_f32": ("api", "train_f32"), "flash_attn_bwd_dq_f32": ("train_f32",),
             "flash_attn_bwd_dkv_f32": ("train_f32",)}
+    only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in
+                 ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_any", "flash_attn_bwd_dkv_anydim")})
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():
         launches = sum(paths[p][counter] for p in only.get(name, paths))

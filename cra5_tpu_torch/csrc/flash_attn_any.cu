@@ -3,8 +3,11 @@
 // of _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel of
 // cra5_tpu/ops/attention.py, which take their head dim from the operands.
 // The kernels on the tensor cores (flash_attn_fwd.cu, flash_attn_bwd.cu,
-// flash_attn_bwd_f32.cu) are built for head dim 64 in bf16 and float32;
-// ops/attention.py sends every other head dim and dtype here.
+// flash_attn_bwd_f32.cu) are built for head dim 64 in bf16 and float32, and
+// K4 and K6 of flash_attn_anydim.cu and flash_attn_anydim_f32.cu for the
+// 16-bit head dims of a multiple of 8 up to 128 and the float32 ones of a
+// multiple of 4 up to 96; ops/attention.py sends the rest here: K5 at every
+// head dim but 64, float64, and the head dims past those kernels' reach.
 //
 // SIMT tiles, products and sums on the FMA units in the accumulation type
 // (float32, or float64 for float64 operands). Each row a block owns (a

@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels K4
 // (flash_attn_fwd.cu) and K5/K6 (flash_attn_bwd.cu, and on float32
-// flash_attn_bwd_f32.cu), as inline PTX:
+// flash_attn_bwd_f32.cu), and the any-head-dim K4/K6
+// (flash_attn_anydim.cu, flash_attn_anydim_f32.cu), as inline PTX:
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     and the wait on a phase parity;
 //   - TMA: cp.async.bulk.tensor 3-D loads that complete on an mbarrier, and
-//     the host-side tensor maps over (D, N, BH) bf16 or float32 with
-//     128-byte swizzle;
+//     the host-side tensor maps over (D, N, BH) 16-bit or float32 with
+//     128-byte swizzle, boxes one swizzle atom wide, zero-filled past N and
+//     past D;
 //   - wgmma: fence, commit_group, wait_group, the shared-memory matrix
-//     descriptor for 128-byte swizzle, m64nNk16 f32 += bf16 x bf16 with A
-//     from shared memory or from registers, and m64n64k8 / m64n32k8 f32 +=
-//     tf32 x tf32 (both operands K-major: the tf32 forms have no transpose);
+//     descriptor for 128-byte swizzle, m64nNk16 f32 += bf16 x bf16 (and f16
+//     x f16) with A from shared memory or from registers, and m64nNk8 f32 +=
+//     tf32 x tf32 for N = 64, 32 and 16 (both operands K-major: the tf32
+//     forms have no transpose);
 //   - cvt.rna.tf32.f32 and the split of float32 tiles into the hi and lo
 //     planes of 3xTF32 products, as stored or transposed;
 //   - setmaxnreg, named barriers and fence.proxy.async.
@@ -43,9 +46,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cra5::hopper {
 
@@ -203,6 +209,16 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo_bytes
          (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
 }
 
+// Matrix descriptor of an operand at p swizzled over `span` bytes (128, 64
+// or 32: the rows of its 8-row atoms).
+__device__ __forceinline__ uint64_t swz_desc(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes,
+                                             int span) {
+  const uint64_t mode = span == 128 ? 1 : span == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (mode << 62);
+}
+
 // Offset of a descriptor's start address by `bytes` (a multiple of 16).
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
@@ -327,6 +343,182 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// The forms the any-head-dim kernels (flash_attn_anydim.cu) add, for 16-bit
+// operands of type T (__nv_bfloat16 or __half: wgmma takes f16 beside
+// bf16) and tf32. Same operand conventions as the forms above.
+#define CRA5_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define CRA5_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define CRA5_R16(d)                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+#define CRA5_R32(d)                                                                            \
+  CRA5_R16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),  \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),           \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define CRA5_D32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+template <typename T>
+constexpr bool is_f16 = std::is_same_v<T, __half>;
+
+// D (64 x 32, f32) += A (64 x 16) * B (16 x 32), both in shared memory,
+// K-major; D is only read when scale_d != 0.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n32k16_ss_t(float (&d)[16], uint64_t desc_a,
+                                                     uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " CRA5_D16
+                 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : CRA5_R16(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CRA5_D16
+                 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : CRA5_R16(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// wgmma_m64n128k16_ss for bf16 or f16.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n128k16_ss_t(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : CRA5_R32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// wgmma_m64n64k16_ss for bf16 or f16.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_t(float (&d)[32], uint64_t desc_a,
+                                                     uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " CRA5_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : CRA5_R32(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// wgmma_m64n64k16_rs (A from registers, B MN-major) for bf16 or f16.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " CRA5_D32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : CRA5_R32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  }
+}
+
+// D (64 x N, f32) += A (64 x 16, 16-bit registers) * B (16 x N, shared
+// memory, MN-major) for N = 32 and 16, bf16 or f16.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n32k16_rs_t(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " CRA5_D16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+                 : CRA5_R16(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " CRA5_D16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+                 : CRA5_R16(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n16k16_rs_t(float (&d)[8], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  if constexpr (is_f16<T>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 " CRA5_D8
+                 ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " CRA5_D8
+                 ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// D (64 x 32, f32) += A (64 x 8, tf32 registers) * B (8 x 32, tf32, shared
+// memory, K-major); D is only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " CRA5_D16
+               ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+               : CRA5_R16(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 16, f32) += A (64 x 8, tf32 registers) * B (8 x 16, tf32, shared
+// memory, K-major); D is only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " CRA5_D8
+               ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 16, f32) += A (64 x 8) * B (8 x 16), tf32, both in shared memory,
+// K-major; D is only read when scale_d != 0.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " CRA5_D8
+               ", %8, %9, p, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7])
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef CRA5_D8
+#undef CRA5_D16
+#undef CRA5_D32
+#undef CRA5_R16
+#undef CRA5_R32
+
 // ------------------------------------------------------------------ 3xTF32 planes
 // x = hi + lo + (~2^-22 x): hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
 __device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
@@ -397,15 +589,51 @@ __device__ __forceinline__ void tf32_split_transposed(const float* raw, float* h
   }
 }
 
+
+// The same split for a tile of R <= 32 rows and NB boxes of 32 columns, into
+// a transposed plane of 32 NB head-dim rows (128 bytes each, swizzled) in
+// which raw row r goes to column c0 + r (c0 a multiple of 4, c0 + R <= 32).
+template <int NB, int R>
+__device__ __forceinline__ void tf32_split_transposed(const float* raw, float* hi, float* lo,
+                                                      int c0, int t) {
+  static_assert(R <= 32, "one 32-column half of the transposed plane");
+  const unsigned lane = t % 32;
+#pragma unroll 1
+  for (unsigned u = t / 32; u < NB * R / 4; u += 4) {
+    const unsigned dh = u % NB, kc = u / NB;
+    const int row0 = 8 * (kc >> 1) + (kc & 1);
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(raw + dh * R * 32);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = *reinterpret_cast<const float*>(src + swz128(row0 + 2 * e, lane >> 2) +
+                                             4 * (lane & 3));
+    }
+    const int off = swz128(32 * dh + lane, c0 / 4 + kc);
+    tf32_split4(make_float4(x[0], x[1], x[2], x[3]),
+                reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(hi) + off),
+                reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(lo) + off));
+  }
+}
+
 // ------------------------------------------------------------------ host
-// A 3-D tensor map over a contiguous (BH, N, D = 64) array of `elem_bytes`
-// (2: bf16, 4: float32) elements, dims innermost first (D, N, BH), boxes of
-// (128 / elem_bytes, rows, 1), one 128-byte swizzle atom wide, with zero
-// fill: a box past a head's last row reads zeros, never the next head.
-// cuTensorMapEncodeTiled is looked up through the CUDA runtime's
-// entry-point query, so the library needs no -lcuda.
+// A 3-D tensor map over a contiguous (BH, N, D) array of `elem_bytes` (2:
+// bf16 or float16, whose bits TMA copies alike; 4: float32) elements, dims
+// innermost first (D, N, BH), boxes of (128 / elem_bytes, rows, 1), one
+// 128-byte swizzle atom wide, with zero fill: a box past a head's last row
+// reads zeros, never the next head, and a box whose columns run past D
+// reads zeros there. So a head dim that is not a multiple of the box width
+// is padded to it in shared memory at no instruction's cost: a kernel loads
+// ceil(D elem_bytes / 128) boxes a row, and the zero columns add nothing to
+// any sum (the products still spend their tensor-core operations on them).
+// D defaults to 64, the head-dim-64 kernels' maps. A row of D elements must
+// be a multiple of 16 bytes (TMA's stride rule). `box_bytes` (128, 64 or 32)
+// narrows the box and its swizzle to that many bytes, for the last columns
+// of a head dim that are fewer than a 128-byte atom. cuTensorMapEncodeTiled
+// is looked up through the CUDA runtime's entry-point query, so the library
+// needs no -lcuda.
 inline bool make_tensor_map_3d(CUtensorMap* map, const void* base, int N, int BH, int rows,
-                               int elem_bytes = 2) {
+                               int elem_bytes = 2, int D = 64, int box_bytes = 128) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -422,15 +650,20 @@ inline bool make_tensor_map_3d(CUtensorMap* map, const void* base, int N, int BH
   }();
   if (encode == nullptr) return false;
   if (elem_bytes != 2 && elem_bytes != 4) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)N, (cuuint64_t)BH};
-  const cuuint64_t row_bytes = 64 * (cuuint64_t)elem_bytes;
+  if (D < 1 || (D * elem_bytes) % 16 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)BH};
+  const cuuint64_t row_bytes = (cuuint64_t)D * elem_bytes;
   const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)N * row_bytes};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {128u / elem_bytes, (cuuint32_t)rows, 1};
+  if (box_bytes != 128 && box_bytes != 64 && box_bytes != 32) return false;
+  const cuuint32_t box[3] = {(cuuint32_t)(box_bytes / elem_bytes), (cuuint32_t)rows, 1};
+  const CUtensorMapSwizzle swizzle = box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapDataType type =
       elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   return encode(map, type, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -15,10 +15,11 @@ blocks and no window or hyperprior block. The route is the differentiable
 weights get their gradients. Elsewhere attention is plain matmul +
 softmax, as the JAX package leaves it to XLA. The route looks at the shape
 only, as the JAX package's does: its Pallas kernels take the head dim
-from the operands, and so do the port's (head dim 64 in bf16 and float32
-on the tensor cores, every other head dim and float dtype on the SIMT
-kernels), so nothing the TPU kernels compute is computed plainly on the
-card.
+from the operands, and so do the port's (``ops/attention.py`` picks the
+kernel by dtype and head dim: tensor-core kernels at head dim 64 in bf16
+and float32 and, for K4 and K6, at the other head dims of
+``anydim_supports``; SIMT kernels for the rest), so nothing the TPU
+kernels compute is computed plainly on the card.
 """
 
 from __future__ import annotations

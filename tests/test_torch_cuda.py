@@ -473,48 +473,79 @@ def test_flash_attn_f32_bwd_is_deterministic(card, rng, N):
     assert all(torch.isfinite(x).all() and torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_attention_with_head_dim_72_computes_on_the_card(card, rng):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_with_head_dim_72_computes_on_the_card(card, rng, dtype):
     """A global Attention of head dim 72 (the 268v hyperprior's) at N =
     2048, where the JAX package takes its Pallas kernels: it takes the
-    flash route on the card (the SIMT kernels, float32) and matches the
-    same module on the CPU, output and input gradient within
-    FLASH_F32_RTOL x max |ref|."""
+    flash route on the card (the any-head-dim tensor-core K4 and K6, the
+    SIMT K5) once each. In float32 it matches the same module on the CPU,
+    output and input gradient within FLASH_F32_RTOL x max |ref|; in bf16
+    the same module on the card with attention on the plain path (matmul
+    and softmax, which rounds elsewhere than the kernels), within
+    FLASH_GRAD_RTOL x max |ref|."""
     from cra5_tpu_torch.device import resolve_device
-    from cra5_tpu_torch.nn.blocks import Attention
+    from cra5_tpu_torch.nn import blocks
 
     resolve_device(card)  # float32 matmuls in full float32
     gen = torch.Generator().manual_seed(0)
-    cpu = Attention(144, 2, device="cpu")
+    cpu = blocks.Attention(144, 2, dtype=dtype, device="cpu")
     cpu.reset_parameters(gen)
-    gpu = Attention(144, 2, device=card)
+    gpu = blocks.Attention(144, 2, dtype=dtype, device=card)
     gpu.load_state_dict(cpu.state_dict())
-    x = torch.from_numpy(rng.standard_normal((1, 2048, 144), np.float32))
-    w = torch.from_numpy(rng.standard_normal((1, 2048, 144), np.float32))
-    kernels.reset_launch_counts()
-    got = {}
-    for name, mod, dev in (("cuda", gpu, card), ("cpu", cpu, torch.device("cpu"))):
-        xg = x.to(dev).requires_grad_()
-        y = mod(xg, 32, 64)
-        (y * w.to(dev)).sum().backward()
-        got[name] = (y.detach().cpu(), xg.grad.cpu())
-    counts = kernels.launch_counts()
+    x = torch.from_numpy(rng.standard_normal((1, 2048, 144), np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((1, 2048, 144), np.float32)).to(dtype)
+    flash = ("cuda", gpu, card, blocks._use_flash)
+    ref = (("cpu", cpu, torch.device("cpu"), blocks._use_flash) if dtype == torch.float32
+           else ("plain", gpu, card, lambda *a: False))
+    got, counts = {}, None
+    use_flash = blocks._use_flash
+    for name, mod, dev, route in (flash, ref):
+        kernels.reset_launch_counts()
+        blocks._use_flash = route
+        try:
+            xg = x.to(dev).requires_grad_()
+            y = mod(xg, 32, 64)
+            (y.float() * w.to(dev).float()).sum().backward()
+        finally:
+            blocks._use_flash = use_flash
+        got[name] = (y.detach().float().cpu(), xg.grad.float().cpu())
+        counts = counts or kernels.launch_counts()
     assert [counts[k] for k in ("flash_attention_forward", "flash_attention_backward_dq",
                                 "flash_attention_backward_dkv")] == [1, 1, 1]
-    for a, ref in zip(got["cuda"], got["cpu"]):
+    rtol = FLASH_F32_RTOL if dtype == torch.float32 else FLASH_GRAD_RTOL
+    for a, want in zip(got["cuda"], got[ref[0]]):
         assert torch.isfinite(a).all()
-        assert (a - ref).abs().max().item() <= FLASH_F32_RTOL * ref.abs().max().item()
+        assert (a - want).abs().max().item() <= rtol * want.abs().max().item()
 
 
-# The SIMT kernels (csrc/flash_attn_any.cu) take every head dim but 64 in
-# bf16 and float32, and float16 and float64 at any head dim: head dims
-# padded to 64, 128 and 256, on and off each pad, 64, 32 and 16 rows a
-# block, ragged heads. Bounds as for the kernels of the same width (float16
-# as bf16); float64 sums in another order than the plain version only.
+# Every head dim and dtype but head dim 64 in bf16 and float32: the
+# any-head-dim tensor-core K4 and K6 (csrc/flash_attn_anydim*.cu: bf16 and
+# float16 rows of a multiple of 8 up to 128 in 64-column boxes, float32 rows
+# of a multiple of 4 up to 96 in 32-column boxes; K4 takes 128 queries a
+# block and 64 keys (16-bit) or 32 keys (float32) a stage, K6 128 keys (64
+# past head dim 64) and 32 queries (16-bit) or 64 keys and 16 queries
+# (float32)), on and off those
+# edges (N = 63-65, 127-129) and with ragged heads, up to the top of their
+# reach; and the SIMT kernels (csrc/flash_attn_any.cu) for K5 at every such
+# head dim and for what the tensor-core ones do not take: 12-byte rows,
+# float32 past 96, every head dim past 128, float64. Bounds as for the
+# kernels of the same width (float16 as bf16); float64 sums in another order
+# than the plain version only.
 FLASH_ANY_CASES = [(torch.float32, 72, 1, 2, 333), (torch.bfloat16, 72, 2, 3, 129),
                    (torch.float16, 64, 1, 2, 200), (torch.float32, 40, 2, 1, 65),
                    (torch.float32, 8, 1, 2, 64), (torch.float32, 129, 1, 2, 100),
                    (torch.bfloat16, 256, 1, 1, 77), (torch.float64, 72, 1, 2, 150),
-                   (torch.float64, 256, 1, 1, 33)]
+                   (torch.float64, 256, 1, 1, 33),
+                   (torch.bfloat16, 8, 1, 2, 65), (torch.bfloat16, 16, 2, 3, 200),
+                   (torch.float32, 16, 1, 2, 63), (torch.bfloat16, 40, 1, 2, 127),
+                   (torch.bfloat16, 72, 2, 3, 200), (torch.float32, 72, 2, 3, 200),
+                   (torch.float16, 72, 1, 2, 128), (torch.float32, 72, 1, 1, 64),
+                   (torch.bfloat16, 80, 1, 2, 64), (torch.float32, 80, 1, 2, 129),
+                   (torch.bfloat16, 96, 1, 2, 63), (torch.float32, 96, 1, 2, 127),
+                   (torch.bfloat16, 120, 1, 2, 128), (torch.float32, 68, 1, 2, 65),
+                   (torch.bfloat16, 128, 1, 2, 129), (torch.float16, 128, 1, 1, 65),
+                   (torch.float32, 4, 1, 2, 33), (torch.float32, 120, 1, 1, 65),
+                   (torch.bfloat16, 6, 1, 2, 65)]
 FLASH_ANY_TOL = {torch.bfloat16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
                  torch.float16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
                  torch.float32: (FLASH_F32_RTOL, FLASH_F32_LSE_ATOL),
@@ -523,7 +554,7 @@ FLASH_ANY_TOL = {torch.bfloat16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
 
 @pytest.mark.parametrize("dtype,D,B,H,N", FLASH_ANY_CASES)
 def test_flash_attn_any_head_dim_close_to_plain(card, rng, dtype, D, B, H, N):
-    """K4, K5 and K6 at another head dim or dtype than the tensor-core
+    """K4, K5 and K6 at another head dim or dtype than the head-dim-64
     kernels take, against the plain versions, and bitwise equal over two
     calls."""
     rtol, lse_atol = FLASH_ANY_TOL[dtype]

@@ -9,7 +9,12 @@ The card's float32 K4, K5 and K6 run their products on the tensor cores
 as 3xTF32 (each operand split into hi = tf32(x) and lo = tf32(x - hi), each
 product hi hi + hi lo + lo hi). That arithmetic is emulated here, bit for
 bit in its roundings, and held to the same bound against the float32 plain
-versions and float64, where the kernels themselves cannot run."""
+versions and float64, where the kernels themselves cannot run: at head dim 64
+with the head-dim-64 kernels' stages (64 keys a K4 stage, 32 walked rows a K5
+and K6 stage), and at head dim 72 with the any-head-dim kernels' (32 keys a K4
+stage, 16 queries a K6 stage; K5 at 72 is the SIMT kernel, in full float32).
+Their zero padding of the head dim adds exact zeros to every sum, so the
+emulation leaves it out."""
 
 import jax
 import jax.numpy as jnp
@@ -36,14 +41,15 @@ def _bounded(got, want):
     assert np.abs(got.detach().numpy() - want).max() <= RTOL * np.abs(want).max()
 
 
+@pytest.mark.parametrize("D", [64, 72])
 @pytest.mark.parametrize("B,H,N", [(1, 2, 300), (2, 1, 129)])
-def test_f32_flash_matches_the_pallas_kernels(B, H, N):
+def test_f32_flash_matches_the_pallas_kernels(B, H, N, D):
     rng = np.random.default_rng(N)
-    q, k, v, g = (rng.standard_normal((B, H, N, 64)).astype(np.float32) * 1.5 for _ in range(4))
+    q, k, v, g = (rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5 for _ in range(4))
     scale = 0.125
     jout, jlse = j_flash_forward(*(jnp.asarray(a) for a in (q, k, v)), scale, 128, 128)
     out, lse = flash_attention_forward(*(torch.from_numpy(a) for a in (q, k, v)), scale)
-    _bounded(out, np.asarray(jout).reshape(B, H, -1, 64)[:, :, :N])
+    _bounded(out, np.asarray(jout).reshape(B, H, -1, D)[:, :, :N])
     jlse = np.asarray(jlse).reshape(B, H, -1)[:, :, :N]
     assert np.abs(lse.numpy() - jlse).max() <= 1e-5
 
@@ -82,7 +88,7 @@ def _mm(a, b, products):
 
 
 def _forward_tf32(q, k, v, scale, products, block_k=64):
-    """The card's float32 K4 in float32 on the CPU, one (N, 64) head: q
+    """The card's float32 K4 in float32 on the CPU, one (N, D) head: q
     scaled in float32, 64-key stages, the online softmax in log2 units, P
     split like the operands and multiplying V unrounded otherwise."""
     log2e = 1.4426950408889634
@@ -102,11 +108,11 @@ def _forward_tf32(q, k, v, scale, products, block_k=64):
     return o / l, (m / log2e + torch.log(l))[:, 0]
 
 
-def _backward_tf32(q, k, v, do, lse, delta, scale, products, step=32):
-    """The card's float32 K5 and K6 in float32 on the CPU, one (N, 64)
-    head: the walked rows in stages of ``step`` (32 keys in K5, 32 queries
-    in K6), P in log2 units, dS and P split like the operands, and each
-    stage's dQ, dK and dV product summed fresh and then added to the
+def _backward_tf32(q, k, v, do, lse, delta, scale, products, step=32, kv_step=32):
+    """The card's float32 K5 and K6 in float32 on the CPU, one (N, D)
+    head: the walked rows in stages (``step`` keys in K5, ``kv_step``
+    queries in K6), P in log2 units, dS and P split like the operands, and
+    each stage's dQ, dK and dV product summed fresh and then added to the
     running sum. K5 scales q in float32; K6 scales the logits of raw q."""
     log2e = 1.4426950408889634
     l2, dl = lse[:, None] * log2e, delta[:, None]
@@ -118,29 +124,33 @@ def _backward_tf32(q, k, v, do, lse, delta, scale, products, step=32):
         ds = p * (_mm(do, vj.T, products) - dl)
         dq = dq + _mm(ds, kj, products)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for q0 in range(0, q.shape[0], step):
-        qi, oi = q[q0:q0 + step], do[q0:q0 + step]
-        pt = torch.exp2(_mm(k, qi.T, products) * (scale * log2e) - l2[q0:q0 + step].T)
-        dst = pt * (_mm(v, oi.T, products) - dl[q0:q0 + step].T)
+    for q0 in range(0, q.shape[0], kv_step):
+        qi, oi = q[q0:q0 + kv_step], do[q0:q0 + kv_step]
+        pt = torch.exp2(_mm(k, qi.T, products) * (scale * log2e) - l2[q0:q0 + kv_step].T)
+        dst = pt * (_mm(v, oi.T, products) - dl[q0:q0 + kv_step].T)
         dv = dv + _mm(pt, oi, products)
         dk = dk + _mm(dst, qi, products)
     return dq * scale, dk * scale, dv
 
 
+@pytest.mark.parametrize("D", [64, 72])
 @pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
-def test_3xtf32_backward_within_the_f32_bound(B, H, N):
+def test_3xtf32_backward_within_the_f32_bound(B, H, N, D):
     """The float32 K5 and K6 arithmetic: dq, dk and dv within RTOL x max
     |ref| of the float32 plain versions and of float64 (inputs N(0, 1.5^2),
     scale 0.125, lse and delta of the float32 plain forward), while one TF32
-    product misses the float64 bound by more than 10x. This emulation sums
+    product misses the float64 bound by more than 10x. At head dim 72 the
+    card runs K6 in 16-query stages and K5 on the SIMT tile, so only dk
+    and dv are the tensor cores' there. This emulation sums
     in float32 rounded to nearest; the card's tensor cores truncate their
     sums, which no CPU run sees: the card test
     test_268v_global_block_f32_through_flash_matches_the_plain_path is the
     one that holds the kernels to this bound at N = 10368."""
     rng = np.random.default_rng(N + 1)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, 64)).astype(np.float32) * 1.5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5)
                    for _ in range(4))
     scale = 0.125
+    kv_step, first = (32, 0) if D == 64 else (16, 1)  # K6's stage; the first tensor-core output
     out, lse = flash_attention_plain(q, k, v, scale)
     delta = (do * out).sum(-1)
     ops = (q, k, v, do, lse, delta)
@@ -152,36 +162,40 @@ def test_3xtf32_backward_within_the_f32_bound(B, H, N):
     for b in range(B):
         for h in range(H):
             head = tuple(t[b, h] for t in ops)
-            got = _backward_tf32(*head, scale, products=3)
-            for refs in (ref32, ref64):
+            got = _backward_tf32(*head, scale, products=3, kv_step=kv_step)[first:]
+            for refs in (ref32[first:], ref64[first:]):
                 for a, ref in zip(got, refs):
                     bound = RTOL * ref[b, h].abs().max().item()
                     assert (a.double() - ref[b, h].double()).abs().max().item() <= bound
-            one = _backward_tf32(*head, scale, products=1)
-            for a, ref in zip(one, ref64):
+            one = _backward_tf32(*head, scale, products=1, kv_step=kv_step)[first:]
+            for a, ref in zip(one, ref64[first:]):
                 miss = (a.double() - ref[b, h]).abs().max().item()
                 assert miss > 10 * RTOL * ref[b, h].abs().max().item()
 
 
+@pytest.mark.parametrize("D", [64, 72])
 @pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
-def test_3xtf32_forward_within_the_f32_bound(B, H, N):
+def test_3xtf32_forward_within_the_f32_bound(B, H, N, D):
     """3xTF32 keeps float32 accuracy: out within RTOL x max |ref| and lse
     within LSE_ATOL of the float32 plain version and of float64 (inputs
-    N(0, 1.5^2), scale 0.125, as on the card). One TF32 product (10
-    mantissa bits) misses the same bound by orders of magnitude, so the
-    bound tells the two apart."""
+    N(0, 1.5^2), scale 0.125, as on the card), in the card's stages: 64
+    keys at head dim 64, 32 at 72. One TF32 product (10 mantissa bits)
+    misses the same bound by orders of magnitude, so the bound tells the
+    two apart."""
     rng = np.random.default_rng(N)
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, 64)).astype(np.float32) * 1.5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5)
                for _ in range(3))
     scale = 0.125
+    block_k = 64 if D == 64 else 32
     ref32, lse32 = flash_attention_plain(q, k, v, scale)
     ref64, lse64 = flash_attention_plain(q.double(), k.double(), v.double(), scale)
     for b in range(B):
         for h in range(H):
-            out, lse = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=3)
+            out, lse = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=3,
+                                     block_k=block_k)
             for ref, ref_lse in ((ref32[b, h], lse32[b, h]), (ref64[b, h], lse64[b, h])):
                 bound = RTOL * ref.abs().max().item()
                 assert (out.double() - ref.double()).abs().max().item() <= bound
                 assert (lse.double() - ref_lse.double()).abs().max().item() <= LSE_ATOL
-            one, _ = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=1)
+            one, _ = _forward_tf32(q[b, h], k[b, h], v[b, h], scale, products=1, block_k=block_k)
             assert (one.double() - ref64[b, h]).abs().max().item() > 10 * RTOL * ref64[b, h].abs().max().item()

@@ -101,20 +101,45 @@ def test_flash_routing_selects_the_seven_global_blocks_of_268v():
     assert flash == 7
 
 
-@pytest.mark.parametrize("head_dim,dtype,entry,code", [
-    (64, torch.bfloat16, "cra5_flash_attn_fwd", None),
-    (64, torch.float32, "cra5_flash_attn_fwd_f32", None),
-    (72, torch.float32, "cra5_flash_attn_fwd_any", 2),
-    (72, torch.bfloat16, "cra5_flash_attn_fwd_any", 0),
-    (64, torch.float16, "cra5_flash_attn_fwd_any", 1),
-    (256, torch.float64, "cra5_flash_attn_fwd_any", 3),
+FWD, DQ, DKV = "cra5_flash_attn_fwd", "cra5_flash_attn_bwd_dq", "cra5_flash_attn_bwd_dkv"
+
+
+@pytest.mark.parametrize("head_dim,dtype,kernel,entry,code", [
+    (64, torch.bfloat16, FWD, FWD, None),
+    (64, torch.float32, FWD, FWD + "_f32", None),
+    (72, torch.float32, FWD, FWD + "_anydim", 2),
+    (72, torch.bfloat16, FWD, FWD + "_anydim", 0),
+    (72, torch.float16, FWD, FWD + "_anydim", 1),
+    (64, torch.float16, FWD, FWD + "_anydim", 1),
+    (72, torch.bfloat16, DKV, DKV + "_anydim", 0),
+    (72, torch.float16, DKV, DKV + "_anydim", 1),
+    (72, torch.float32, DKV, DKV + "_anydim", 2),
+    (64, torch.float16, DKV, DKV + "_anydim", 1),
+    (128, torch.bfloat16, DKV, DKV + "_anydim", 0),
+    (96, torch.float32, FWD, FWD + "_anydim", 2),
+    (64, torch.float32, DKV, DKV + "_f32", None),
+    (6, torch.bfloat16, FWD, FWD + "_any", 0),
+    (6, torch.bfloat16, DKV, DKV + "_any", 0),
+    (72, torch.float64, FWD, FWD + "_any", 3),
+    (72, torch.float64, DKV, DKV + "_any", 3),
+    (100, torch.float32, FWD, FWD + "_any", 2),
+    (100, torch.float32, DKV, DKV + "_any", 2),
+    (136, torch.bfloat16, FWD, FWD + "_any", 0),
+    (72, torch.float32, DQ, DQ + "_any", 2),
+    (72, torch.bfloat16, DQ, DQ + "_any", 0),
+    (64, torch.float16, DQ, DQ + "_any", 1),
+    (256, torch.float64, FWD, FWD + "_any", 3),
 ])
 def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, head_dim, dtype,
-                                                                entry, code):
+                                                                kernel, entry, code):
     """At N = 4096 on the card attention takes the flash route whatever its
     head dim and dtype, as the JAX package's takes its Pallas kernels; the
-    route picks the tensor-core kernels at head dim 64 in bf16 and float32
-    and the SIMT kernels, told the dtype's code, for everything else. The
+    route picks by dtype and shape alone: the head-dim-64 tensor-core
+    kernels in bf16 and float32, the any-head-dim tensor-core K4 and K6
+    where anydim_supports (16-bit rows of a multiple of 8 up to 128,
+    float32 rows of a multiple of 4 up to 96), and the SIMT kernels for
+    everything else (K5 at every head dim but 64, float64, 12-byte rows,
+    head dims past the reach), the last two told the dtype's code. The
     library is replaced by a recorder, so no card and no build is needed."""
     assert _use_flash(4096, 16, torch.device("cuda"))
     assert not _use_flash(4096, 16, torch.device("cpu"))
@@ -126,9 +151,11 @@ def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, hea
 
     monkeypatch.setattr(kernels, "lib", Recorder)
     q = torch.zeros((1, 2, 8, head_dim), dtype=dtype)
-    assert attention._kernel_entry("cra5_flash_attn_fwd", q, q, q)(1, 0.5, "stream") == 0
+    assert attention._kernel_entry(kernel, q, q, q)(1, 0.5, "stream") == 0
     want = (1, 0.5, "stream") if code is None else (1, 0.5, code, "stream")
     assert calls == [(entry, want)]
+    if kernel != DQ and not entry.endswith(("_f32", FWD)):
+        assert attention.anydim_supports(dtype, head_dim) == entry.endswith("_anydim")
 
 
 @pytest.mark.parametrize("head_dim,dtype", [(257, torch.float32), (0, torch.bfloat16),
