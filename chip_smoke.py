@@ -13,7 +13,9 @@ result line is printed then:
   3. kernels: each kernel against its plain PyTorch version at the 268v
      main paths' shapes (K1-K3 exact, the lane decode K2 on the z stream
      and on the y geometry written unsorted on 1024 lanes, with the time a
-     step beside each decode; then streams wider than one block, 32768
+     step beside each, K1's, K2's on z and K3's device time too, and K1's
+     chain floor: its serial chain alone, profiling/encode_chain_probe.py;
+     then streams wider than one block, 32768
      lanes sorted (K3 on a cluster) and 2**20 - 1 unsorted (K2 on a
      cooperative grid), each timed once; K4-K6
      within stated bf16 tolerances, two calls of the bf16 K4, K5 and K6
@@ -33,8 +35,8 @@ result line is printed then:
   4b. hyper_width path: one global ViT block at the 268v hyperprior's
      width (360, 5 heads of 72) on N = 2048 tokens, forward and backward
      through autograd in bf16 and then in float32, the launch counters
-     zeroed just before and read just after each (the any-head-dim K4 and
-     K6 on the tensor cores and the SIMT K5, once each), its gradients
+     zeroed just before and read just after each (the any-head-dim K4, K5
+     and K6 on the tensor cores, once each), its gradients
      against the same block on the plain attention path within
      FLASH_GRAD_RTOL and FLASH_F32_RTOL x max |ref|;
   5. codec path: the 268-variable VAEformer in bf16 at full width with
@@ -67,10 +69,11 @@ The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
 the float32 plain versions, within FLASH_F32_RTOL x max |ref|, two calls of
 each bitwise equal, with SDPA in float32 as the yardstick; the
-any-head-dim K4 and K6 on the tensor cores and the SIMT K5 (every head dim
-but 64) at head dim 72 in float32, bf16 and float16 at (1, 5, 2048, 72) and
-(1, 5, 10368, 72) against their plain versions, two calls bitwise equal,
-timed beside the SIMT K4 and K6, SDPA and their tensor-core bound; and K7
+any-head-dim K4, K5 and K6 on the tensor cores (every head dim but 64) at
+head dim 72 in float32, bf16 and float16 at (1, 5, 2048, 72) and (1, 5,
+10368, 72) against their plain versions, two calls bitwise equal, timed
+beside the SIMT K4, K5 and K6 (held to their plain versions too), SDPA and
+their tensor-core bound; and K7
 (perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
 versions exactly, with the device time of each and of torch.roll; the
 reference phase adds the 268v global block in float32. The line before
@@ -80,6 +83,14 @@ path, K5's and K6's those of the float32 train path; the bf16 rows those
 of the bf16 paths; the head-dim-72 rows those of the hyper_width path in
 their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
+
+    python3 chip_smoke.py --coder
+
+runs phases 1 and 2 and the coder kernels of phase 3 only (K1 on z and y,
+K2 on z, K3 on y: exact, event ms and device us, no chain floor), and
+prints no result line. It imports the cra5_tpu_torch that Python finds,
+so with PYTHONSAFEPATH=1 PYTHONPATH=<checkout> it times another checkout's
+coder kernels with this script's timers, for a comparison in one run.
 """
 
 from __future__ import annotations
@@ -232,16 +243,18 @@ def phase_build() -> None:
                 log(f"[build] {src}: {line.strip()}")
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def coder_rows(dev, rng, floor: bool = True) -> tuple:
+    """K1 on the 268v z and y streams, K2 decoding z and K3 decoding the
+    sorted y stream, each exactly against its plain version, timed by CUDA
+    events over back-to-back calls and by device time (``device_us``); with
+    ``floor``, K1's chain floor beside it (profiling/encode_chain_probe.py).
+    Returns the kernels line's rows, the GC table and the y stream."""
     from cra5_tpu_torch.coder import rans_kernels as rk
     from cra5_tpu_torch.coder.lane_coder import (
         LaneCoder, _sort_by_index, merge_tiny_buckets, parse_v2_header, sorted_rows,
     )
     from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update, gc_update, get_scale_table
-    from cra5_tpu_torch.ops.attention import flash_attention_forward, flash_attention_plain
 
-    rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     eb = EntropyBottleneck(256, device=dev)
     eb.reset_parameters(gen)
@@ -259,7 +272,8 @@ def phase_kernels(dev) -> dict:
     y_coder = LaneCoder(gc_table, device=dev)
     t = lambda a: torch.as_tensor(a, device=dev)
 
-    # K1 on both streams
+    # K1 on both streams; its floor is M times one step's dependent
+    # latency, timed as the chain alone in registers
     for name, coder, sym, idx in (("z", z_coder, z_sym, z_idx), ("y", y_coder, y_sym, y_idx)):
         n, K, _, starts, freqs, _, _, _ = coder.encode_grids(t(sym), t(idx))
         got = rk.rans_encode(starts, freqs)
@@ -271,10 +285,20 @@ def phase_kernels(dev) -> dict:
             raise RuntimeError(f"K1 rans_encode differs from its plain version on {name}")
         M = starts.shape[0]
         ms = timed_ms(lambda: rk.rans_encode(starts, freqs), 20)
+        us = device_us(lambda: rk.rans_encode(starts, freqs))
         plain = timed_ms(lambda: rk.rans_encode_plain(starts, freqs), 2)
         bound = bytes_bound_ms(M * K * 11 + K * 4)
-        log(f"[K1 rans_encode {name}] (M, K) = ({M}, {K}) exact; kernel {ms:.4f} ms, "
-            f"plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
+        log(f"[K1 rans_encode {name}] (M, K) = ({M}, {K}) exact; kernel {ms:.4f} ms, device "
+            f"{us:.2f} us ({us / M * 1e3:.1f} ns a step), plain {plain:.2f} ms, "
+            f"bound {bound:.4f} ms (bytes)")
+        if floor:
+            from cra5_tpu_torch.profiling import encode_chain_probe
+
+            states = torch.empty(K, dtype=torch.int32, device=dev)
+            chain = device_us(lambda: encode_chain_probe.chain(M, K, states))
+            log(f"[K1 chain floor {name}] (M, K) = ({M}, {K}): {chain:.2f} us device "
+                f"({chain / M * 1e3:.1f} ns a step: K1's chain alone, "
+                f"profiling/encode_chain_probe.py)")
         if name == "y":
             rows["rans_encode"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                        bound_by="bytes", library_ms=None)
@@ -294,14 +318,15 @@ def phase_kernels(dev) -> dict:
         raise RuntimeError("K2 rans_decode_generic differs from lane_decode_plain on z")
     if not np.array_equal(z_coder.decode(data, z_idx), z_sym):
         raise RuntimeError("z stream does not roundtrip")
-    ms = timed_ms(lambda: rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs,
-                                                 z_coder._slots), 20)
+    run = lambda: rk.rans_decode_generic(z_coder._cdf, idx2, states, words, *tabs, z_coder._slots)
+    ms, us = timed_ms(run, 20), device_us(run)
     plain = timed_ms(lambda: rk.lane_decode_plain(z_coder._cdf, idx2, states, words, *tabs), 2)
     ncd, L = z_coder._cdf.shape
     bound = bytes_bound_ms(M * K * 4 + K * 4 + n_words * 2 + ncd * (L + 2) * 4 + M * K * 5)
     log(f"[K2 rans_decode_generic z] (M, K, L) = ({M}, {K}, {L}), {n_words} words, "
         f"{n_esc} escapes; exact; kernel {ms:.4f} ms ({ms / M * 1e3:.3f} us a step; "
-        f"{rk.decode_geometry(K)}), plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
+        f"{rk.decode_geometry(K)}), device {us:.2f} us, plain {plain:.2f} ms, "
+        f"bound {bound:.4f} ms (bytes)")
     rows["rans_decode_generic"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                        bound_by="bytes", library_ms=None)
 
@@ -324,15 +349,29 @@ def phase_kernels(dev) -> dict:
         raise RuntimeError("K3 rans_decode_sorted differs from its plain version")
     if not np.array_equal(y_coder.decode(data, y_idx), y_sym):
         raise RuntimeError("y stream does not roundtrip")
-    ms = timed_ms(lambda: rk.rans_decode_sorted(*args, y_coder._slots), 20)
+    run = lambda: rk.rans_decode_sorted(*args, y_coder._slots)
+    ms, us = timed_ms(run, 20), device_us(run)
     plain = timed_ms(lambda: rk.rans_decode_sorted_plain(*args), 2)
     ncd, L = y_coder._cdf.shape
     bound = bytes_bound_ms(M * 12 + K * 4 + n_words * 2 + ncd * (L + 2) * 4 + M * K * 5)
     log(f"[K3 rans_decode_sorted y] (M, K, L) = ({M}, {K}, {L}), {n_words} words, "
         f"{n_esc} escapes; exact; kernel {ms:.4f} ms ({ms / M * 1e3:.3f} us a step; "
-        f"{rk.decode_geometry(K)}), plain {plain:.2f} ms, bound {bound:.4f} ms (bytes)")
+        f"{rk.decode_geometry(K)}), device {us:.2f} us, plain {plain:.2f} ms, "
+        f"bound {bound:.4f} ms (bytes)")
     rows["rans_decode_sorted"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                       bound_by="bytes", library_ms=None)
+    return rows, gc_table, y_sym, y_idx
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    from cra5_tpu_torch.coder import rans_kernels as rk
+    from cra5_tpu_torch.coder.lane_coder import LaneCoder, parse_v2_header
+    from cra5_tpu_torch.ops.attention import flash_attention_forward, flash_attention_plain
+
+    rng = np.random.default_rng(SEED)
+    rows, gc_table, y_sym, y_idx = coder_rows(dev, rng)
+    t = lambda a: torch.as_tensor(a, device=dev)
 
     # K2 on the y geometry written unsorted on 1024 lanes, with random GC
     # indexes (a stream the JAX package decodes with decode_scan_pallas)
@@ -624,10 +663,11 @@ def flash_f32_rows(rng, dev) -> dict:
 
 @contextlib.contextmanager
 def simt_route():
-    """K4 and K6 on the SIMT kernels (csrc/flash_attn_any.cu) at every head
-    dim but 64, so that they are timed beside the any-head-dim tensor-core
-    kernels in one run. Only this script does it; the port's route takes
-    the tensor-core kernels wherever ops/attention.py::anydim_supports."""
+    """K4, K5 and K6 on the SIMT kernels (csrc/flash_attn_any.cu) at every
+    head dim but 64, so that they are held to their plain versions and timed
+    beside the any-head-dim tensor-core kernels in one run. Only this script
+    does it; the port's route takes the tensor-core kernels wherever
+    ops/attention.py::anydim_supports."""
     from cra5_tpu_torch.ops import attention
 
     saved = attention.anydim_supports
@@ -639,20 +679,19 @@ def simt_route():
 
 
 def flash_anydim_rows(rng, dev) -> dict:
-    """The any-head-dim tensor-core K4 and K6 (csrc/flash_attn_anydim.cu,
-    csrc/flash_attn_anydim_f32.cu) and the SIMT K5 that the route gives
-    every head dim but 64, at the 268v hyperprior's head dim 72 in float32,
-    bf16 and float16, at (1, 5, 2048, 72) (where the hyperprior's width
-    takes the flash route) and (1, 5, 10368, 72) (three waves and more):
-    each against its plain version within the bound of the kernels of the
-    same width, two calls bitwise equal, the SIMT K4 and K6 held the same
-    way; the time of each beside the SIMT K4's and K6's, the plain
+    """The any-head-dim tensor-core K4, K5 and K6 (csrc/flash_attn_anydim.cu,
+    csrc/flash_attn_anydim_f32.cu) at the 268v hyperprior's head dim 72 in
+    float32, bf16 and float16, at (1, 5, 2048, 72) (where the hyperprior's
+    width takes the flash route) and (1, 5, 10368, 72) (three waves and
+    more): each against its plain version within the bound of the kernels
+    of the same width, two calls bitwise equal, the SIMT K4, K5 and K6 held
+    the same way; the time of each beside the SIMT kernel's, the plain
     versions' (at N = 2048), SDPA's forward and backward (forward + backward
-    less forward; the library yardstick) and the tensor-core bound at D
-    itself (bf16/f16 at 989 TFLOP/s, float32 as three TF32 products at 495)
-    with the exp floor beside it; at N = 2048 also the device time a call of
-    each kernel and of SDPA (torch.profiler). Returns the float32 and bf16
-    rows of the kernels line at N = 2048."""
+    less forward; the library yardstick, K5's as K6's) and the tensor-core
+    bound at D itself (bf16/f16 at 989 TFLOP/s, float32 as three TF32
+    products at 495) with the exp floor beside it; at N = 2048 also the
+    device time a call of each kernel and of SDPA (torch.profiler). Returns
+    the float32 and bf16 rows of the kernels line at N = 2048."""
     from cra5_tpu_torch.ops.attention import (
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
@@ -679,26 +718,27 @@ def flash_anydim_rows(rng, dev) -> dict:
             ops = (q, k, v, do, lse, delta, scale)
             dkv = lambda: flash_attention_backward_dkv(*ops)
             dq = lambda: flash_attention_backward_dq(*ops)
-            got = {"out": out, "dq SIMT": dq()}
+            got = {"out": out, "dq": dq()}
             got["dk"], got["dv"] = dkv()
-            again = {"out": fwd()[0], "dq SIMT": dq()}
+            again = {"out": fwd()[0], "dq": dq()}
             again["dk"], again["dv"] = dkv()
             same = all(torch.equal(got[n], again[n]) for n in got)
             with simt_route():
                 s_out, s_lse = fwd()
-                got["out SIMT"] = s_out
+                got["out SIMT"], got["dq SIMT"] = s_out, dq()
                 got["dk SIMT"], got["dv SIMT"] = dkv()
             ref_out, ref_lse = flash_attention_plain(q, k, v, scale)
-            refs = {"out": ref_out, "dq SIMT": flash_attention_backward_dq_plain(*ops)}
+            refs = {"out": ref_out, "dq": flash_attention_backward_dq_plain(*ops)}
             refs["dk"], refs["dv"] = flash_attention_backward_dkv_plain(*ops)
-            refs.update({"out SIMT": ref_out, "dk SIMT": refs["dk"], "dv SIMT": refs["dv"]})
+            refs.update({"out SIMT": ref_out, "dq SIMT": refs["dq"], "dk SIMT": refs["dk"],
+                         "dv SIMT": refs["dv"]})
             torch.cuda.synchronize()
             errs = {n: ((a.float() - refs[n].float()).abs().max().item(),
                         rtol * refs[n].float().abs().max().item()) for n, a in got.items()}
             lerr = max((lse - ref_lse).abs().max().item(), (s_lse - ref_lse).abs().max().item())
             finite = all(bool(torch.isfinite(a).all()) for a in got.values())
             if not finite or not same or lerr > lse_atol or any(e > b for e, b in errs.values()):
-                raise RuntimeError(f"any-head-dim K4/K6 {dtype} at {(B, H, N, D)}: (err, bound) "
+                raise RuntimeError(f"any-head-dim K4-K6 {dtype} at {(B, H, N, D)}: (err, bound) "
                                    f"{errs}, lse err {lerr}, finite {finite}, two calls bitwise "
                                    f"equal {same}")
             del got, again, refs, ref_out, ref_lse, s_out, s_lse
@@ -707,7 +747,7 @@ def flash_anydim_rows(rng, dev) -> dict:
             it = 20 if N == 2048 else 10
             ms = {"fwd": timed_ms(fwd, it), "dkv": timed_ms(dkv, it), "dq": timed_ms(dq, it)}
             with simt_route():
-                simt = {"fwd": timed_ms(fwd, 3), "dkv": timed_ms(dkv, 3)}
+                simt = {"fwd": timed_ms(fwd, 3), "dkv": timed_ms(dkv, 3), "dq": timed_ms(dq, 3)}
             plain = ({"fwd": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
                       "dkv": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1),
                       "dq": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1)}
@@ -718,11 +758,11 @@ def flash_anydim_rows(rng, dev) -> dict:
                                                            (qg, kg, vg), do), it) - lib_fwd
             if N == 2048:  # event times at this size come near the host's issue rate
                 dev_us = {n: device_us(f) for n, f in (
-                    ("K4", fwd), ("K6", dkv), ("K5 SIMT", dq),
+                    ("K4", fwd), ("K6", dkv), ("K5", dq),
                     ("sdpa forward", lambda: sdpa(qg, kg, vg, scale=scale)),
                     ("sdpa forward + backward", lambda: torch.autograd.grad(
                         sdpa(qg, kg, vg, scale=scale), (qg, kg, vg), do)))}
-                log(f"[K4/K6 anydim device {str(dtype)[6:]}] ({B}, {H}, {N}, {D}): " + ", ".join(
+                log(f"[K4-K6 anydim device {str(dtype)[6:]}] ({B}, {H}, {N}, {D}): " + ", ".join(
                     f"{n} {u:.2f} us" for n, u in dev_us.items()) + " (device time a call)")
             del qg, kg, vg
             flops = {"fwd": 4 * B * H * N * N * D, "dkv": 8 * B * H * N * N * D,
@@ -735,11 +775,11 @@ def flash_anydim_rows(rng, dev) -> dict:
             floor = exp_floor_ms(B * H * N * N)
             lib = {"fwd": lib_fwd, "dkv": lib_bwd, "dq": lib_bwd}
             name = str(dtype)[6:]
-            log(f"[K4/K6 anydim {name}] (B, H, N, D) = ({B}, {H}, {N}, {D}): (err, bound {rtol} "
+            log(f"[K4-K6 anydim {name}] (B, H, N, D) = ({B}, {H}, {N}, {D}): (err, bound {rtol} "
                 f"x max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
                 + f", lse err {lerr:.3g} (atol {lse_atol}), two calls of each bitwise equal")
-            for n, label in (("fwd", "K4 anydim"), ("dkv", "K6 anydim"), ("dq", "K5 SIMT")):
-                simt_txt = f", SIMT {simt[n]:.4f} ms" if n in simt else ""
+            for n, label in (("fwd", "K4 anydim"), ("dkv", "K6 anydim"), ("dq", "K5 anydim")):
+                simt_txt = f", SIMT {simt[n]:.4f} ms"
                 plain_txt = f", plain {plain[n]:.4f} ms" if plain else ""
                 log(f"[{label} {name}] ({B}, {H}, {N}, {D}): kernel {ms[n]:.4f} ms "
                     f"({flops[n] / ms[n] / 1e9:.2f} TFLOP/s, {bounds[n] / ms[n]:.1%} of the bound)"
@@ -749,9 +789,10 @@ def flash_anydim_rows(rng, dev) -> dict:
                     f"{'forward' if n == 'fwd' else 'backward'} {lib[n]:.4f} ms")
             if N == 2048 and tag is not None:
                 err = {"fwd": errs["out"][0], "dkv": max(errs["dk"][0], errs["dv"][0]),
-                       "dq": errs["dq SIMT"][0]}
+                       "dq": errs["dq"][0]}
                 for n, key in (("fwd", "flash_attn_fwd_anydim"),
-                               ("dkv", "flash_attn_bwd_dkv_anydim"), ("dq", "flash_attn_bwd_dq_any")):
+                               ("dkv", "flash_attn_bwd_dkv_anydim"),
+                               ("dq", "flash_attn_bwd_dq_anydim")):
                     rows[key + tag] = dict(max_abs_err=err[n], ms=ms[n], plain_ms=plain[n],
                                            bound_ms=bounds[n], bound_by="operations",
                                            library_ms=lib[n])
@@ -985,9 +1026,10 @@ def phase_hyper_width(dev) -> dict:
     """The hyper_width path: one global ViT block at the 268v hyperprior's
     width (360, 5 heads of 72) on N = 2048 tokens (a 32 x 64 grid, where
     attention takes the flash route), batch 1, forward and backward in bf16
-    and then in float32, each against the plain path (block_grads). Its K4
-    and K6 are the any-head-dim tensor-core kernels, its K5 the SIMT dQ.
-    Returns each dtype's launches."""
+    and then in float32, each against the plain path (block_grads). Its K4,
+    K5 and K6 are the any-head-dim tensor-core kernels
+    (csrc/flash_attn_anydim.cu, csrc/flash_attn_anydim_f32.cu). Returns each
+    dtype's launches."""
     from cra5_tpu_torch.models.vaeformer import vaeformer_268
 
     cfg = vaeformer_268()
@@ -1323,7 +1365,9 @@ def phase_api(dev) -> dict:
     return launches
 
 
-def main() -> int:
+def main(args) -> int:
+    if args not in ([], ["--coder"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--coder]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1331,6 +1375,12 @@ def main() -> int:
 
     resolve_device(dev)  # TF32 off
     phase_build()
+    if args:
+        import cra5_tpu_torch
+
+        log(f"[coder] cra5_tpu_torch from {cra5_tpu_torch.__path__[0]}")
+        coder_rows(dev, np.random.default_rng(SEED), floor=False)
+        return 0
     rows = phase_kernels(dev)
     ref_launches = phase_reference(dev)
     hyper_launches = phase_hyper_width(dev)
@@ -1383,12 +1433,12 @@ def main() -> int:
         "flash_attn_fwd_anydim_f32": ("flash_attention_forward",
                                       "cra5_tpu_torch/csrc/flash_attn_anydim_f32.cu",
                                       "cra5_tpu/ops/attention.py:102"),
-        "flash_attn_bwd_dq_any": ("flash_attention_backward_dq",
-                                  "cra5_tpu_torch/csrc/flash_attn_any.cu",
-                                  "cra5_tpu/ops/attention.py:140"),
-        "flash_attn_bwd_dq_any_f32": ("flash_attention_backward_dq",
-                                      "cra5_tpu_torch/csrc/flash_attn_any.cu",
-                                      "cra5_tpu/ops/attention.py:140"),
+        "flash_attn_bwd_dq_anydim": ("flash_attention_backward_dq",
+                                     "cra5_tpu_torch/csrc/flash_attn_anydim.cu",
+                                     "cra5_tpu/ops/attention.py:140"),
+        "flash_attn_bwd_dq_anydim_f32": ("flash_attention_backward_dq",
+                                         "cra5_tpu_torch/csrc/flash_attn_anydim_f32.cu",
+                                         "cra5_tpu/ops/attention.py:140"),
         "flash_attn_bwd_dkv_anydim": ("flash_attention_backward_dkv",
                                       "cra5_tpu_torch/csrc/flash_attn_anydim.cu",
                                       "cra5_tpu/ops/attention.py:189"),
@@ -1409,7 +1459,8 @@ def main() -> int:
             "flash_attn_fwd_f32": ("api", "train_f32"), "flash_attn_bwd_dq_f32": ("train_f32",),
             "flash_attn_bwd_dkv_f32": ("train_f32",)}
     only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in
-                 ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_any", "flash_attn_bwd_dkv_anydim")})
+                 ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_anydim",
+                  "flash_attn_bwd_dkv_anydim")})
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():
         launches = sum(paths[p][counter] for p in only.get(name, paths))
@@ -1423,4 +1474,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

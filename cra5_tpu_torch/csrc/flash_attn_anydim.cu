@@ -1,18 +1,19 @@
-// K4 and K6 at every head dim on the tensor cores: the flash-attention
-// forward (cra5_flash_attn_fwd_anydim) and dK/dV
-// (cra5_flash_attn_bwd_dkv_anydim) for bf16 and float16 at every head dim D
-// <= 128 with D % 8 == 0 (rows of a multiple of 16 bytes, as TMA needs), and
-// for float32 (3xTF32, flash_attn_anydim_f32.cu) at every D <= 96 with D % 4
-// == 0. The entries take the SIMT entries' dtype code (0 bf16, 1 float16, 2
-// float32).
+// K4, K5 and K6 at every head dim on the tensor cores: the flash-attention
+// forward (cra5_flash_attn_fwd_anydim), dQ (cra5_flash_attn_bwd_dq_anydim)
+// and dK/dV (cra5_flash_attn_bwd_dkv_anydim) for bf16 and float16 at every
+// head dim D <= 128 with D % 8 == 0 (rows of a multiple of 16 bytes, as TMA
+// needs), and for float32 (3xTF32, flash_attn_anydim_f32.cu) at every D <= 96
+// with D % 4 == 0. The entries take the SIMT entries' dtype code (0 bf16, 1
+// float16, 2 float32).
 //
-// Replace _fwd_kernel (driven by _flash_forward) and _bwd_dkv_kernel of
-// cra5_tpu/ops/attention.py at those head dims and dtypes, which the
-// head-dim-64 kernels (flash_attn_fwd.cu, flash_attn_bwd.cu,
-// flash_attn_bwd_f32.cu) do not take and the SIMT tile of flash_attn_any.cu
-// computed on the FMA units. Bound: tensor-core operations, 4 N^2 D per head
-// for K4 and 8 N^2 D for K6 (bf16/f16 at 989 TFLOP/s, 3xTF32 three times as
-// many at 495), against 4 N D (K4) and 6 N D (K6) elements of traffic.
+// Replace _fwd_kernel (driven by _flash_forward), _bwd_dq_kernel and
+// _bwd_dkv_kernel of cra5_tpu/ops/attention.py at those head dims and
+// dtypes, which the head-dim-64 kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, flash_attn_bwd_f32.cu) do not take and the SIMT tile of
+// flash_attn_any.cu computed on the FMA units. Bound: tensor-core
+// operations, 4 N^2 D per head for K4, 6 N^2 D for K5 and 8 N^2 D for K6
+// (bf16/f16 at 989 TFLOP/s, 3xTF32 three times as many at 495), against 4 N
+// D (K4), 5 N D (K5) and 6 N D (K6) elements of traffic.
 //
 // The design is the head-dim-64 kernels' (hopper.cuh: one producer
 // warpgroup issuing TMA through an mbarrier ring, two consumer warpgroups of
@@ -24,24 +25,25 @@
 //     past D arrive as zeros through the maps' out-of-bounds fill, so the
 //     padding costs no instruction and adds nothing to any sum; a tail of 48
 //     or 56 columns has no swizzle of its own and takes a full box;
-//   - the products that sum over the head dim (S = q K^T, and dP^T = V dO^T in
-//     K6) run in k-steps of 16, four a box and one a 16 tail columns, each
-//     step's descriptor that of its box or of the tail, all known at compile
-//     time (a first version issued ceil(D / 16) steps behind a branch, and
-//     ptxas fenced each product, C7519);
-//   - the products whose N is the head dim (O += P V in K4; dV += P^T dO and
-//     dK += dS^T Q in K6) read their B operand MN-major, as the head-dim-64
-//     kernels do. An MN-major operand comes in atoms as wide as its swizzle
-//     (64 columns at 128 bytes), so each product runs as one m64n64k16 a box
-//     and one m64n16k16 or m64n32k16 on the tail's 32- or 64-byte atom: N is
-//     D rounded up to 16. At D = 72 the products spend the operations of 80
-//     columns where padding N to 64 a box, the first version, spent 128; in
-//     one run on an H100 (a one-off build of both, bf16 and float16) the
-//     tail was the faster in K6 at (1, 5, 2048, 72) and (1, 5, 10368, 72)
-//     and in K4 at the second; at the first the two K4s were within the
-//     run's spread (PERF.md, §6). The third choice, transposed
-//     planes written by the producer as the float32 kernels must, moves the
-//     transposition onto the threads and was not built;
+//   - the products that sum over the head dim (S = q K^T, dP = dO V^T in K5,
+//     dP^T = V dO^T in K6) run in k-steps of 16, four a box and one a 16
+//     tail columns, each step's descriptor that of its box or of the tail,
+//     all known at compile time (a first version issued ceil(D / 16) steps
+//     behind a branch, and ptxas fenced each product, C7519);
+//   - the products whose N is the head dim (O += P V in K4; dQ += dS K in
+//     K5; dV += P^T dO and dK += dS^T Q in K6) read their B operand
+//     MN-major, as the head-dim-64 kernels do. An MN-major operand comes in
+//     atoms as wide as its swizzle (64 columns at 128 bytes), so each product
+//     runs as one m64n64k16 a box and one m64n16k16 or m64n32k16 on the
+//     tail's 32- or 64-byte atom: N is D rounded up to 16. At D = 72 the
+//     products spend the operations of 80 columns where padding N to 64 a
+//     box, the first version, spent 128; in one run on an H100 (a one-off
+//     build of both, bf16 and float16) the tail was the faster in K6 at (1,
+//     5, 2048, 72) and (1, 5, 10368, 72) and in K4 at the second; at the
+//     first the two K4s were within the run's spread (PERF.md, §6). The third
+//     choice, transposed planes written by the producer as the float32
+//     kernels must, moves the transposition onto the threads and was not
+//     built;
 //   - ptxas compiles the consumers within the 168 registers a thread of the
 //     launch, whatever setmaxnreg grants, so the tiles follow the registers.
 //     K4: a block owns 128 queries and walks stages of 128 keys through a
@@ -55,14 +57,23 @@
 //     consumers share, consumer 0 taking the first box of their dK and dV
 //     and consumer 1 the rest, and both compute the same logits. Past D =
 //     128 a consumer would hold two boxes, so every head dim past 128 stays
-//     on the SIMT tile.
+//     on the SIMT tile. K5 is the head-dim-64 K5 (flash_attn_bwd.cu,
+//     dq_hopper) with these columns: a block owns 128 queries (Q and dO
+//     resident), 64 a consumer, and walks a ring of four key stages; a
+//     consumer holds S and dP (BK / 2 floats each), dS (BK / 4 registers)
+//     and dQ (D rounded to 16, halved). Up to 80 columns the stages take 64
+//     keys (120 live values at D = 72); past that the key stage is halved to
+//     32 keys rather than dQ's boxes split between the consumers as K6 does,
+//     which would compute every logit twice (104 live values at D = 128).
 // Numerics are the head-dim-64 kernels' and the plain versions': K4 scales q
 // in float32 and rounds it to the dtype once, keeps logits and statistics in
 // float32 (log2 units, one ex2 a logit), rounds P to the dtype for P V and
-// clamps the row sum at 1e-30; K6 scales the float32 logits of raw q, rounds P
-// to the dtype for dV and dS for dK, sums in float32 and rounds dk (times the
-// scale) and dv once. Keys (K4) and queries (K6) past N are masked, rows past
-// N are not written. No atomics: two calls give equal bits.
+// clamps the row sum at 1e-30; K5 uses the same rounded q, P = exp(S - lse),
+// dS = P (dP - delta) rounded to the dtype for dS K, and rounds dq times the
+// scale once; K6 scales the float32 logits of raw q, rounds P to the dtype
+// for dV and dS for dK, sums in float32 and rounds dk (times the scale) and
+// dv once. Keys (K4, K5) and queries (K6) past N are masked, rows past N are
+// not written. No atomics: two calls give equal bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -78,6 +89,8 @@ int fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, i
 int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dk, void* dv, int BH, int N, int D, float scale,
             cudaStream_t stream);
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int BH, int N, int D, float scale, cudaStream_t stream);
 }  // namespace cra5::anydim
 
 namespace {
@@ -719,6 +732,251 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace dkv
 
+// ------------------------------------------------------------------ K5
+namespace dq {
+
+constexpr int BQ = 128;  // queries a block, 64 per consumer warpgroup
+constexpr int kStages = 4;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+// Keys a ring stage: 64, as the head-dim-64 K5 walks, while S and dP (32
+// floats a thread each), dS (16 registers) and dQ (one float a thread per
+// two columns) fit the consumers' registers (up to 80 columns: 120 live
+// values at D = 72), else 32 (at D = 128: 16 + 16 + 8 + 64).
+template <class C>
+constexpr int kBK = 64 * C::FB + C::TW <= 80 ? 64 : 32;
+
+// Every tile a multiple of 1024 bytes, so each starts 1024-aligned.
+template <typename T, class C>
+struct alignas(1024) Smem {
+  T q[C::NFB][BQ * 64];
+  T dout[C::NFB][BQ * 64];
+  T k[kStages][C::NFB][kBK<C> * 64];
+  T v[kStages][C::NFB][kBK<C> * 64];
+  T q_tail[BQ * C::NTW];
+  T dout_tail[BQ * C::NTW];
+  T k_tail[kStages][kBK<C> * C::NTW];
+  T v_tail[kStages][kBK<C> * C::NTW];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+// D (64 x BK) += A (64 x 16) * B (16 x BK), both in shared memory, K-major.
+template <typename T, int BK>
+__device__ __forceinline__ void mma_keys(float (&d)[BK / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BK == 64) {
+    hw::wgmma_m64n64k16_ss_t<T>(d, a, b, scale_d);
+  } else {
+    hw::wgmma_m64n32k16_ss_t<T>(d, a, b, scale_d);
+  }
+}
+
+// One consumer warpgroup: query rows [r0, r0 + 64) of head bh, rows 64c of
+// the block's Q and dO tiles.
+template <typename T, class C>
+__device__ __forceinline__ void consumer(Smem<T, C>& s, const float* __restrict__ lse,
+                                         const float* __restrict__ delta, T* __restrict__ dq,
+                                         int N, int D, int bh, int r0, int nkb, float scale,
+                                         int c) {
+  constexpr int BK = kBK<C>;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+
+  float l2[2], dl[2];  // rows g and g + 8 of this warp; read before the wait
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    l2[h] = row < N ? lse[(size_t)bh * N + row] * kLog2e : 0.f;
+    dl[h] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+  }
+
+  hw::mbar_wait(&s.q_full, 0);
+#pragma unroll
+  for (int b = 0; b < C::FB; ++b) scale_in_place(s.q[b] + c * 64 * 64, 64 * 64 / 8, scale, t);
+  if constexpr (C::TW != 0) scale_in_place(s.q_tail + c * 64 * C::TW, 64 * C::TW / 8, scale, t);
+  hw::fence_proxy_async();
+  hw::named_sync(1 + c, 128);
+
+  const uint64_t q_box = hw::sw128_desc(s.q[0] + c * 64 * 64, 16, 1024);
+  const uint64_t q_tail = tail_desc<C>(s.q_tail + c * 64 * C::TW);
+  const uint64_t o_box = hw::sw128_desc(s.dout[0] + c * 64 * 64, 16, 1024);
+  const uint64_t o_tail = tail_desc<C>(s.dout_tail + c * 64 * C::TW);
+  float acc[C::NFB][32], at[C::NTW / 2];
+#pragma unroll
+  for (int b = 0; b < C::NFB; ++b) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < C::NTW / 2; ++i) at[i] = 0.f;
+
+  for (int j = 0; j < nkb; ++j) {
+    const int st = j % kStages;
+    hw::mbar_wait(&s.full[st], (j / kStages) & 1);
+
+    float sc[BK / 2], dp[BK / 2];  // 64 rows x BK keys each
+    const uint64_t k_box = hw::sw128_desc(s.k[st][0], 16, 1024);
+    const uint64_t k_tail = tail_desc<C>(s.k_tail[st]);
+    const uint64_t v_box = hw::sw128_desc(s.v[st][0], 16, 1024);
+    const uint64_t v_tail = tail_desc<C>(s.v_tail[st]);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk) {  // S = (q * scale) K^T
+      mma_keys<T, BK>(sc, kmajor<C>(q_box, q_tail, kk, BQ), kmajor<C>(k_box, k_tail, kk, BK), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::KS; ++kk) {  // dP = dO V^T
+      mma_keys<T, BK>(dp, kmajor<C>(o_box, o_tail, kk, BQ), kmajor<C>(v_box, v_tail, kk, BK), kk);
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+
+    // dS = P (dP - delta), P = exp2(S log2 e - lse log2 e), 0 for keys past
+    // N (zero-filled keys give a logit of 0), rounded to the dtype into the
+    // A operand of key step kk: accumulator chunks 2kk and 2kk + 1
+    const int k0 = j * BK;
+    const bool ragged = k0 + BK > N;
+    uint32_t dsa[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // registers 4n + 2h + jj: key 8n + 2tg + jj
+        float ds[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int i = 4 * n + 2 * h + jj;
+          float p = hw::ex2(fmaf(sc[i], kLog2e, -l2[h]));
+          if (ragged && k0 + 8 * n + 2 * tg + jj >= N) p = 0.f;
+          ds[jj] = p * (dp[i] - dl[h]);
+        }
+        dsa[n >> 1][2 * (n & 1) + h] = Half<T>::pack(ds[0], ds[1]);
+      }
+    }
+
+    // dQ += dS K over every box and the tail, K MN-major
+#pragma unroll
+    for (int b = 0; b < C::FB; ++b) hw::fence_regs(acc[b]);
+    if constexpr (C::TW != 0) hw::fence_regs(at);
+    hw::fence_regs(dsa);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < C::FB; ++b) {
+      const uint64_t k_mn = hw::sw128_desc(s.k[st][b], BK * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hw::wgmma_m64n64k16_rs_t<T>(acc[b], dsa[kk], hw::desc_add(k_mn, 2048 * kk), 1);
+      }
+    }
+    if constexpr (C::TW != 0) {  // the tail's columns, one atom of its swizzle
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        mma_tail<T, C::TW>(at, dsa[kk], hw::desc_add(k_tail, 16 * C::TB * kk), 1);
+      }
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < C::FB; ++b) hw::fence_regs(acc[b]);
+    if constexpr (C::TW != 0) hw::fence_regs(at);
+    hw::fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&s.empty[st]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    if (row >= N) continue;
+    T* dst = dq + ((size_t)bh * N + row) * D + 2 * tg;
+#pragma unroll
+    for (int b = 0; b < C::FB; ++b) {
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        const int col = 64 * b + 8 * d;
+        if (col < D) {
+          store_pair(dst + col, acc[b][4 * d + 2 * h] * scale, acc[b][4 * d + 2 * h + 1] * scale);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < C::TW / 8; ++d) {
+      const int col = 64 * C::FB + 8 * d;
+      if (col < D) store_pair(dst + col, at[4 * d + 2 * h] * scale, at[4 * d + 2 * h + 1] * scale);
+    }
+  }
+}
+
+template <typename T, class C>
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+           const __grid_constant__ CUtensorMap tail_q, const __grid_constant__ CUtensorMap tail_k,
+           const __grid_constant__ CUtensorMap tail_v, const __grid_constant__ CUtensorMap tail_do,
+           const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
+           int N, int D, int nqb, float scale) {
+  constexpr int BK = kBK<C>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<T, C>& s = *reinterpret_cast<Smem<T, C>*>(hw::align_1024(smem_raw));
+  const int bh = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x % nqb) * BQ;
+  const int nkb = (N + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&s.q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hw::mbar_init(&s.full[st], 1);
+      hw::mbar_init(&s.empty[st], 8);  // one arrival per consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hw::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::mbar_arrive_expect_tx(&s.q_full, 2 * BQ * (C::FB * 128 + C::TB));
+      load_rows<C>(s.q[0], BQ * 64, s.q_tail, &map_q, &tail_q, &s.q_full, q0, bh);
+      load_rows<C>(s.dout[0], BQ * 64, s.dout_tail, &map_do, &tail_do, &s.q_full, q0, bh);
+      for (int j = 0; j < nkb; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hw::mbar_wait(&s.empty[st], (j / kStages - 1) & 1);
+        hw::mbar_arrive_expect_tx(&s.full[st], 2 * BK * (C::FB * 128 + C::TB));
+        load_rows<C>(s.k[st][0], BK * 64, s.k_tail[st], &map_k, &tail_k, &s.full[st], j * BK, bh);
+        load_rows<C>(s.v[st][0], BK * 64, s.v_tail[st], &map_v, &tail_v, &s.full[st], j * BK, bh);
+      }
+    }
+  } else {  // consumers
+    hw::regs_inc<kConsumerRegs>();
+    consumer(s, lse, delta, dq, N, D, bh, q0 + (wg - 1) * 64, nkb, scale, wg - 1);
+  }
+}
+
+template <typename T, class C>
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int BH, int N, int D, float scale, cudaStream_t stream) {
+  constexpr int kSmemBytes = sizeof(Smem<T, C>) + 1024;  // + the alignment slack
+  const int nqb = (N + BQ - 1) / BQ;
+  const long long blocks = (long long)BH * nqb;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[8];
+  if (!make_maps<C>(&maps[0], &maps[4], q, N, BH, BQ, D) ||
+      !make_maps<C>(&maps[1], &maps[5], k, N, BH, kBK<C>, D) ||
+      !make_maps<C>(&maps[2], &maps[6], v, N, BH, kBK<C>, D) ||
+      !make_maps<C>(&maps[3], &maps[7], dout, N, BH, BQ, D)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = hw::prepare(kernel<T, C>, kSmemBytes, kProducerRegs, kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  kernel<T, C><<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], (const float*)lse,
+      (const float*)delta, (T*)dq, N, D, nqb, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dq
+
 // The columns of a 16-bit head dim (D % 8 == 0, 8 <= D <= 128): Cols<FB, TW>
 // for launch<T, Cols<FB, TW>>.
 template <class F>
@@ -773,6 +1031,24 @@ extern "C" int cra5_flash_attn_bwd_dkv_anydim(const void* q, const void* k, cons
     return by_cols(D, [&](auto cols) {
       return dkv::launch<T, decltype(cols)>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale,
                                             s);
+    });
+  };
+  return dtype == 0 ? run(__nv_bfloat16{}) : run(__half{});
+}
+
+// q, k, v, dout, dq: (BH, N, D) contiguous of `dtype`; lse, delta: (BH, N)
+// float32.
+extern "C" int cra5_flash_attn_bwd_dq_anydim(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, void* dq, int BH, int N, int D,
+                                             float scale, int dtype, void* stream) {
+  if (N < 1 || BH < 1 || !covered(dtype, D)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 2) return cra5::anydim::dq_f32(q, k, v, dout, lse, delta, dq, BH, N, D, scale, s);
+  auto run = [&](auto t) {
+    using T = decltype(t);
+    return by_cols(D, [&](auto cols) {
+      return dq::launch<T, decltype(cols)>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, s);
     });
   };
   return dtype == 0 ? run(__nv_bfloat16{}) : run(__half{});

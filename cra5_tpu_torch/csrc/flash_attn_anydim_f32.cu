@@ -1,25 +1,27 @@
-// K4 and K6 at every head dim on float32 operands, on the tensor cores with
-// 3xTF32: the float32 halves of cra5_flash_attn_fwd_anydim and
-// cra5_flash_attn_bwd_dkv_anydim (flash_attn_anydim.cu, which dispatches
-// here), for every head dim D <= 96 with D % 4 == 0.
+// K4, K5 and K6 at every head dim on float32 operands, on the tensor cores
+// with 3xTF32: the float32 halves of cra5_flash_attn_fwd_anydim,
+// cra5_flash_attn_bwd_dq_anydim and cra5_flash_attn_bwd_dkv_anydim
+// (flash_attn_anydim.cu, which dispatches here), for every head dim D <= 96
+// with D % 4 == 0.
 //
-// Replace _fwd_kernel and _bwd_dkv_kernel of cra5_tpu/ops/attention.py on
-// float32 inputs at those head dims. Bound: TF32 tensor-core operations,
-// three products each of K4's 4 N^2 D and K6's 8 N^2 D per head at 495
-// TFLOP/s. The design and the numerics are the head-dim-64 float32 kernels'
-// (flash_attn_fwd.cu, namespace f32; flash_attn_bwd_f32.cu): every operand
-// split into hi = tf32(x) and lo = tf32(x - hi), each product hi lo + lo hi +
-// hi hi with the small terms first, each stage's P V, dV and dK products in a
-// fresh accumulator added to the running sums in float32, a producer
-// warpgroup that splits each raw tile TMA brings into the planes wgmma reads
-// (the tf32 forms read K-major only, so a product that sums over the walked
-// rows takes a transposed plane, its rows reordered within 8 for the tf32
-// register A fragment). What another head dim changes:
+// Replace _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel of
+// cra5_tpu/ops/attention.py on float32 inputs at those head dims. Bound:
+// TF32 tensor-core operations, three products each of K4's 4 N^2 D, K5's 6
+// N^2 D and K6's 8 N^2 D per head at 495 TFLOP/s. The design and the
+// numerics are the head-dim-64 float32 kernels' (flash_attn_fwd.cu,
+// namespace f32; flash_attn_bwd_f32.cu): every operand split into hi =
+// tf32(x) and lo = tf32(x - hi), each product hi lo + lo hi + hi hi with the
+// small terms first, each stage's P V, dQ, dV and dK products in a fresh
+// accumulator added to the running sums in float32, a producer warpgroup
+// that splits each raw tile TMA brings into the planes wgmma reads (the tf32
+// forms read K-major only, so a product that sums over the walked rows takes
+// a transposed plane, its rows reordered within 8 for the tf32 register A
+// fragment). What another head dim changes:
 //   - a float32 row is NB = ceil(D / 32) boxes of 32 floats, one 128-byte
 //     swizzle atom each, loaded by TMA from maps of D columns; columns past D
 //     arrive as zeros (out-of-bounds fill), so they add nothing to any sum;
-//   - S (and dP^T) sum over the head dim in k-steps of 8, NP / 8 of them (NP
-//     below; a count known at compile time keeps branches out of the
+//   - S (and dP, dP^T) sum over the head dim in k-steps of 8, NP / 8 of them
+//     (NP below; a count known at compile time keeps branches out of the
 //     products, where ptxas would fence each one): 72 pads to 80. The
 //     products whose N is the head dim read a transposed plane whose rows
 //     are head dims, so N is any multiple of 8 and needs no swizzle atom of
@@ -34,7 +36,20 @@
 //     share one 128-byte row, Q^T in columns 0-15 and dO^T in 16-31 (two raw
 //     stages and two split stages: 216 KB). The two consumers take the
 //     stages in turn and add their sums at the end, consumer 0's first.
-// Keys (K4) and queries (K6) past N are masked; rows past N are not written.
+//     K5 keeps the head-dim-64 K5's 64-query blocks (q and dO resident as
+//     hi/lo planes) and its 32-key stages (K and V as stored and K^T, hi and
+//     lo), which at three full boxes would need 264 KB. Three shapes were
+//     weighed: 16-key stages everywhere (216 KB; the logits products m64n16k8,
+//     the shape that holds the float32 K6 at 13-20% of its bound), 24-key
+//     stages (K^T rows of 24 floats fill no swizzle atom), and keeping the
+//     columns past 64 at 72 and 80 in a 16-float tail box with the 64-byte
+//     swizzle (as the 16-bit kernels keep theirs), which brings 80 columns to
+//     220 KB with one raw stage. The last is built: D = 72, the 268v
+//     hyperprior's head dim, runs m64n32k8 logits; past 80 (three full
+//     boxes) the stages take 16 keys, and up to 64 the head-dim-64 layout
+//     fits as it is. The tail's transposed split reads the 64-byte swizzle
+//     (split_tail_transposed).
+// Keys (K4, K5) and queries (K6) past N are masked; rows past N are not written.
 // No atomics: two calls give equal bits.
 
 #include <cuda_runtime.h>
@@ -127,6 +142,25 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out, const float*
       }
     }
   }
+}
+
+// Consumer 1 of a block whose two consumers take the split stages in turn
+// (K5, K6) hands its running sums to consumer 0 through its own split stage
+// st[1], which no later stage rewrites; consumer 0 adds them to its own
+// (consumer 0's + consumer 1's, always) and returns true.
+template <class Smem, int R>
+__device__ __forceinline__ bool join(Smem& s, float (&acc)[R], int c, int t) {
+  static_assert(R * 128 * 4 <= sizeof(s.st[1]), "the sums fit a split stage");
+  float* xfer = reinterpret_cast<float*>(&s.st[1]);
+  if (c == 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) xfer[i * 128 + t] = acc[i];
+  }
+  hw::named_sync(1, 256);
+  if (c == 1) return false;
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] += xfer[i * 128 + t];
+  return true;
 }
 
 // ------------------------------------------------------------------ K4
@@ -479,24 +513,6 @@ __device__ __forceinline__ void logits(float (&d)[8], uint64_t ah, uint64_t al, 
   }
 }
 
-// Consumer 1 hands its running sums to consumer 0 through its own split
-// stage, which no later stage rewrites; consumer 0 adds them to its own
-// (consumer 0's + consumer 1's, always) and returns true.
-template <int NB, int R>
-__device__ __forceinline__ bool join(Smem<NB>& s, float (&acc)[R], int c, int t) {
-  static_assert(R * 128 * 4 <= sizeof(Stage<NB>), "the sums fit a split stage");
-  float* xfer = reinterpret_cast<float*>(&s.st[1]);
-  if (c == 1) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) xfer[i * 128 + t] = acc[i];
-  }
-  hw::named_sync(1, 256);
-  if (c == 1) return false;
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] += xfer[i * 128 + t];
-  return true;
-}
-
 // Consumer c of a K6 block: keys [r0, r0 + 64) of head bh, query stages
 // j = c, c + 2, ...: S^T = K Q^T and dP^T = V dO^T, P^T = exp2(S^T scale
 // log2 e - lse log2 e) (0 for queries past N), dS^T = P^T (dP^T - delta),
@@ -648,6 +664,333 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace dkv
 
+// ------------------------------------------------------------------ K5
+namespace dq {
+
+constexpr int kRows = 64;        // queries a block
+constexpr int kSplitStages = 2;  // split stage j % 2 belongs to consumer j % 2
+
+// The tiles of a head dim whose products run NP = D rounded up to 16
+// columns: NB boxes of 32 floats (128-byte swizzle) and, at NP = 80, a tail
+// of 16 in a box of its own (64-byte rows, 64-byte swizzle), so that COLS
+// columns are kept; STEP keys a stage; RAW raw stages. Shared memory sets
+// them: 32-key stages fit at NP <= 80 (220 KB at 80 with one raw stage,
+// where three full boxes would take 264), 16-key stages at 96 (216 KB).
+template <int NP>
+struct Shape {
+  static constexpr bool TAIL = NP == 80;
+  static constexpr int NB = TAIL ? 2 : (NP + 31) / 32;
+  static constexpr int COLS = 32 * NB + (TAIL ? 16 : 0);
+  static constexpr int STEP = NP == 96 ? 16 : 32;
+  static constexpr int RAW = TAIL ? 1 : 2;
+  static constexpr int RES = kRows * COLS;  // floats of a resident tile
+  static constexpr int WALK = STEP * COLS;  // floats of a stage's tile
+};
+
+// A stage's K and V as stored, and K transposed: COLS head-dim rows of 32
+// key columns (128 bytes, swizzled), of which a 16-key stage fills 0-15.
+template <int NP>
+struct alignas(1024) Stage {
+  float x_hi[Shape<NP>::WALK], x_lo[Shape<NP>::WALK];
+  float y_hi[Shape<NP>::WALK], y_lo[Shape<NP>::WALK];
+  float t_hi[Shape<NP>::COLS * 32], t_lo[Shape<NP>::COLS * 32];
+};
+
+// Each tile is its boxes (rows x 32 floats each) and then its tail (rows x
+// 16). a = q * scale, b = dO resident: raw as TMA brings them, then their hi
+// planes, split in place; x = K, y = V walked.
+template <int NP>
+struct alignas(1024) Smem {
+  using S = Shape<NP>;
+  float a_hi[S::RES], a_lo[S::RES], b_hi[S::RES], b_lo[S::RES];
+  float x_raw[S::RAW][S::WALK], y_raw[S::RAW][S::WALK];
+  Stage<NP> st[kSplitStages];
+  uint64_t res_loaded, res_full, raw_full[S::RAW], split_full[kSplitStages],
+      split_empty[kSplitStages];
+};
+
+// The transposed split of a tail box of R <= 32 raw rows of 16 floats (64
+// bytes a row, 64-byte swizzle: chunk c of row r at chunk c ^ ((r / 2) %
+// 4)) into head-dim rows row0 .. row0 + 15 of a transposed plane, raw row r
+// at column r, reordered within 8 as tf32_split_transposed (hopper.cuh)
+// reorders them. Thread t of the producer warpgroup's 128.
+template <int R>
+__device__ __forceinline__ void split_tail_transposed(const float* raw, float* hi, float* lo,
+                                                      int row0, int t) {
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(raw);
+#pragma unroll 1
+  for (int u = t; u < 16 * R / 4; u += 128) {
+    const int d = u % 16, kc = u / 16;
+    const int r0 = 8 * (kc >> 1) + (kc & 1);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 2 * e;
+      x[e] = *reinterpret_cast<const float*>(src + r * 64 + (((d >> 2) ^ ((r >> 1) & 3)) << 4) +
+                                             4 * (d & 3));
+    }
+    const int off = hw::swz128(row0 + d, kc);
+    hw::tf32_split4(make_float4(x[0], x[1], x[2], x[3]),
+                    reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(hi) + off),
+                    reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(lo) + off));
+  }
+}
+
+// Loads rows [r0, r0 + rows) of head bh, every box and the tail, onto bar.
+template <int NP>
+__device__ __forceinline__ void load_rows(float* dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail, uint64_t* bar, int rows, int r0,
+                                          int bh) {
+  using S = Shape<NP>;
+#pragma unroll
+  for (int b = 0; b < S::NB; ++b) hw::tma_load_3d(dst + b * rows * 32, map, bar, 32 * b, r0, bh);
+  if constexpr (S::TAIL) hw::tma_load_3d(dst + S::NB * rows * 32, tail, bar, 32 * S::NB, r0, bh);
+}
+
+// The producer warpgroup: thread 0 issues the TMA loads (q and dO once, then
+// raw K and V of each stage, RAW stages ahead); all 128 threads split q
+// (times the scale) and dO in place, then each raw stage into its split
+// stage once its consumer has released it.
+template <int NP>
+__device__ __forceinline__ void producer(Smem<NP>& s, const CUtensorMap* const (&maps)[8], int bh,
+                                         int r0, int nsteps, float scale) {
+  using S = Shape<NP>;
+  const int t = threadIdx.x;
+  auto load = [&](int j) {
+    const int rs = j % S::RAW;
+    hw::mbar_arrive_expect_tx(&s.raw_full[rs], 2 * S::WALK * 4);
+    load_rows<NP>(s.x_raw[rs], maps[2], maps[6], &s.raw_full[rs], S::STEP, j * S::STEP, bh);
+    load_rows<NP>(s.y_raw[rs], maps[3], maps[7], &s.raw_full[rs], S::STEP, j * S::STEP, bh);
+  };
+  if (t == 0) {
+    hw::mbar_arrive_expect_tx(&s.res_loaded, 2 * S::RES * 4);
+    load_rows<NP>(s.a_hi, maps[0], maps[4], &s.res_loaded, kRows, r0, bh);
+    load_rows<NP>(s.b_hi, maps[1], maps[5], &s.res_loaded, kRows, r0, bh);
+    for (int j = 0; j < S::RAW && j < nsteps; ++j) load(j);
+  }
+  hw::mbar_wait(&s.res_loaded, 0);
+  hw::tf32_split_planes(s.a_hi, s.a_hi, s.a_lo, S::RES / 4, scale, t, 128);
+  hw::tf32_split_planes(s.b_hi, s.b_hi, s.b_lo, S::RES / 4, 1.f, t, 128);
+  hw::fence_proxy_async();  // the planes are read by wgmma
+  hw::mbar_arrive(&s.res_full);
+
+#pragma unroll 1
+  for (int j = 0; j < nsteps; ++j) {
+    const int rs = j % S::RAW, ss = j % kSplitStages;
+    hw::mbar_wait(&s.raw_full[rs], (j / S::RAW) & 1);
+    if (j >= kSplitStages) hw::mbar_wait(&s.split_empty[ss], (j / kSplitStages - 1) & 1);
+    Stage<NP>& p = s.st[ss];
+    hw::tf32_split_planes(s.x_raw[rs], p.x_hi, p.x_lo, S::WALK / 4, 1.f, t, 128);
+    hw::tf32_split_planes(s.y_raw[rs], p.y_hi, p.y_lo, S::WALK / 4, 1.f, t, 128);
+    hw::tf32_split_transposed<S::NB, S::STEP>(s.x_raw[rs], p.t_hi, p.t_lo, 0, t);
+    if constexpr (S::TAIL) {
+      split_tail_transposed<S::STEP>(s.x_raw[rs] + S::NB * S::STEP * 32, p.t_hi, p.t_lo,
+                                     32 * S::NB, t);
+    }
+    hw::fence_proxy_async();  // the planes are read by wgmma, the raw tiles rewritten by TMA
+    hw::mbar_arrive(&s.split_full[ss]);
+    hw::named_sync(2, 128);  // every producer thread is done with raw stage rs
+    if (t == 0 && j + S::RAW < nsteps) load(j + S::RAW);
+  }
+}
+
+// Descriptor of K step k (8 head dims) of a K-major tile of `rows` rows:
+// four steps a box from `box`, then the tail's two from `tail`.
+template <int NP>
+__device__ __forceinline__ uint64_t kdesc(uint64_t box, uint64_t tail, int k, int rows) {
+  constexpr int NB = Shape<NP>::NB;
+  return k < 4 * NB ? hw::desc_add(box, kstep(k, rows)) : hw::desc_add(tail, 32 * (k - 4 * NB));
+}
+
+// Descriptors of a tile's boxes and tail (64-byte rows, 64-byte swizzle).
+template <int NP>
+__device__ __forceinline__ void descs(const float* p, int rows, uint64_t& box, uint64_t& tail) {
+  box = hw::sw128_desc(p, 16, 1024);
+  tail = hw::swz_desc(p + Shape<NP>::NB * rows * 32, 16, 8 * 64, 64);
+}
+
+// D (64 x STEP) += A (64 x 8) B (8 x STEP)^T, both K-major in shared memory.
+template <int STEP>
+__device__ __forceinline__ void mma_keys(float (&d)[STEP / 2], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (STEP == 32) {
+    hw::wgmma_m64n32k8_tf32_ss(d, a, b, scale_d);
+  } else {
+    hw::wgmma_m64n16k8_tf32_ss(d, a, b, scale_d);
+  }
+}
+
+// S (64 x STEP) = A B^T over the NP head dims, A resident (64 rows), B a
+// stage's keys, in NP / 8 steps of 8 (steps past D multiply zeros): the
+// small hi lo and lo hi terms first, the hi hi terms last. The operands'
+// descriptors are {box, tail} of hi and lo. Issued, not waited.
+template <int NP>
+__device__ __forceinline__ void logits(float (&d)[Shape<NP>::STEP / 2], const uint64_t (&a)[4],
+                                       const uint64_t (&b)[4]) {
+  constexpr int STEP = Shape<NP>::STEP;
+#pragma unroll
+  for (int k = 0; k < NP / 8; ++k) {
+    const uint64_t ah = kdesc<NP>(a[0], a[1], k, kRows), al = kdesc<NP>(a[2], a[3], k, kRows);
+    const uint64_t bh = kdesc<NP>(b[0], b[1], k, STEP), bl = kdesc<NP>(b[2], b[3], k, STEP);
+    mma_keys<STEP>(d, ah, bl, k);
+    mma_keys<STEP>(d, al, bh, 1);
+  }
+#pragma unroll
+  for (int k = 0; k < NP / 8; ++k) {
+    mma_keys<STEP>(d, kdesc<NP>(a[0], a[1], k, kRows), kdesc<NP>(b[0], b[1], k, STEP), 1);
+  }
+}
+
+// Consumer c of a K5 block: queries [r0, r0 + 64) of head bh, key stages j =
+// c, c + 2, ...: S = (q scale) K^T and dP = dO V^T, P = exp2(S log2 e - lse
+// log2 e) (0 for keys past N), dS = P (dP - delta), and each stage's dS K in
+// a fresh accumulator added to the running sum in float32.
+template <int NP>
+__device__ __forceinline__ void consumer(Smem<NP>& s, const float* __restrict__ lse,
+                                         const float* __restrict__ delta, float* __restrict__ dq,
+                                         int N, int D, int bh, int r0, int nsteps, float scale,
+                                         int c) {
+  using S = Shape<NP>;
+  constexpr int KS = S::STEP / 8;  // key steps of 8 in a stage
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+
+  float l2[2], dl[2];  // rows g and g + 8 of this warp; read before the wait
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    l2[h] = row < N ? lse[(size_t)bh * N + row] * kLog2e : 0.f;
+    dl[h] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+  }
+  float acc[NP / 2];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+
+  hw::mbar_wait(&s.res_full, 0);
+  uint64_t q[4], o[4], kd[4], vd[4];  // {box, tail} of the hi planes, then of the lo
+  descs<NP>(s.a_hi, kRows, q[0], q[1]);
+  descs<NP>(s.a_lo, kRows, q[2], q[3]);
+  descs<NP>(s.b_hi, kRows, o[0], o[1]);
+  descs<NP>(s.b_lo, kRows, o[2], o[3]);
+  Stage<NP>& p = s.st[c];
+  descs<NP>(p.x_hi, S::STEP, kd[0], kd[1]);
+  descs<NP>(p.x_lo, S::STEP, kd[2], kd[3]);
+  descs<NP>(p.y_hi, S::STEP, vd[0], vd[1]);
+  descs<NP>(p.y_lo, S::STEP, vd[2], vd[3]);
+  const uint64_t th = hw::sw128_desc(p.t_hi, 16, 1024), tl = hw::sw128_desc(p.t_lo, 16, 1024);
+
+#pragma unroll 1
+  for (int j = c; j < nsteps; j += 2) {
+    hw::mbar_wait(&s.split_full[c], (j >> 1) & 1);
+    float sc[S::STEP / 2], dp[S::STEP / 2];  // 64 queries x STEP keys each
+    hw::wgmma_fence();
+    logits<NP>(sc, q, kd);  // S = (q * scale) K^T
+    logits<NP>(dp, o, vd);  // dP = dO V^T
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+
+    const int k0 = j * S::STEP;
+    const bool ragged = k0 + S::STEP > N;
+    uint32_t dsh[KS][4], dsl[KS][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, i = 4 * n + e;
+        float pr = hw::ex2(fmaf(sc[i], kLog2e, -l2[h]));
+        if (ragged && k0 + 8 * n + 2 * tg + (e & 1) >= N) pr = 0.f;
+        put(dsh, dsl, n, e, pr * (dp[i] - dl[h]));
+      }
+    }
+
+    float dqs[NP / 2];  // this stage's dS K
+    hw::fence_regs(dsh);
+    hw::fence_regs(dsl);
+    hw::wgmma_fence();
+    update<NP, KS>(dqs, dsh, dsl, th, tl, 0);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dqs);
+    hw::fence_regs(dsh);
+    hw::fence_regs(dsl);
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&s.split_empty[c]);  // this warp is done with the stage
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] += dqs[i];
+  }
+
+  if (join(s, acc, c, t)) store_rows<NP>(dq, acc, N, D, bh, r0, scale, t);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+           const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+           const __grid_constant__ CUtensorMap tail_q, const __grid_constant__ CUtensorMap tail_do,
+           const __grid_constant__ CUtensorMap tail_k, const __grid_constant__ CUtensorMap tail_v,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq, int N, int D, int nblk, float scale) {
+  using S = Shape<NP>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<NP>& s = *reinterpret_cast<Smem<NP>*>(hw::align_1024(smem_raw));
+  const int bh = blockIdx.x / nblk;
+  const int r0 = (blockIdx.x % nblk) * kRows;
+  const int nsteps = (N + S::STEP - 1) / S::STEP;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&s.res_loaded, 1);
+    hw::mbar_init(&s.res_full, 128);  // every producer thread, after its split
+    for (int r = 0; r < S::RAW; ++r) hw::mbar_init(&s.raw_full[r], 1);
+    for (int st = 0; st < kSplitStages; ++st) {
+      hw::mbar_init(&s.split_full[st], 128);
+      hw::mbar_init(&s.split_empty[st], 4);  // the owning consumer's four warps
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    hw::regs_dec<kProducerRegs>();
+    // the maps stay kernel parameters: TMA reads them in the param space
+    const CUtensorMap* const maps[8] = {&map_q,  &map_do,  &map_k,  &map_v,
+                                        &tail_q, &tail_do, &tail_k, &tail_v};
+    producer(s, maps, bh, r0, nsteps, scale);
+  } else {
+    hw::regs_inc<kConsumerRegs>();
+    consumer<NP>(s, lse, delta, dq, N, D, bh, r0, nsteps, scale, wg - 1);
+  }
+}
+
+template <int NP>
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int BH, int N, int D, float scale, cudaStream_t stream) {
+  using S = Shape<NP>;
+  constexpr int kSmemBytes = sizeof(Smem<NP>) + 1024;  // + the alignment slack
+  static_assert(kSmemBytes <= 232448, "a block's shared memory on Hopper");
+  const int nblk = (N + kRows - 1) / kRows;
+  const long long blocks = (long long)BH * nblk;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[8] = {};  // q, dO, K, V: boxes of 32 floats, then their tails' boxes of 16
+  const void* base[4] = {q, dout, k, v};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i < 2 ? kRows : S::STEP;
+    if (!hw::make_tensor_map_3d(&maps[i], base[i], N, BH, rows, 4, D) ||
+        (S::TAIL && !hw::make_tensor_map_3d(&maps[4 + i], base[i], N, BH, rows, 4, D, 64))) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const cudaError_t e = hw::prepare(kernel<NP>, kSmemBytes, kProducerRegs, kConsumerRegs);
+  if (e != cudaSuccess) return (int)e;
+  kernel<NP><<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], (const float*)lse,
+      (const float*)delta, (float*)dq, N, D, nblk, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dq
+
 }  // namespace
 
 namespace cra5::anydim {
@@ -677,6 +1020,19 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const
     case 4: return dkv::launch<64>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale, stream);
     case 5: return dkv::launch<80>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale, stream);
     case 6: return dkv::launch<96>(q, k, v, dout, lse, delta, dk, dv, BH, N, D, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int BH, int N, int D, float scale, cudaStream_t stream) {
+  switch ((D + 15) / 16) {
+    case 1: return dq::launch<16>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
+    case 2: return dq::launch<32>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
+    case 3: return dq::launch<48>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
+    case 4: return dq::launch<64>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
+    case 5: return dq::launch<80>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
+    case 6: return dq::launch<96>(q, k, v, dout, lse, delta, dq, BH, N, D, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

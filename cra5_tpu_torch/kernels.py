@@ -48,6 +48,7 @@ _SIGNATURES = {
     "cra5_flash_attn_bwd_dkv_any": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P],
     "cra5_flash_attn_fwd_anydim": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "cra5_flash_attn_bwd_dkv_anydim": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "cra5_flash_attn_bwd_dq_anydim": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "cra5_perm_expand": [_P, _P, _P, _I, _P],
     "cra5_perm_dynroll": [_P, _P, _P, _I, _I, _P],
 }

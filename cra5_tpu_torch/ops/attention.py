@@ -5,14 +5,14 @@ Counterpart of ``cra5_tpu/ops/attention.py``. Given CUDA tensors a wrapper
 launches its kernel and counts the launch; given CPU tensors it runs the
 plain version. At head dim 64 in bf16 or float32 the kernels run on the
 tensor cores (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu`` and,
-for float32, ``csrc/flash_attn_bwd_f32.cu``, as 3xTF32 split products). K4
-and K6 at the other head dims that ``anydim_supports`` names (bf16 and
-float16 rows of a multiple of 8 up to 128, float32 rows of a multiple of 4
-up to 96) run on the tensor cores too (``csrc/flash_attn_anydim.cu`` and
-``csrc/flash_attn_anydim_f32.cu``). What remains (K5 at every head dim but
-64, float64, head dims past those kernels' reach up to
-``FLASH_MAX_HEAD_DIM``) takes the SIMT kernels of
-``csrc/flash_attn_any.cu``, as the TPU kernels take any head dim.
+for float32, ``csrc/flash_attn_bwd_f32.cu``, as 3xTF32 split products).
+K4, K5 and K6 at the other head dims that ``anydim_supports`` names (bf16
+and float16 rows of a multiple of 8 up to 128, float32 rows of a multiple
+of 4 up to 96) run on the tensor cores too (``csrc/flash_attn_anydim.cu``
+and ``csrc/flash_attn_anydim_f32.cu``). What remains (float64, head dims
+past those kernels' reach up to ``FLASH_MAX_HEAD_DIM``) takes the SIMT
+kernels of ``csrc/flash_attn_any.cu``, as the TPU kernels take any head
+dim.
 ``FlashAttention`` is the ``custom_vjp`` of the JAX package as a
 ``torch.autograd.Function``: its forward keeps (q, k, v, out, lse) and its
 backward runs the two backward kernels, so no (N, N) logits are ever kept
@@ -43,10 +43,10 @@ from .. import kernels
 _HOPPER_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 _ANY_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.float64: 3}
 FLASH_MAX_HEAD_DIM = 256
-# the any-head-dim tensor-core kernels (K4 and K6 only): their entries take
-# the SIMT codes; (row multiple, largest head dim) of each dtype. K6's dK and
-# dV accumulators bound the 16-bit reach, shared memory the float32 one.
-_ANYDIM_ENTRIES = ("cra5_flash_attn_fwd", "cra5_flash_attn_bwd_dkv")
+# the any-head-dim tensor-core kernels (K4, K5 and K6 alike): their entries
+# take the SIMT codes; (row multiple, largest head dim) of each dtype. K6's
+# dK and dV accumulators bound the 16-bit reach, shared memory the float32
+# one.
 _ANYDIM_REACH = {torch.bfloat16: (8, 128), torch.float16: (8, 128), torch.float32: (4, 96)}
 
 
@@ -57,8 +57,8 @@ def flash_supports(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def anydim_supports(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the any-head-dim tensor-core K4 and K6 take this dtype and
-    head dim: rows of a multiple of 16 bytes (TMA's rule), up to 128 in
+    """Whether the any-head-dim tensor-core K4, K5 and K6 take this dtype
+    and head dim: rows of a multiple of 16 bytes (TMA's rule), up to 128 in
     bf16 and float16 and up to 96 in float32. At head dim 64 in bf16 and
     float32 the route prefers the head-dim-64 kernels."""
     if dtype not in _ANYDIM_REACH:
@@ -87,8 +87,8 @@ def _check_qkv(*ts: torch.Tensor) -> None:
 def _kernel_entry(name: str, *ts: torch.Tensor):
     """The C entry for the operands, by dtype and shape only: ``name``
     (bf16) or ``name_f32`` (float32, 3xTF32) on the tensor cores at head dim
-    64; else, for K4 and K6 where ``anydim_supports``, ``name_anydim`` on
-    the tensor cores; else ``name_any`` (SIMT). The last two are given the
+    64; else, where ``anydim_supports``, ``name_anydim`` on the tensor
+    cores; else ``name_any`` (SIMT). The last two are given the
     dtype's code before the stream. What no kernel computes raises; nothing
     here retries another entry."""
     dtype, D = ts[0].dtype, ts[0].shape[-1]
@@ -101,7 +101,7 @@ def _kernel_entry(name: str, *ts: torch.Tensor):
             raise ValueError("the flash kernels' operands must be contiguous and 16-byte aligned")
     if D == 64 and dtype in _HOPPER_DTYPES:
         return getattr(kernels.lib(), name + _HOPPER_DTYPES[dtype])
-    suffix = "_anydim" if name in _ANYDIM_ENTRIES and anydim_supports(dtype, D) else "_any"
+    suffix = "_anydim" if anydim_supports(dtype, D) else "_any"
     entry, code = getattr(kernels.lib(), name + suffix), _ANY_DTYPES[dtype]
     return lambda *args: entry(*args[:-1], code, args[-1])
 

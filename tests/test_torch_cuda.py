@@ -128,10 +128,34 @@ def _equal(a, b):
     return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("M,K", [(1, 1), (37, 300), (9, 4097), (130, 96)])
-def test_rans_encode_equals_plain(card, rng, M, K):
-    freqs = torch.from_numpy(rng.integers(1, 60000, (M, K)).astype(np.int32)).to(card)
-    starts = torch.from_numpy(rng.integers(0, 5000, (M, K)).astype(np.int32)).to(card)
+# K1 runs blocks of 64 lanes (two consumer warps, a lane a thread) fed by a
+# producer warp through a ring of 2 slots of 16 steps, the first chunk
+# padded at its top with identity steps. Lane counts: 1, 96, 255 and 300
+# end in a partial block, 256 fills 4 blocks, 257 and 4097 run one lane
+# into a new block, 8192 and 32768 fill 128 and 512 blocks. Step counts: 1
+# and 9 one padded chunk, 37 three chunks (the ring wraps), 64 four whole
+# chunks (no pad), 65 five (15 pad steps), 130, 324 and 648 many turns of
+# the ring with pads of 14, 12 and 8. And the freqs that bound its
+# one-sided quotient: runs of 1 (every step emits, q = x), 2^16 - 1, and
+# the padding step (start 0, freq 2^16, an identity).
+@pytest.mark.parametrize("M,K,kind", [(1, 1, "random"), (37, 300, "random"), (9, 4097, "random"),
+                                      (130, 96, "random"), (1, 255, "random"),
+                                      (648, 257, "random"), (64, 8192, "random"),
+                                      (9, 32768, "random"), (648, 256, "ones"),
+                                      (65, 255, "edges"), (324, 8192, "padding")])
+def test_rans_encode_equals_plain(card, rng, M, K, kind):
+    freqs = rng.integers(1, 60000, (M, K))
+    starts = rng.integers(0, 5000, (M, K))
+    if kind == "ones":  # runs of freq 1 (the start < 2^16 - 1 as a real cdf's would be)
+        freqs[rng.random((M, K)) < 0.5] = 1
+    elif kind == "edges":
+        freqs = rng.choice([1, 2, 3, 65494, 65535, 65536, 32768, 40503], (M, K))
+        starts = rng.integers(0, 1 << 16, (M, K)) % (65537 - freqs)
+    elif kind == "padding":  # identity steps, as the encoder pads the last rows
+        pad = rng.random((M, K)) < 0.3
+        freqs[pad], starts[pad] = 1 << 16, 0
+    freqs = torch.from_numpy(freqs.astype(np.int32)).to(card)
+    starts = torch.from_numpy(starts.astype(np.int32)).to(card)
     before = rk.rans_encode.launches
     got = rk.rans_encode(starts, freqs)
     want = rk.rans_encode_plain(starts, freqs)
@@ -139,6 +163,19 @@ def test_rans_encode_equals_plain(card, rng, M, K):
     assert rk.rans_encode.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2][got[1]], want[2][want[1]])  # words where emitted
+
+
+def test_rans_encode_counts_positions_past_2_31(card):
+    # 2049 steps on the CRX2 header's 2^20 lanes: positions past 2^31 - 1
+    M, K = 2049, 1 << 20
+    gen = torch.Generator(device=card).manual_seed(0)
+    freqs = torch.randint(1, 60000, (M, K), generator=gen, device=card, dtype=torch.int32)
+    starts = torch.randint(0, 5000, (M, K), generator=gen, device=card, dtype=torch.int32)
+    got = rk.rans_encode(starts, freqs)
+    want = rk.rans_encode_plain(starts, freqs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # words where emitted
+    assert torch.equal(torch.where(got[1], got[2], 0), torch.where(want[1], want[2], 0))
 
 
 @pytest.mark.parametrize("C,HW,K,esc", [(16, 81, 32, 0.03), (7, 211, 96, 0.0), (16, 300, 1500, 0.05)])
@@ -519,16 +556,18 @@ def test_attention_with_head_dim_72_computes_on_the_card(card, rng, dtype):
 
 
 # Every head dim and dtype but head dim 64 in bf16 and float32: the
-# any-head-dim tensor-core K4 and K6 (csrc/flash_attn_anydim*.cu: bf16 and
-# float16 rows of a multiple of 8 up to 128 in 64-column boxes, float32 rows
-# of a multiple of 4 up to 96 in 32-column boxes; K4 takes 128 queries a
+# any-head-dim tensor-core K4, K5 and K6 (csrc/flash_attn_anydim*.cu: bf16
+# and float16 rows of a multiple of 8 up to 128 in 64-column boxes, float32
+# rows of a multiple of 4 up to 96 in 32-column boxes; K4 takes 128 queries a
 # block and 64 keys (16-bit) or 32 keys (float32) a stage, K6 128 keys (64
 # past head dim 64) and 32 queries (16-bit) or 64 keys and 16 queries
-# (float32)), on and off those
-# edges (N = 63-65, 127-129) and with ragged heads, up to the top of their
-# reach; and the SIMT kernels (csrc/flash_attn_any.cu) for K5 at every such
-# head dim and for what the tensor-core ones do not take: 12-byte rows,
-# float32 past 96, every head dim past 128, float64. Bounds as for the
+# (float32), K5 128 queries and 64 keys (32 past 80 columns) in 16-bit, 64
+# queries and 32 keys (16 past 80) in float32, with a 16-float tail box at
+# 65-80), on and off those edges (N = 2, 31-33, 63-65, 127-129; at N = 1 dq
+# is zero, so its bound would hold rounding noise to itself) and with
+# ragged heads, up to the top of their reach; and the SIMT kernels
+# (csrc/flash_attn_any.cu) for what the tensor-core ones do not take: 12-byte
+# rows, float32 past 96, every head dim past 128, float64. Bounds as for the
 # kernels of the same width (float16 as bf16); float64 sums in another order
 # than the plain version only.
 FLASH_ANY_CASES = [(torch.float32, 72, 1, 2, 333), (torch.bfloat16, 72, 2, 3, 129),
@@ -545,7 +584,14 @@ FLASH_ANY_CASES = [(torch.float32, 72, 1, 2, 333), (torch.bfloat16, 72, 2, 3, 12
                    (torch.bfloat16, 120, 1, 2, 128), (torch.float32, 68, 1, 2, 65),
                    (torch.bfloat16, 128, 1, 2, 129), (torch.float16, 128, 1, 1, 65),
                    (torch.float32, 4, 1, 2, 33), (torch.float32, 120, 1, 1, 65),
-                   (torch.bfloat16, 6, 1, 2, 65)]
+                   (torch.bfloat16, 6, 1, 2, 65),
+                   (torch.bfloat16, 72, 1, 2, 127), (torch.float16, 80, 1, 2, 129),
+                   (torch.bfloat16, 88, 1, 2, 65), (torch.bfloat16, 128, 2, 3, 200),
+                   (torch.float16, 32, 1, 2, 64), (torch.bfloat16, 24, 1, 1, 31),
+                   (torch.float32, 72, 1, 2, 65), (torch.float32, 76, 1, 2, 63),
+                   (torch.float32, 92, 1, 2, 33), (torch.float32, 96, 2, 3, 200),
+                   (torch.float32, 48, 1, 2, 97), (torch.float32, 84, 1, 2, 17),
+                   (torch.float32, 72, 1, 1, 2), (torch.bfloat16, 104, 1, 1, 2)]
 FLASH_ANY_TOL = {torch.bfloat16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
                  torch.float16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
                  torch.float32: (FLASH_F32_RTOL, FLASH_F32_LSE_ATOL),

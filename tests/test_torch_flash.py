@@ -11,9 +11,9 @@ product hi hi + hi lo + lo hi). That arithmetic is emulated here, bit for
 bit in its roundings, and held to the same bound against the float32 plain
 versions and float64, where the kernels themselves cannot run: at head dim 64
 with the head-dim-64 kernels' stages (64 keys a K4 stage, 32 walked rows a K5
-and K6 stage), and at head dim 72 with the any-head-dim kernels' (32 keys a K4
-stage, 16 queries a K6 stage; K5 at 72 is the SIMT kernel, in full float32).
-Their zero padding of the head dim adds exact zeros to every sum, so the
+and K6 stage), and at head dims 72 and 96 with the any-head-dim kernels' (32
+keys a K4 stage, 16 queries a K6 stage, 32 keys a K5 stage at 72 and 16 at
+96). Their zero padding of the head dim adds exact zeros to every sum, so the
 emulation leaves it out."""
 
 import jax
@@ -133,15 +133,15 @@ def _backward_tf32(q, k, v, do, lse, delta, scale, products, step=32, kv_step=32
     return dq * scale, dk * scale, dv
 
 
-@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("D", [64, 72, 96])
 @pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
 def test_3xtf32_backward_within_the_f32_bound(B, H, N, D):
     """The float32 K5 and K6 arithmetic: dq, dk and dv within RTOL x max
     |ref| of the float32 plain versions and of float64 (inputs N(0, 1.5^2),
     scale 0.125, lse and delta of the float32 plain forward), while one TF32
-    product misses the float64 bound by more than 10x. At head dim 72 the
-    card runs K6 in 16-query stages and K5 on the SIMT tile, so only dk
-    and dv are the tensor cores' there. This emulation sums
+    product misses the float64 bound by more than 10x. Past head dim 64 the
+    card runs K6 in 16-query stages and K5 in 32-key stages (16 at head
+    dims past 80, where shared memory binds). This emulation sums
     in float32 rounded to nearest; the card's tensor cores truncate their
     sums, which no CPU run sees: the card test
     test_268v_global_block_f32_through_flash_matches_the_plain_path is the
@@ -150,7 +150,8 @@ def test_3xtf32_backward_within_the_f32_bound(B, H, N, D):
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5)
                    for _ in range(4))
     scale = 0.125
-    kv_step, first = (32, 0) if D == 64 else (16, 1)  # K6's stage; the first tensor-core output
+    step = 16 if D > 80 else 32  # K5's key stage
+    kv_step = 32 if D == 64 else 16  # K6's query stage
     out, lse = flash_attention_plain(q, k, v, scale)
     delta = (do * out).sum(-1)
     ops = (q, k, v, do, lse, delta)
@@ -162,26 +163,26 @@ def test_3xtf32_backward_within_the_f32_bound(B, H, N, D):
     for b in range(B):
         for h in range(H):
             head = tuple(t[b, h] for t in ops)
-            got = _backward_tf32(*head, scale, products=3, kv_step=kv_step)[first:]
-            for refs in (ref32[first:], ref64[first:]):
+            got = _backward_tf32(*head, scale, products=3, step=step, kv_step=kv_step)
+            for refs in (ref32, ref64):
                 for a, ref in zip(got, refs):
                     bound = RTOL * ref[b, h].abs().max().item()
                     assert (a.double() - ref[b, h].double()).abs().max().item() <= bound
-            one = _backward_tf32(*head, scale, products=1, kv_step=kv_step)[first:]
-            for a, ref in zip(one, ref64[first:]):
+            one = _backward_tf32(*head, scale, products=1, step=step, kv_step=kv_step)
+            for a, ref in zip(one, ref64):
                 miss = (a.double() - ref[b, h]).abs().max().item()
                 assert miss > 10 * RTOL * ref[b, h].abs().max().item()
 
 
-@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("D", [64, 72, 96])
 @pytest.mark.parametrize("B,H,N", [(1, 2, 1000), (2, 3, 200)])
 def test_3xtf32_forward_within_the_f32_bound(B, H, N, D):
     """3xTF32 keeps float32 accuracy: out within RTOL x max |ref| and lse
     within LSE_ATOL of the float32 plain version and of float64 (inputs
     N(0, 1.5^2), scale 0.125, as on the card), in the card's stages: 64
-    keys at head dim 64, 32 at 72. One TF32 product (10 mantissa bits)
-    misses the same bound by orders of magnitude, so the bound tells the
-    two apart."""
+    keys at head dim 64, 32 at the other head dims. One TF32 product (10
+    mantissa bits) misses the same bound by orders of magnitude, so the
+    bound tells the two apart."""
     rng = np.random.default_rng(N)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, D)).astype(np.float32) * 1.5)
                for _ in range(3))

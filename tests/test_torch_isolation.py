@@ -125,9 +125,17 @@ FWD, DQ, DKV = "cra5_flash_attn_fwd", "cra5_flash_attn_bwd_dq", "cra5_flash_attn
     (100, torch.float32, FWD, FWD + "_any", 2),
     (100, torch.float32, DKV, DKV + "_any", 2),
     (136, torch.bfloat16, FWD, FWD + "_any", 0),
-    (72, torch.float32, DQ, DQ + "_any", 2),
-    (72, torch.bfloat16, DQ, DQ + "_any", 0),
-    (64, torch.float16, DQ, DQ + "_any", 1),
+    (72, torch.float32, DQ, DQ + "_anydim", 2),
+    (72, torch.bfloat16, DQ, DQ + "_anydim", 0),
+    (64, torch.float16, DQ, DQ + "_anydim", 1),
+    (128, torch.bfloat16, DQ, DQ + "_anydim", 0),
+    (96, torch.float32, DQ, DQ + "_anydim", 2),
+    (100, torch.float32, DQ, DQ + "_any", 2),
+    (136, torch.bfloat16, DQ, DQ + "_any", 0),
+    (6, torch.bfloat16, DQ, DQ + "_any", 0),
+    (3, torch.float32, DQ, DQ + "_any", 2),
+    (72, torch.float64, DQ, DQ + "_any", 3),
+    (64, torch.float32, DQ, DQ + "_f32", None),
     (256, torch.float64, FWD, FWD + "_any", 3),
 ])
 def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, head_dim, dtype,
@@ -135,12 +143,12 @@ def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, hea
     """At N = 4096 on the card attention takes the flash route whatever its
     head dim and dtype, as the JAX package's takes its Pallas kernels; the
     route picks by dtype and shape alone: the head-dim-64 tensor-core
-    kernels in bf16 and float32, the any-head-dim tensor-core K4 and K6
+    kernels in bf16 and float32, the any-head-dim tensor-core K4, K5 and K6
     where anydim_supports (16-bit rows of a multiple of 8 up to 128,
     float32 rows of a multiple of 4 up to 96), and the SIMT kernels for
-    everything else (K5 at every head dim but 64, float64, 12-byte rows,
-    head dims past the reach), the last two told the dtype's code. The
-    library is replaced by a recorder, so no card and no build is needed."""
+    everything else (float64, 12-byte rows, head dims past the reach), the
+    last two told the dtype's code. The library is replaced by a recorder,
+    so no card and no build is needed."""
     assert _use_flash(4096, 16, torch.device("cuda"))
     assert not _use_flash(4096, 16, torch.device("cpu"))
     calls = []
@@ -154,7 +162,7 @@ def test_flash_route_takes_every_head_dim_and_dtype_to_a_kernel(monkeypatch, hea
     assert attention._kernel_entry(kernel, q, q, q)(1, 0.5, "stream") == 0
     want = (1, 0.5, "stream") if code is None else (1, 0.5, code, "stream")
     assert calls == [(entry, want)]
-    if kernel != DQ and not entry.endswith(("_f32", FWD)):
+    if entry.endswith(("_anydim", "_any")):
         assert attention.anydim_supports(dtype, head_dim) == entry.endswith("_anydim")
 
 

@@ -107,6 +107,62 @@ def test_encode_padding_steps_are_identities(rng):
     assert not b[1][M:].any()
 
 
+def _f32_toward_zero(v: np.ndarray) -> np.ndarray:
+    """float64 values rounded to float32 toward zero (the card's _rz forms)."""
+    c = v.astype(np.float32)
+    over = np.abs(c.astype(np.float64)) > np.abs(v)
+    c[over] = np.nextafter(c[over], np.float32(0))
+    return c
+
+
+def _k1_step(x: np.ndarray, f: np.ndarray, s: np.ndarray, rcp_ulps: int):
+    """A mirror in numpy of one step of the card's K1 (csrc/rans_encode.cu):
+    the emit test against (f << 16) - 1, the integer reciprocal R =
+    trunc(rz(rcp(f) (2^32 - 2^10))) with rcp(f) taken ``rcp_ulps`` ulps off
+    the nearest float to 1 / f (rcp.approx is within one), the estimate qe =
+    mulhi(xe, R), the corrections by r >= f and r >= 2f, and the push x + s
+    + q (2^16 - f). Returns (renormalized x, its quotient, the pushed state,
+    emit)."""
+    x, f, s = (a.astype(np.uint64) for a in (x, f, s))
+    e = x > (f << np.uint64(16)) - np.uint64(1)
+    xe = np.where(e, x >> np.uint64(16), x)
+    rcp = (1.0 / f.astype(np.float64)).astype(np.float32)
+    for _ in range(abs(rcp_ulps)):
+        rcp = np.nextafter(rcp, np.float32(np.inf if rcp_ulps > 0 else 0))
+    R = np.trunc(_f32_toward_zero(rcp.astype(np.float64) * 4294966272.0)).astype(np.uint64)
+    qe = (xe * R) >> np.uint64(32)
+    re = xe - qe * f  # in [0, 3f): qe is q, q - 1 or q - 2
+    q = qe + (re >= f) + (re >= 2 * f)
+    g = np.uint64(1 << 16) - f
+    pushed = (xe + s + q * g) & np.uint64(0xFFFFFFFF)
+    return xe, q, pushed, e
+
+
+@pytest.mark.parametrize("rcp_ulps", [-1, 0, 1])
+def test_k1_quotient_is_exact_division(rng, rcp_ulps):
+    """K1's quotient, as the card computes it, equals exact division for
+    every freq the format allows (1 to 2^16) at the edges of the state (0, f
+    - 1, f, (2^16 - 1) f, (f << 16) - 1, 2^32 - 1) and at seeded random
+    states, with its reciprocal one ulp either side of the nearest; the
+    pushed state equals the plain version's (q << 16) + x mod f + start.
+    (2^16 - 1) f, the largest multiple of f a renormalized state holds, is
+    where the estimate falls two short for freqs near 2^16 (65494 with the
+    reciprocal an ulp low), which the second correction mends."""
+    f = np.repeat(np.arange(1, (1 << 16) + 1, dtype=np.uint64), 12)
+    f1 = f[::12]
+    edges = np.stack([np.zeros_like(f1), f1 - 1, f1, np.uint64(0xFFFF) * f1,
+                      (f1 << np.uint64(16)) - 1, np.full_like(f1, 0xFFFFFFFF)], 1)
+    x = np.concatenate([edges, rng.integers(0, 1 << 32, (edges.shape[0], 6), dtype=np.uint64)],
+                       1).reshape(-1)
+    s = rng.integers(0, 1 << 16, f.size, dtype=np.uint64) % (np.uint64(65537) - f)
+    xe, q, pushed, e = _k1_step(x, f, s, rcp_ulps)
+    assert np.array_equal(e, x >= f << np.uint64(16))
+    np.testing.assert_array_equal(q, xe // f)
+    want = ((xe // f) << np.uint64(16)) + xe % f + s
+    np.testing.assert_array_equal(pushed, want)
+    assert want.max() < 1 << 32
+
+
 # ------------------------------------------------------------- K2
 @pytest.mark.parametrize("C,HW,K,esc", [(16, 81, 32, 0.03), (7, 40, 16, 0.0), (4, 200, 128, 0.1)])
 def test_rowplan_plain_matches_pallas(rng, eb_table, C, HW, K, esc):
