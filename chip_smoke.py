@@ -74,9 +74,11 @@ head dim 72 in float32, bf16 and float16 at (1, 5, 2048, 72) and (1, 5,
 10368, 72) against their plain versions, two calls bitwise equal, timed
 beside the SIMT K4, K5 and K6 (held to their plain versions too), SDPA and
 their tensor-core bound; and K7
-(perm_expand) and K8 (perm_dynroll) at (8, 1024) against their plain
-versions exactly, with the device time of each and of torch.roll; the
-reference phase adds the 268v global block in float32. The line before
+(perm_expand) at (8, 1024) and (16, 1024) and K8 (perm_dynroll) at (8,
+1024) against their plain versions exactly, with the event and device
+time of each and of torch.roll, the launch floor (an empty kernel through
+the same ctypes path) and where a K8 call's host time goes ([K8 issue]);
+the reference phase adds the 268v global block in float32. The line before
 the last is a JSON object listing every kernel (the float32 K4, K5 and K6
 rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
@@ -85,12 +87,15 @@ their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
 
     python3 chip_smoke.py --coder
+    python3 chip_smoke.py --perm
 
-runs phases 1 and 2 and the coder kernels of phase 3 only (K1 on z and y,
-K2 on z, K3 on y: exact, event ms and device us, no chain floor), and
-prints no result line. It imports the cra5_tpu_torch that Python finds,
-so with PYTHONSAFEPATH=1 PYTHONPATH=<checkout> it times another checkout's
-coder kernels with this script's timers, for a comparison in one run.
+run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
+y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), or
+only K7 and K8 (exact, event ms and device us, torch.roll beside K8; no
+launch floor or host breakdown), and print no result line. They import
+the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
+PYTHONPATH=<checkout> they time another checkout's kernels with this
+script's timers, for a comparison in one run.
 """
 
 from __future__ import annotations
@@ -801,64 +806,184 @@ def flash_anydim_rows(rng, dev) -> dict:
     return rows
 
 
-def perm_rows(rng, dev) -> dict:
-    """K7 (expand) and K8 (dynroll) at the probe's (8, 1024) against their
-    plain versions, exactly: K7 at mask densities 0, 0.6 and 1, K8 at
-    shifts 0, 3 and 1023. Both are launch-bound; the bound is the bytes of
-    their operands."""
+def host_us(fns: dict, n: int = 2000, rounds: int = 5) -> dict:
+    """Host microseconds a call of each of ``fns`` (time.perf_counter_ns):
+    ``rounds`` rounds in which each takes its turn at ``n`` back-to-back
+    calls, after 100 warm-up calls; the median round, net of an empty
+    call's. The card is synchronized around each turn, outside the clock."""
+    fns = {"": lambda: None, **fns}
+    times = defaultdict(list)
+    for fn in fns.values():
+        for _ in range(100):
+            fn()
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                fn()
+            times[key].append((time.perf_counter_ns() - t0) / n / 1e3)
+    torch.cuda.synchronize()
+    loop = statistics.median(times.pop(""))
+    return {k: statistics.median(v) - loop for k, v in times.items()}
+
+
+def alternating_ms(fns: dict, iters: int = 1000, rounds: int = 5) -> dict:
+    """Event ms a call of each of ``fns`` (timed_ms over ``iters`` calls),
+    taking turns for ``rounds`` rounds; the median round of each. Host
+    noise on the card's machine moves a short call's event time by tens of
+    percent between moments, so calls that are compared take turns."""
+    times = defaultdict(list)
+    for _ in range(rounds):
+        for key, fn in fns.items():
+            times[key].append(timed_ms(fn, iters, warmup=20))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def k8_host_breakdown(dev, words, s) -> None:
+    """The [K8 issue] lines: where the host time of a K8 call (the rate at
+    which the host issues it) goes, in host us a call (``host_us``: 10 000
+    calls each, the steps taking turns). Each step of the lean launch path
+    (cra5_tpu_torch/kernels.py) and of a wrapper built on Stream objects
+    and torch.device checks (written out here), the stream lookups and
+    output allocations that were candidates, the empty kernel behind K8's
+    argument list in the call forms ctypes offers
+    (profiling/launch_floor.py), and torch.roll as a whole."""
+    import ctypes
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.profiling import launch_floor
+    from cra5_tpu_torch.profiling import perm_probe as pp
+
+    index = words.get_device()
+    out = torch.empty_like(words)
+    cdll, pydll = (loader(str(kernels.build())).cra5_perm_dynroll
+                   for loader in (ctypes.CDLL, ctypes.PyDLL))
+    for fn in (cdll, pydll):
+        fn.argtypes, fn.restype = kernels._SIGNATURES["cra5_perm_dynroll"], ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (words.data_ptr(), s.data_ptr(), out.data_ptr())
+
+    def old_checks(x=words, shift=s):
+        if x.dim() != 2 or shift.numel() != 1 or shift.device != x.device:
+            raise ValueError
+        if x.device.type == "cpu" or x.device.type != "cuda":
+            raise ValueError
+        if x.dtype != torch.int32 or shift.dtype != torch.int32 or not x.is_contiguous():
+            raise TypeError
+
+    def old_wrapper(x=words, shift=s):
+        old_checks(x, shift)
+        o = torch.empty_like(x)
+        status = cdll(x.data_ptr(), shift.data_ptr(), o.data_ptr(), x.shape[0], x.shape[1],
+                      torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(status, "dynroll")
+        return o
+
+    steps = {
+        "old checks": old_checks,
+        "empty_like": lambda: torch.empty_like(words),
+        "current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "3 data_ptr": lambda: (words.data_ptr(), s.data_ptr(), out.data_ptr()),
+        "CDLL call (launch, cudaGetLastError)": lambda: cdll(*ptrs, 8, 1024, stream),
+        "PyDLL call": lambda: pydll(*ptrs, 8, 1024, stream),
+        "check": lambda: kernels.check(0, "dynroll"),
+        "old whole": old_wrapper,
+        "torch.roll": lambda: torch.roll(words, 3, 1),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "current_stream(index).cuda_stream": lambda: torch.cuda.current_stream(index).cuda_stream,
+        "raw_stream(index)": lambda: kernels.raw_stream(index),
+        "new_empty": lambda: words.new_empty((8, 1024)),
+        "empty(shape, dtype, device)": lambda: torch.empty((8, 1024), dtype=torch.int32,
+                                                          device=dev),
+        "lean checks": lambda: pp._check_dynroll(words, s),
+        "shape": lambda: tuple(words.shape),
+        "lib() call, check": lambda: kernels.check(kernels.lib().cra5_perm_dynroll(
+            *ptrs, 8, 1024, stream), "dynroll"),
+        "lean whole": lambda: pp.dynroll(words, s),
+        **{f"empty kernel, {k}": fn for k, fn in launch_floor.call_forms(index, ptrs).items()},
+    }
+    us = host_us(steps)
+    group = lambda keys: ", ".join(f"{k} {us[k]:.3f}" for k in keys)
+    old = ["old checks", "empty_like", "current_stream(dev).cuda_stream", "3 data_ptr",
+           "CDLL call (launch, cudaGetLastError)", "check"]
+    lean = ["lean checks", "empty_like", "raw_stream(index)", "3 data_ptr", "shape",
+            "lib() call, check"]
+    log(f"[K8 issue] Stream-object wrapper, host us a call: {group(old)}; sum "
+        f"{sum(us[k] for k in old):.3f}, whole {us['old whole']:.3f}; torch.roll "
+        f"{us['torch.roll']:.3f}")
+    log(f"[K8 issue] lean path, host us a call: {group(lean)}; sum "
+        f"{sum(us[k] for k in lean):.3f}, whole {us['lean whole']:.3f}")
+    same = kernels.raw_stream(index) == torch.cuda.current_stream(dev).cuda_stream
+    log("[K8 issue] stream lookups: " + group([
+        "current_stream(dev).cuda_stream", "current_stream().cuda_stream",
+        "current_stream(index).cuda_stream", "raw_stream(index)"])
+        + f"; raw_stream gives current_stream's handle: {same}; outputs: "
+        + group(["empty_like", "new_empty", "empty(shape, dtype, device)"]))
+    log("[K8 issue] call forms: " + group(["CDLL call (launch, cudaGetLastError)", "PyDLL call"]
+                                          + [k for k in us if k.startswith("empty kernel")]))
+    if not same:
+        raise RuntimeError("kernels.raw_stream differs from current_stream().cuda_stream")
+
+
+def perm_rows(rng, dev, extras: bool = True) -> dict:
+    """K7 (expand) at the probe's (8, 1024) and at (16, 1024), and K8
+    (dynroll) at (8, 1024), against their plain versions exactly: K7 at
+    mask densities 0, 1 and 0.6, K8 at shifts 0, 3, 1023, -1025 and 2047
+    (and against torch.roll). Each is timed by CUDA events over
+    back-to-back calls (ms a call, the host's issue rate where that is the
+    longer) and by device time, torch.roll beside K8. Both are
+    launch-bound; the bound is the bytes of their operands. With
+    ``extras``: the launch floor (an empty kernel through the same ctypes
+    path, profiling/launch_floor.py) and the [K8 issue] breakdown."""
     from cra5_tpu_torch.profiling import perm_probe as pp
 
     t = lambda a: torch.from_numpy(a).to(dev)
-    shape = (pp.R, pp.KD)
-    words = t(rng.integers(0, 1 << 16, shape).astype(np.int32))
-    for density in (0.0, 1.0, 0.6):
-        mask = t((rng.random(shape) < density).astype(np.int32))
-        got, want = pp.expand(mask, words), pp.expand_plain(mask, words)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise RuntimeError(f"K7 expand differs from its plain version at density {density}")
-    ms = timed_ms(lambda: pp.expand(mask, words), 200, warmup=10)
-    plain = timed_ms(lambda: pp.expand_plain(mask, words), 20)
-    bound = bytes_bound_ms(3 * words.numel() * 4)
-    log(f"[K7 perm_expand] {shape} exact at densities 0, 1, 0.6; kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bound:.6f} ms (bytes)")
-    rows = {"perm_expand": dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by="bytes", library_ms=None)}
-    for shift in (0, 3, 1023):
+    rows = {}
+    for shape in ((pp.R, pp.KD), (16, pp.KD)):
+        words = t(rng.integers(0, 1 << 16, shape).astype(np.int32))
+        for density in (0.0, 1.0, 0.6):
+            mask = t((rng.random(shape) < density).astype(np.int32))
+            got, want = pp.expand(mask, words), pp.expand_plain(mask, words)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K7 expand differs from its plain version at {shape}, "
+                                   f"density {density}")
+        run = lambda: pp.expand(mask, words)
+        ms, us = timed_ms(run, 2000, warmup=50), device_us(run, 50)
+        plain = timed_ms(lambda: pp.expand_plain(mask, words), 20)
+        bound = bytes_bound_ms(3 * words.numel() * 4)
+        log(f"[K7 perm_expand] {shape} exact at densities 0, 1, 0.6; kernel {ms:.4f} ms, device "
+            f"{us:.2f} us, plain {plain:.4f} ms, bound {bound:.6f} ms (bytes)")
+        if shape == (pp.R, pp.KD):
+            rows["perm_expand"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
+                                       bound_by="bytes", library_ms=None)
+    words = t(rng.integers(0, 1 << 16, (pp.R, pp.KD)).astype(np.int32))
+    for shift in (0, 3, 1023, -1025, 2047):
         s = torch.tensor([shift], dtype=torch.int32, device=dev)
         got = pp.dynroll(words, s)
         if not (torch.equal(got, pp.dynroll_plain(words, s))
                 and torch.equal(got, torch.roll(words, shift, 1))):
             raise RuntimeError(f"K8 dynroll differs from its plain version at shift {shift}")
     s = torch.tensor([3], dtype=torch.int32, device=dev)
-    ms = timed_ms(lambda: pp.dynroll(words, s), 200, warmup=10)
+    run, roll = lambda: pp.dynroll(words, s), lambda: torch.roll(words, 3, 1)
+    ms, lib = alternating_ms({"K8": run, "roll": roll}).values()
+    us, lib_us = device_us(run, 50), device_us(roll, 50)
     plain = timed_ms(lambda: pp.dynroll_plain(words, s), 50, warmup=5)
-    lib = timed_ms(lambda: torch.roll(words, 3, 1), 200, warmup=10)
     bound = bytes_bound_ms(2 * words.numel() * 4 + 4)
-    log(f"[K8 perm_dynroll] {shape} exact at shifts 0, 3, 1023; kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms (reads the shift to the host), torch.roll {lib:.4f} ms, "
-        f"bound {bound:.6f} ms (bytes)")
+    log(f"[K8 perm_dynroll] {tuple(words.shape)} exact at shifts 0, 3, 1023, -1025, 2047; kernel "
+        f"{ms:.4f} ms, device {us:.2f} us; torch.roll {lib:.4f} ms, device {lib_us:.2f} us; "
+        f"plain {plain:.4f} ms (reads the shift to the host); bound {bound:.6f} ms (bytes)")
     rows["perm_dynroll"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                 bound_by="bytes", library_ms=lib)
-    # a launch-bound call's event time above is its issue rate; the profiler
-    # gives the device's own time per launch, for K7, K8 and torch.roll alike
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if extras:
+        from cra5_tpu_torch.profiling import launch_floor
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            pp.expand(mask, words)
-            pp.dynroll(words, s)
-            torch.roll(words, 3, 1)
-        torch.cuda.synchronize()
-    dev_us = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            name = re.search(r"perm_\w+", e.name)
-            dev_us[name.group(0) if name else "torch.roll"].append(
-                e.time_range.end - e.time_range.start)
-    log("[K7/K8 device] " + ", ".join(f"{n} {statistics.median(v):.2f} us median of {len(v)}"
-                                        for n, v in sorted(dev_us.items())))
+        empty = lambda: launch_floor.empty(dev.index)
+        log(f"[launch floor] an empty kernel through the same ctypes path: device "
+            f"{device_us(empty, 50):.2f} us, {timed_ms(empty, 2000, warmup=50):.4f} ms a call "
+            f"(events), host {host_us({'floor': empty})['floor']:.3f} us a call")
+        k8_host_breakdown(dev, words, s)
     return rows
 
 
@@ -1366,8 +1491,8 @@ def phase_api(dev) -> dict:
 
 
 def main(args) -> int:
-    if args not in ([], ["--coder"]):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--coder]; got {args}")
+    if args not in ([], ["--coder"], ["--perm"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--coder | --perm]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1378,8 +1503,11 @@ def main(args) -> int:
     if args:
         import cra5_tpu_torch
 
-        log(f"[coder] cra5_tpu_torch from {cra5_tpu_torch.__path__[0]}")
-        coder_rows(dev, np.random.default_rng(SEED), floor=False)
+        log(f"[{args[0][2:]}] cra5_tpu_torch from {cra5_tpu_torch.__path__[0]}")
+        if args == ["--coder"]:
+            coder_rows(dev, np.random.default_rng(SEED), floor=False)
+        else:
+            perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
     rows = phase_kernels(dev)
     ref_launches = phase_reference(dev)

@@ -187,10 +187,6 @@ def refill_ranks_plain(refill: torch.Tensor, geo: DecodeGeometry) -> torch.Tenso
     return out
 
 
-def _stream_args(dev: torch.device):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -222,7 +218,8 @@ def _decode_on_card(sorted_, cdf, slots, rows, states, words, max_values, offset
         int(sorted_), cdf.data_ptr(), slots.data_ptr(), cdf.shape[0], cdf.shape[1],
         slots.shape[1], *(ptr(t) for t in rows), max_values.data_ptr(), offsets.data_ptr(),
         states.data_ptr(), ptr(words), W, M, K, geo.blocks, geo.threads, geo.lanes_per_thread,
-        int(geo.cooperative), ptr(sync), values.data_ptr(), sentinel.data_ptr(), _stream_args(dev),
+        int(geo.cooperative), ptr(sync), values.data_ptr(), sentinel.data_ptr(),
+        kernels.raw_stream(dev.index),
     )
     kernels.check(status, "rans_decode_sorted" if sorted_ else "rans_decode_generic")
     return values, sentinel
@@ -264,7 +261,7 @@ def rans_encode(starts: torch.Tensor, freqs: torch.Tensor):
     words = torch.empty((M, K), dtype=torch.int16, device=dev)
     status = kernels.lib().cra5_rans_encode(
         starts.data_ptr(), freqs.data_ptr(), M, K,
-        states.data_ptr(), emit.data_ptr(), words.data_ptr(), _stream_args(dev),
+        states.data_ptr(), emit.data_ptr(), words.data_ptr(), kernels.raw_stream(dev.index),
     )
     kernels.check(status, "rans_encode")
     rans_encode.launches += 1

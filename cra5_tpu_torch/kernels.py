@@ -9,6 +9,13 @@ returns ``cudaGetLastError()`` and ``check`` raises on anything but 0.
 Nothing is compiled at import time, and nothing here falls back: a missing
 ``nvcc`` or a failed build raises.
 
+The launch path of a short kernel is mostly host time, so it is kept
+lean: ``raw_stream(index)`` gives the caller's current stream as the raw
+handle without building a ``torch.cuda.Stream`` per call, and ``lib()``
+binds each C function once (its argument types set at load, the function
+object kept on the library), so a wrapper calls
+``kernels.lib().<entry>(...)`` and ``check``s the status.
+
 Each kernel wrapper carries an integer ``launches`` attribute that it
 increments where, and only where, it launches its kernel.
 """
@@ -23,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, List
+
+import torch
 
 _SRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "cra5_tpu_torch"
@@ -49,7 +58,7 @@ _SIGNATURES = {
     "cra5_flash_attn_fwd_anydim": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "cra5_flash_attn_bwd_dkv_anydim": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "cra5_flash_attn_bwd_dq_anydim": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "cra5_perm_expand": [_P, _P, _P, _I, _P],
+    "cra5_perm_expand": [_P, _P, _P, _I, _I, _I, _P],
     "cra5_perm_dynroll": [_P, _P, _P, _I, _I, _P],
 }
 
@@ -136,6 +145,25 @@ def build() -> Path:
     return out
 
 
+def build_single(src: Path, deps=()) -> Path:
+    """Compile one source apart from the kernel library (a profiling
+    probe) into its own shared library, once per content of it and its
+    ``deps``, with the kernels' flags; returns its path."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in (src, *deps):
+        digest.update(p.read_bytes())
+    out = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", str(src), "-o", str(tmp)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
@@ -152,3 +180,15 @@ def lib() -> ctypes.CDLL:
 def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def _no_cuda(index: int) -> int:
+    raise RuntimeError("this PyTorch build has no CUDA: there is no stream to launch on")
+
+
+# raw_stream(device_index) -> int: the cudaStream_t of the caller's current
+# stream on that device, the handle torch.cuda.current_stream(index)
+# .cuda_stream gives (so a launch under ``with torch.cuda.stream(s):`` runs
+# on s), without constructing a Stream object, which enters and leaves a
+# device context on every call.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)

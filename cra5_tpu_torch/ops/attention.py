@@ -106,10 +106,6 @@ def _kernel_entry(name: str, *ts: torch.Tensor):
     return lambda *args: entry(*args[:-1], code, args[-1])
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # ------------------------------------------------------------------ K4
 def flash_attention_plain(q, k, v, scale: float):
     """(B, H, N, D) -> (out (B, H, N, D) in q's dtype, lse (B, H, N) f32),
@@ -145,7 +141,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, N), dtype=_acc_dtype(q.dtype), device=q.device)
     status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B * H, N, D, float(scale), _stream(q),
+        B * H, N, D, float(scale), kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_forward")
     flash_attention_forward.launches += 1
@@ -190,7 +186,8 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, scale: float):
     dq = torch.empty_like(q)
     status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B * H, N, D, float(scale), _stream(q),
+        delta.data_ptr(), dq.data_ptr(), B * H, N, D, float(scale),
+        kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_backward_dq")
     flash_attention_backward_dq.launches += 1
@@ -226,7 +223,7 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, scale: float):
     status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, N, D, float(scale),
-        _stream(q),
+        kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_backward_dkv")
     flash_attention_backward_dkv.launches += 1

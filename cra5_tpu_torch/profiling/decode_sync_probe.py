@@ -27,8 +27,6 @@ prints each time (CUDA events over back-to-back launches) and returns them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import subprocess
 from pathlib import Path
 from typing import Dict
 
@@ -44,15 +42,8 @@ M_STEPS = 324  # the 268v y stream's steps on 8192 lanes
 
 def build() -> ctypes.CDLL:
     """Compile the probe's kernels (once per source content) and load them."""
-    digest = hashlib.sha256(_SRC.read_bytes())
-    for p in sorted((_SRC.parents[2] / "csrc").glob("*.cuh")):
-        digest.update(p.read_bytes())
-    out = kernels.BUILD_DIR / f"decode_sync_probe_{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", str(_SRC), "-o", str(out)],
-                       check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
+    headers = sorted((_SRC.parents[2] / "csrc").glob("*.cuh"))
+    lib = ctypes.CDLL(str(kernels.build_single(_SRC, headers)))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.probe_sync.argtypes = [I, I, I, I, P, ctypes.POINTER(ctypes.c_float)]
     lib.probe_k3_slot.argtypes = [P, I, P, I, I, P, P, P, P, P, P, P, LL, I, I, P, P, P]
@@ -121,7 +112,7 @@ def main(device=None) -> Dict[str, float]:
             cdf.data_ptr(), cdf.shape[1], slots.data_ptr(), S, shift, r0.data_ptr(),
             r1.data_ptr(), split.data_ptr(), coder._max_values.data_ptr(),
             coder._offsets.data_ptr(), states.data_ptr(), words.data_ptr(), words.numel(), M, K,
-            v.data_ptr(), s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            v.data_ptr(), s.data_ptr(), kernels.raw_stream(v.get_device())),
             "probe_k3_slot")
         return v, s
 

@@ -8,7 +8,8 @@ PyTorch calls here (``torch.sort``, ``torch.argsort``, indexing and
 ``scatter_``); its two Pallas kernels are hand-written CUDA
 (``csrc/perm_probe.cu``), each wrapper beside its plain PyTorch version:
 given CUDA tensors a wrapper launches its kernel and counts the launch,
-given CPU tensors it runs the plain version.
+given CPU tensors it runs the plain version. Both wrappers take the lean
+launch path of ``kernels.py``.
 
     python -m cra5_tpu_torch.profiling.perm_probe [--device cpu] [--n N]
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ from ..device import resolve_device
 N = 2_654_208
 NCDFS = 64
 R, KD = 8, 1024  # the Pallas kernels' (rows, lanes)
-MAX_EXPAND = 16384  # K7 holds R * Kd int32 words in one block's shared memory
+MAX_EXPAND = 16384  # K7 keeps each position's displacement in 16 bits of shared memory
+_I32 = torch.int32
 
 
 def _sync(device: torch.device) -> None:
@@ -92,7 +94,18 @@ def sort_roundtrip(idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- K7
+def expand_geometry(K: int) -> Tuple[int, int]:
+    """(segments E, threads T) of K7's one block for K = R * Kd positions:
+    T is a whole number of warps, at most 1024, and thread t owns position
+    e * T + t of each segment e < E (a power of two; the positions from K
+    on are empty)."""
+    T = min(1024, -(-K // 32) * 32)
+    return 1 << (-(-K // T) - 1).bit_length(), T
+
+
 def _check_expand(mask: torch.Tensor, words: torch.Tensor) -> None:
+    """What K7 takes, checked alike on every device (ints, dtypes and
+    flags only: a short kernel's call is mostly host time)."""
     if words.dim() != 2 or mask.shape != words.shape:
         raise ValueError(f"mask and words must share one (R, Kd) shape, got "
                          f"{tuple(mask.shape)} and {tuple(words.shape)}")
@@ -102,8 +115,12 @@ def _check_expand(mask: torch.Tensor, words: torch.Tensor) -> None:
     if Kd & (Kd - 1) or R_ * Kd == 0 or R_ * Kd > MAX_EXPAND:
         raise ValueError(f"expand takes (R, Kd) with Kd a power of two and 0 < R * Kd <= "
                          f"{MAX_EXPAND}, got ({R_}, {Kd})")
-    if mask.device != words.device:
+    index = words.get_device()  # -1 off the card, where is_meta tells the CPU from meta
+    if mask.get_device() != index or index < 0 and mask.is_meta != words.is_meta:
         raise ValueError("mask and words must lie on one device")
+    if (mask.dtype is not _I32 or words.dtype is not _I32
+            or not mask.is_contiguous() or not words.is_contiguous()):
+        raise TypeError("K7 takes contiguous int32 mask and words")
 
 
 def expand_plain(mask: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
@@ -129,19 +146,18 @@ def expand_plain(mask: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
 
 @kernels.counted
 def expand(mask: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
-    """K7 on CUDA tensors (int32, contiguous), the plain version on CPU ones."""
+    """K7 on CUDA tensors, the plain version on CPU ones: contiguous int32
+    (R, Kd) mask and words on one device, Kd a power of two."""
     _check_expand(mask, words)
-    if words.device.type == "cpu":
-        return expand_plain(mask, words)
-    if words.device.type != "cuda":
+    if not words.is_cuda:
+        if words.device.type == "cpu":
+            return expand_plain(mask, words)
         raise ValueError(f"unsupported device {words.device}")
-    for t in (mask, words):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError("K7 takes contiguous int32 mask and words")
+    K = words.numel()
     out = torch.empty_like(words)
     status = kernels.lib().cra5_perm_expand(
-        mask.data_ptr(), words.data_ptr(), out.data_ptr(), words.numel(),
-        torch.cuda.current_stream(words.device).cuda_stream)
+        mask.data_ptr(), words.data_ptr(), out.data_ptr(), K, *expand_geometry(K),
+        kernels.raw_stream(words.get_device()))
     kernels.check(status, "expand")
     expand.launches += 1
     return out
@@ -153,22 +169,31 @@ def dynroll_plain(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return torch.roll(x, int(shift.reshape(-1)[0]), 1)
 
 
+def _check_dynroll(x: torch.Tensor, shift: torch.Tensor) -> None:
+    """What K8 takes, checked alike on every device (ints, dtypes and
+    flags only: a call is mostly host time)."""
+    index = x.get_device()  # -1 off the card, where is_meta tells the CPU from meta
+    if (x.dim() != 2 or shift.numel() != 1 or shift.get_device() != index
+            or index < 0 and shift.is_meta != x.is_meta):
+        raise ValueError("dynroll takes a (R, Kd) tensor and a one-element shift on its device")
+    if x.dtype is not _I32 or shift.dtype is not _I32 or not x.is_contiguous():
+        raise TypeError("K8 takes a contiguous int32 x and an int32 shift")
+
+
 @kernels.counted
 def dynroll(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """K8: roll the rows of a (R, Kd) int32 tensor by a shift that stays on
-    the device (a one-element int32 tensor)."""
-    if x.dim() != 2 or shift.numel() != 1 or shift.device != x.device:
-        raise ValueError("dynroll takes a (R, Kd) tensor and a one-element shift on its device")
-    if x.device.type == "cpu":
-        return dynroll_plain(x, shift)
-    if x.device.type != "cuda":
+    """K8: roll the rows of a contiguous (R, Kd) int32 tensor by a shift
+    that stays on the device (a one-element int32 tensor); the plain
+    version on CPU tensors."""
+    _check_dynroll(x, shift)
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dynroll_plain(x, shift)
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.int32 or shift.dtype != torch.int32 or not x.is_contiguous():
-        raise TypeError("K8 takes a contiguous int32 x and an int32 shift")
+    R_, Kd = x.shape
     out = torch.empty_like(x)
-    status = kernels.lib().cra5_perm_dynroll(
-        x.data_ptr(), shift.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    status = kernels.lib().cra5_perm_dynroll(x.data_ptr(), shift.data_ptr(), out.data_ptr(), R_,
+                                             Kd, kernels.raw_stream(x.get_device()))
     kernels.check(status, "dynroll")
     dynroll.launches += 1
     return out

@@ -677,10 +677,14 @@ def test_268v_global_block_f32_through_flash_matches_the_plain_path(card):
 
 
 @pytest.mark.parametrize("R,Kd,density", [(8, 1024, 0.0), (8, 1024, 0.6), (8, 1024, 1.0),
-                                          (16, 1024, 0.6), (3, 32, 0.5), (1, 64, 0.3)])
+                                          (16, 1024, 0.6), (3, 32, 0.5), (1, 64, 0.3),
+                                          (16, 1024, 0.0), (16, 1024, 1.0), (1, 16384, 0.6),
+                                          (5, 2, 0.5), (3, 1, 1.0)])
 def test_expand_equals_plain(card, rng, R, Kd, density):
-    """K7 in one block: (16, 1024) takes 64 KiB of dynamic shared memory,
-    (3, 32) and (1, 64) fewer than 1024 threads."""
+    """K7 in one block: (16, 1024) and (1, 16384) take 16 positions a
+    thread and 96 KiB of dynamic shared memory, (3, 32) and (1, 64) fewer
+    than 1024 threads, (5, 2) and (3, 1) a K that is not a multiple of 4
+    (the kernel's scalar loads and stores)."""
     mask = torch.from_numpy((rng.random((R, Kd)) < density).astype(np.int32)).to(card)
     words = torch.from_numpy(rng.integers(0, 1 << 16, (R, Kd)).astype(np.int32)).to(card)
     before = pp.expand.launches
@@ -691,7 +695,7 @@ def test_expand_equals_plain(card, rng, R, Kd, density):
 
 
 @pytest.mark.parametrize("shape", [(8, 1024), (3, 100)])
-@pytest.mark.parametrize("shift", [0, 3, 1023, 1024, 5000, -3])
+@pytest.mark.parametrize("shift", [0, 3, 1023, 1024, 5000, -3, -1025, 2047])
 def test_dynroll_equals_plain(card, rng, shape, shift):
     x = torch.from_numpy(rng.integers(0, 1 << 16, shape).astype(np.int32)).to(card)
     s = torch.tensor([shift], dtype=torch.int32, device=card)
@@ -700,3 +704,91 @@ def test_dynroll_equals_plain(card, rng, shape, shift):
     torch.cuda.synchronize()
     assert pp.dynroll.launches == before + 1
     assert torch.equal(got, pp.dynroll_plain(x, s))
+
+
+def test_raw_stream_is_the_current_stream(card):
+    """The launch path's stream lookup gives the handle of
+    torch.cuda.current_stream(), outside and inside a stream context."""
+    index = card.index
+    assert kernels.raw_stream(index) == torch.cuda.current_stream().cuda_stream
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert kernels.raw_stream(index) == torch.cuda.current_stream().cuda_stream == s.cuda_stream
+    assert kernels.raw_stream(index) == torch.cuda.current_stream().cuda_stream != s.cuda_stream
+
+
+def _side_stream_case(name, rng, card, gc_table):
+    """(wrapper, args, late, same): the test fills args[late] late on the
+    default stream; same(got, want) compares two results of the wrapper."""
+    t = lambda a: torch.from_numpy(a).to(card)
+    exact = lambda a, b: _equal(a, b) if isinstance(a, tuple) else torch.equal(a, b)
+    if name in ("expand", "dynroll"):
+        words = t(rng.integers(1, 1 << 16, (8, 1024)).astype(np.int32))
+        if name == "expand":
+            return pp.expand, (t((rng.random((8, 1024)) < 0.6).astype(np.int32)), words), 1, exact
+        return pp.dynroll, (words, torch.tensor([3], dtype=torch.int32, device=card)), 0, exact
+    if name == "rans_encode":
+        freqs = t(rng.integers(1, 60000, (37, 300)).astype(np.int32))
+        starts = t(rng.integers(1, 5000, (37, 300)).astype(np.int32))
+        same = lambda a, b: (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                             and torch.equal(a[2][a[1]], b[2][b[1]]))  # words where emitted
+        return rk.rans_encode, (starts, freqs), 0, same
+    if name in ("rans_decode_generic", "rans_decode_sorted"):
+        K, n = 2048, 2048 * 5
+        idx = rng.integers(20, 24, n).astype(np.int32)
+        coder = LaneCoder(gc_table, num_lanes=K, device=card)
+        if name == "rans_decode_generic":
+            coder._sorted_ok = lambda n, K: False
+        data = coder.encode(_sample(rng, gc_table, idx, 0.01), idx)
+        hdr = parse_v2_header(data)
+        _, states, words, _ = coder._upload(data, hdr)
+        assert hdr[4] == hdr[5] == (name == "rans_decode_sorted")  # sorted and kernel-safe
+        if name == "rans_decode_sorted":
+            sidx = merge_tiny_buckets(_sort_by_index(t(idx))[0], coder.num_indexes, K)
+            rows = sorted_rows(sidx.reshape(-1, K))
+        else:
+            rows = (t(idx).reshape(-1, K),)
+        args = (coder._cdf, *rows, states, words, coder._max_values, coder._offsets)
+        return getattr(rk, name), args, len(args) - 1, exact  # late: the offsets
+    if name == "flash_attention_forward":
+        q, k, v = (t(rng.standard_normal((1, 2, 300, 64), np.float32)).to(torch.bfloat16)
+                   for _ in range(3))
+        return flash_attention_forward, (q, k, v, 0.125), 2, exact
+    ops = _grad_operands(rng, card, 1, 2, 300)
+    fn = {"flash_attention_backward_dq": flash_attention_backward_dq,
+          "flash_attention_backward_dkv": flash_attention_backward_dkv}[name]
+    return fn, (*ops, 0.125), 3, exact  # late: dout
+
+
+@pytest.mark.parametrize("name", ["expand", "dynroll", "rans_encode", "rans_decode_generic",
+                                  "rans_decode_sorted", "flash_attention_forward",
+                                  "flash_attention_backward_dq", "flash_attention_backward_dkv"])
+def test_wrappers_launch_on_the_callers_stream(card, rng, gc_table, name):
+    """Every kernel wrapper launches on the current stream. One input
+    holds a decoy of zeros; the default stream sleeps ~0.1 s and then
+    copies the real input over it; meanwhile, under
+    ``with torch.cuda.stream(s)`` (a stream that does not wait for the
+    default one), the wrapper launches. A launch on s runs at once and
+    reads the decoy; one on the default or legacy stream would run after
+    the copy and read the real input. The decode wrappers synchronize s
+    on the host before they launch, which this order leaves harmless."""
+    fn, args, late, same = _side_stream_case(name, rng, card, gc_table)
+    decoy = list(args)
+    decoy[late] = torch.zeros_like(args[late])
+    real, want = fn(*args), fn(*decoy)
+    torch.cuda.synchronize()
+    assert not same(want, real)  # the two orders would differ
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):  # s's own allocator blocks, so no cudaMalloc below
+        fn(*args)
+    torch.cuda.synchronize()
+    before = fn.launches
+    torch.cuda._sleep(200_000_000)  # on the default stream: far longer than any launch here
+    decoy[late].copy_(args[late])
+    with torch.cuda.stream(s):
+        got = fn(*decoy)
+    s.synchronize()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(decoy[late], args[late])
+    assert same(got, want)

@@ -100,6 +100,147 @@ def test_expand_refuses_shapes_it_cannot_roll_flat():
         pp.expand(torch.zeros((32, 1024), dtype=torch.int32), torch.zeros((32, 1024), dtype=torch.int32))
 
 
+def k7_mirror(mask: np.ndarray, words: np.ndarray) -> np.ndarray:
+    """K7 as csrc/perm_probe.cu computes it, in numpy: thread t of each
+    of expand_geometry(K)'s blocks reads position e * T + t of each
+    segment e; each warp's set lanes of a segment are a ballot, whose count
+    goes to entry e * 32 + w of a flat array; warp 0 turns that array into
+    exclusive prefixes, lane l summing its E entries from l * E and then
+    taking a Hillis-Steele scan of the lane sums (__shfl_up_sync: lane l
+    adds lane l - o where l >= o); a position's rank is its entry plus the
+    ballot's lower lanes; d is kept as 16 bits; then each
+    position (block e walks segment e) steps q back by b, for b from the
+    highest power of two below K down to 1, where d[q] has bit b, reading
+    d[q] again only after q moved, and takes words[q]. d[q] <= q, so q
+    never passes 0: the passes' flat roll never wraps."""
+    K = mask.size
+    E, T = pp.expand_geometry(K)
+    W = T // 32
+    assert T % 32 == 0 and 32 <= T <= 1024 and E & (E - 1) == 0 and T * E >= K
+    flags = np.zeros(E * T, np.int64)
+    flags[:K] = mask.reshape(-1) != 0
+    ballot = flags.reshape(E, W, 32)  # [segment, warp, lane]
+    count = np.zeros((E, 32), np.int64)  # entries of warps >= W read as 0
+    count[:, :W] = ballot.sum(2)
+    v = count.reshape(32, E)  # lane l's E entries
+    inc = v.sum(1)
+    for o in (1, 2, 4, 8, 16):
+        inc[o:] += inc[:-o].copy()
+    base = ((inc - v.sum(1))[:, None] + np.cumsum(v, 1) - v).reshape(E, 32)
+    rank = base[:, :W, None] + np.cumsum(ballot, 2) - ballot
+    pos = np.arange(E * T).reshape(E, W, 32)
+    d = np.where(ballot != 0, pos - rank, 0).reshape(-1)
+    assert d[K:].max(initial=0) == 0 and d.min() >= 0 and d.max() < 1 << 16
+    ds = d[:K].astype(np.uint16)
+    q = np.arange(K)
+    dq = ds.astype(np.int64)  # each position's own d, kept in registers
+    b = 1 << (K - 1).bit_length() - 1 if K > 1 else 0
+    while b:
+        moved = (dq & b) != 0
+        q = np.where(moved, q - b, q)
+        assert q.min() >= 0
+        dq = np.where(moved, ds[q], dq)
+        b >>= 1
+    return words.reshape(-1)[q].reshape(words.shape)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.6, 1.0])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k7_mirror_equals_plain_and_the_pallas_kernel(jax_kernels, density, seed):
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((pp.R, pp.KD)) < density).astype(np.int32)
+    words = rng.integers(0, 1 << 16, (pp.R, pp.KD)).astype(np.int32)
+    got = k7_mirror(mask, words)
+    np.testing.assert_array_equal(got, _run(jax_kernels["expand"], mask, words))
+    np.testing.assert_array_equal(
+        got, pp.expand_plain(torch.from_numpy(mask), torch.from_numpy(words)).numpy())
+
+
+@pytest.mark.parametrize("R,Kd", [(16, 1024), (3, 32), (1, 64), (1, 16384), (5, 2), (3, 1)])
+def test_k7_mirror_equals_plain(R, Kd):
+    """16 segments of 1024 threads, one segment of fewer, a last warp that
+    is part empty."""
+    rng = np.random.default_rng(R * Kd)
+    mask = (rng.random((R, Kd)) < 0.5).astype(np.int32)
+    words = rng.integers(0, 1 << 16, (R, Kd)).astype(np.int32)
+    np.testing.assert_array_equal(
+        k7_mirror(mask, words),
+        pp.expand_plain(torch.from_numpy(mask), torch.from_numpy(words)).numpy())
+
+
+def test_expand_geometry():
+    assert pp.expand_geometry(8192) == (8, 1024)
+    assert pp.expand_geometry(16384) == (16, 1024)
+    assert pp.expand_geometry(4096) == (4, 1024)
+    assert pp.expand_geometry(1024) == (1, 1024)
+    assert pp.expand_geometry(96) == (1, 96)
+    assert pp.expand_geometry(3) == (1, 32)
+    assert pp.expand_geometry(4100) == (8, 1024)  # segments 5-7 empty
+
+
+def _i32(shape, device, **kw):
+    return torch.zeros(shape, dtype=kw.pop("dtype", torch.int32), device=device)
+
+
+# (what, mask, words, error) for K7; every refusal holds on each device
+EXPAND_REFUSALS = {
+    "rank": (lambda d: _i32((8, 4, 32), d), lambda d: _i32((8, 4, 32), d), ValueError),
+    "shapes differ": (lambda d: _i32((8, 64), d), lambda d: _i32((8, 32), d), ValueError),
+    "dtype": (lambda d: _i32((8, 32), d, dtype=torch.int64), lambda d: _i32((8, 32), d),
+              TypeError),
+    "words dtype": (lambda d: _i32((8, 32), d), lambda d: _i32((8, 32), d, dtype=torch.float32),
+                    TypeError),
+    "non-contiguous": (lambda d: _i32((32, 8), d).t(), lambda d: _i32((8, 32), d), TypeError),
+    "other device": (lambda d: _i32((8, 32), "meta" if d == "cpu" else "cpu"),
+                     lambda d: _i32((8, 32), d), ValueError),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", list(EXPAND_REFUSALS))
+def test_expand_refuses(device, case):
+    mask, words, err = EXPAND_REFUSALS[case]
+    kernels.reset_launch_counts()
+    with pytest.raises(err):
+        pp.expand(mask(device), words(device))
+    assert kernels.launch_counts()["expand"] == 0
+
+
+DYNROLL_REFUSALS = {
+    "rank": (lambda d: _i32((8,), d), lambda d: _i32((1,), d), ValueError),
+    "shift size": (lambda d: _i32((8, 32), d), lambda d: _i32((2,), d), ValueError),
+    "dtype": (lambda d: _i32((8, 32), d, dtype=torch.int64), lambda d: _i32((1,), d),
+              TypeError),
+    "shift dtype": (lambda d: _i32((8, 32), d), lambda d: _i32((1,), d, dtype=torch.int64),
+                    TypeError),
+    "non-contiguous": (lambda d: _i32((32, 8), d).t(), lambda d: _i32((1,), d), TypeError),
+    "shift on another device": (lambda d: _i32((8, 32), d),
+                                lambda d: _i32((1,), "meta" if d == "cpu" else "cpu"),
+                                ValueError),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", list(DYNROLL_REFUSALS))
+def test_dynroll_refuses(device, case):
+    x, shift, err = DYNROLL_REFUSALS[case]
+    kernels.reset_launch_counts()
+    with pytest.raises(err):
+        pp.dynroll(x(device), shift(device))
+    assert kernels.launch_counts()["dynroll"] == 0
+
+
+@pytest.mark.parametrize("fn,args", [
+    (pp.expand, lambda: (_i32((8, 32), "meta"), _i32((8, 32), "meta"))),
+    (pp.dynroll, lambda: (_i32((8, 32), "meta"), _i32((1,), "meta"))),
+])
+def test_meta_tensors_that_pass_the_checks_are_refused(fn, args):
+    """Neither wrapper computes on a device that is neither the CPU nor a
+    card."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*args())
+
+
 def test_xla_probe_counterparts_match_jax():
     """take (fill) and scatter (drop), negative and out-of-range indexes
     included, and the packed-key sort, against the JAX calls of the probe."""
