@@ -47,6 +47,26 @@ result line is printed then:
      ranges: one roundtrip with every stage ending in a synchronize (host
      ms per stage), then one unsynchronised roundtrip under torch.profiler
      (device ms by kernel name, and the device's busy share of the wall);
+  6b. calibrate: the same bf16 model's entropy side (h_a, h_s, the
+     EntropyBottleneck) fit by train/calibrate.py::calibrate_entropy on two
+     seeded latents through g_a (K4 at (1, 16, 10368, 64)) for the bench's
+     600 steps: the bits per latent element at the first and the last
+     step (the last lower), every tower parameter bitwise unchanged and
+     without a gradient, the counters zeroed just before and read just
+     after;
+  6c. calibrated roundtrip: the calibrated codec (CDF tables rebuilt)
+     compresses and decompresses the main phase's field: y and z bytes,
+     the share of escapes, stage ms and the roundtrip beside the
+     uncalibrated figures (the streams must be smaller), the decoded
+     symbols equal to the encoded ones, the counters zeroed and read
+     around the timed roundtrip;
+  6d. bench: cra5_tpu_torch/bench.py's functions in-process on the
+     calibrated model at a short setting (3 iterations, one pipelined
+     window of 12 roundtrips on 6 threads with a stream each, each
+     pipelined measurement first holding a roundtrip a thread to the
+     sequential bytes and symbols; the production point, config 4, config
+     3 at batch 2; configs 1 and 5 skipped): the detail JSON and the
+     headline JSON, the counters zeroed and read around it;
   7. train paths: Trainer.fit on the 268v VAEformer with remat, seeded
      init, synthetic N(0, 1) x 0.5 fields, first in bf16, then in float32
      (the JAX package's training default) once the bf16 phase has freed
@@ -54,6 +74,16 @@ result line is printed then:
      counters zeroed just before and read just after (14 forward, 7 dQ and
      7 dK/dV launches a step, of the bf16 kernels in the one, of the
      float32 kernels in the other), then one step under torch.profiler;
+  7b. train CLI: cra5_tpu_torch.tools.train.run (the body of its main) on
+     a synthetic per-channel .npy tree of two 268 x 721 x 1440 timestamps
+     (ERA5NpyDataset.save_timestep) through a config whose _base_ is the
+     port's train_era5_268v_1h.py: the float32 268v model without remat,
+     batch 1, its dp=-1 mesh resolving to this card, three steps with the
+     counters zeroed just before and read just after (float32 K4, K5 and K6
+     seven times a step each); step s, peak memory, a finite loss,
+     parameters moved from their seeded init, the checkpoint written
+     reloading equal to them, and one batch's read and copy beside one
+     step on a batch already on the card;
   8. probe path: cra5_tpu_torch.profiling.perm_probe.main on the card (the
      torch sort/take/scatter probes at 2.65 M elements, K7 and K8), the
      counters zeroed just before and read just after;
@@ -73,16 +103,23 @@ any-head-dim K4, K5 and K6 on the tensor cores (every head dim but 64) at
 head dim 72 in float32, bf16 and float16 at (1, 5, 2048, 72) and (1, 5,
 10368, 72) against their plain versions, two calls bitwise equal, timed
 beside the SIMT K4, K5 and K6 (held to their plain versions too), SDPA and
-their tensor-core bound; and K7
+their tensor-core bound; the SIMT K4, K5 and K6 at head dims past 256 (D =
+320 and 520, walked in 256-column chunks) at (1, 2, 2048, D) in bf16 and
+float32 against their plain versions, two calls bitwise equal, with event
+ms and device us beside SDPA's and the operations bound
+([K4/K5/K6 SIMT D=...] lines); and K7
 (perm_expand) at (8, 1024) and (16, 1024) and K8 (perm_dynroll) at (8,
 1024) against their plain versions exactly, with the event and device
 time of each and of torch.roll, the launch floor (an empty kernel through
 the same ctypes path) and where a K8 call's host time goes ([K8 issue]);
-the reference phase adds the 268v global block in float32. The line before
+the reference phase adds the 268v global block in float32. Before the last
+two lines comes the bench's headline JSON. The line before
 the last is a JSON object listing every kernel (the float32 K4, K5 and K6
 rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
-of the bf16 paths; the head-dim-72 rows those of the hyper_width path in
+of the bf16 paths, the calibration's, the calibrated roundtrip's and the
+bench's included; the float32 rows those of the train CLI too; the
+head-dim-72 rows those of the hyper_width path in
 their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
 
@@ -441,6 +478,7 @@ def phase_kernels(dev) -> dict:
     rows.update(flash_backward_rows(rng, dev))
     rows.update(flash_f32_rows(rng, dev))
     rows.update(flash_anydim_rows(rng, dev))
+    flash_wide_rows(rng, dev)
     rows.update(perm_rows(rng, dev))
     return rows
 
@@ -806,6 +844,93 @@ def flash_anydim_rows(rng, dev) -> dict:
     return rows
 
 
+def flash_wide_rows(rng, dev) -> None:
+    """C5: the SIMT K4, K5 and K6 (csrc/flash_attn_any.cu) at head dims past
+    256, which they walk in 256-column chunks, at (1, 2, 2048, D) for D = 320
+    and 520 in bf16 and float32: each against its plain version within the
+    bound of the kernels of the same width, two calls bitwise equal; then
+    event ms and device us a call of each beside SDPA's forward and
+    backward (forward + backward less forward) on the same operands, and
+    the operations bound at D (bf16 at 989 TFLOP/s, float32 as three TF32
+    products at 495) with the exp floor beside it."""
+    from cra5_tpu_torch.ops.attention import (
+        anydim_supports,
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
+        flash_attention_forward,
+        flash_attention_plain,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, N = 1, 2, 2048
+    for D in (320, 520):
+        scale = D ** -0.5
+        for dtype, rtol, lse_atol in ((torch.bfloat16, FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
+                                      (torch.float32, FLASH_F32_RTOL, FLASH_F32_LSE_ATOL)):
+            assert not anydim_supports(dtype, D)
+            q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
+                           .to(dev, dtype) for _ in range(4))
+            fwd = lambda: flash_attention_forward(q, k, v, scale)
+            out, lse = fwd()
+            delta = (do.float() * out.float()).sum(-1)
+            ops = (q, k, v, do, lse, delta, scale)
+            dq = lambda: flash_attention_backward_dq(*ops)
+            dkv = lambda: flash_attention_backward_dkv(*ops)
+            got = {"out": out, "dq": dq()}
+            got["dk"], got["dv"] = dkv()
+            again = {"out": fwd()[0], "dq": dq()}
+            again["dk"], again["dv"] = dkv()
+            same = all(torch.equal(got[n], again[n]) for n in got)
+            ref_out, ref_lse = flash_attention_plain(q, k, v, scale)
+            refs = {"out": ref_out, "dq": flash_attention_backward_dq_plain(*ops)}
+            refs["dk"], refs["dv"] = flash_attention_backward_dkv_plain(*ops)
+            torch.cuda.synchronize()
+            errs = {n: ((a.float() - refs[n].float()).abs().max().item(),
+                        rtol * refs[n].float().abs().max().item()) for n, a in got.items()}
+            lerr = (lse - ref_lse).abs().max().item()
+            finite = all(bool(torch.isfinite(a).all()) for a in got.values())
+            if not finite or not same or lerr > lse_atol or any(e > b for e, b in errs.values()):
+                raise RuntimeError(f"SIMT K4-K6 {dtype} at {(B, H, N, D)}: (err, bound) {errs}, "
+                                   f"lse err {lerr}, finite {finite}, two calls bitwise equal "
+                                   f"{same}")
+            del got, again, refs, ref_out, ref_lse
+            ms = {"fwd": timed_ms(fwd, 5), "dq": timed_ms(dq, 5), "dkv": timed_ms(dkv, 5)}
+            qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+            lib_f = lambda: sdpa(qg, kg, vg, scale=scale)
+            lib_fb = lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale), (qg, kg, vg), do)
+            lib = {"fwd": timed_ms(lib_f, 5)}
+            lib["dq"] = lib["dkv"] = timed_ms(lib_fb, 5) - lib["fwd"]
+            dev_us = {"fwd": device_us(fwd, 5), "dq": device_us(dq, 5), "dkv": device_us(dkv, 5),
+                      "sdpa forward": device_us(lib_f, 5),
+                      "sdpa forward + backward": device_us(lib_fb, 5)}
+            flops = {"fwd": 4 * B * H * N * N * D, "dq": 6 * B * H * N * N * D,
+                     "dkv": 8 * B * H * N * N * D}
+            mult, peak = (3, TF32_FLOPS) if dtype == torch.float32 else (1, BF16_FLOPS)
+            io, stats = B * H * N * D * q.element_size(), B * H * N * 4
+            nbytes = {"fwd": 4 * io + stats, "dq": 5 * io + 2 * stats, "dkv": 6 * io + 2 * stats}
+            bounds = {n: max(mult * f / peak * 1e3, bytes_bound_ms(nbytes[n]))
+                      for n, f in flops.items()}
+            name = str(dtype)[6:]
+            log(f"[K4/K5/K6 SIMT D={D} {name}] ({B}, {H}, {N}, {D}): (err, bound {rtol} x "
+                f"max|ref|) " + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+                + f", lse err {lerr:.3g} (atol {lse_atol}), two calls of each bitwise equal")
+            for n, label in (("fwd", "K4"), ("dq", "K5"), ("dkv", "K6")):
+                log(f"[K4/K5/K6 SIMT D={D} {name}] {label}: kernel {ms[n]:.4f} ms, device "
+                    f"{dev_us[n]:.2f} us ({flops[n] / ms[n] / 1e9:.2f} TFLOP/s, "
+                    f"{bounds[n] / ms[n]:.1%} of the bound), bound {bounds[n]:.4f} ms (operations "
+                    f"at D = {D}{', 3xTF32' if mult == 3 else ''}; exp floor "
+                    f"{exp_floor_ms(B * H * N * N):.4f} ms, FP32 FMA "
+                    f"{flops[n] / FP32_FLOPS * 1e3:.4f} ms), sdpa "
+                    f"{'forward' if n == 'fwd' else 'backward'} {lib[n]:.4f} ms")
+            log(f"[K4/K5/K6 SIMT D={D} {name}] sdpa device: forward "
+                f"{dev_us['sdpa forward']:.2f} us, forward + backward "
+                f"{dev_us['sdpa forward + backward']:.2f} us")
+            del q, k, v, do, out, lse, delta, ops, qg, kg, vg
+            torch.cuda.empty_cache()
+
+
 def host_us(fns: dict, n: int = 2000, rounds: int = 5) -> dict:
     """Host microseconds a call of each of ``fns`` (time.perf_counter_ns):
     ``rounds`` rounds in which each takes its turn at ``n`` back-to-back
@@ -1166,7 +1291,7 @@ def phase_hyper_width(dev) -> dict:
 
 
 def phase_main_path(dev) -> dict:
-    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch import bench, kernels
     from cra5_tpu_torch.coder.lane_coder import parse_v2_header
     from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
 
@@ -1213,10 +1338,7 @@ def phase_main_path(dev) -> dict:
     # the decoded symbols equal the encoded ones (outside the timed run)
     with torch.inference_mode():
         enc = model.encode_symbols(torch.from_numpy(x).to(dev))
-        z_dec = codec._eb_coder.decode_batch_to_device(
-            [z_str], codec._z_indexes(enc["z_sym"].shape).to(dev))
-        scales, _ = model.scales_from_z_symbols(z_dec)
-        y_dec = codec._gc_coder.decode_batch_to_device([y_str], codec._gc_indexes(scales))
+    z_dec, y_dec = bench.decode_symbols(codec, out["strings"], out["z_shape"])
     if not (torch.equal(z_dec, enc["z_sym"]) and torch.equal(y_dec, enc["y_sym"])):
         raise RuntimeError("decoded z/y symbols differ from the encoded ones")
 
@@ -1228,6 +1350,251 @@ def phase_main_path(dev) -> dict:
         f"peak {peak / 2**30:.2f} GiB; symbols roundtrip exactly")
     log(f"[main] launches per roundtrip {launches}")
     return res, codec, x
+
+
+CALIB_STEPS = 600  # the bench's calibration steps
+
+
+def phase_calibrate(codec, dev) -> dict:
+    """The main path's bf16 268v model: two seeded latents through g_a (K4
+    at (1, 16, 10368, 64), 4 launches each), then calibrate_entropy for the
+    bench's steps; the bits per latent element fall, and no tower
+    parameter moves (bitwise) or gets a gradient."""
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.train import TRAINABLE, calibrate_entropy
+
+    model = codec.model
+    towers = {k: p.detach().clone() for k, p in model.named_parameters()
+              if k.split(".")[0] not in TRAINABLE}
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with torch.inference_mode():
+        lats = [model.encode_latent(bench.field(model.cfg, dev, seed=100 + i)) for i in range(2)]
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res = calibrate_entropy(model, lats, steps=CALIB_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = kernels.launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(flash_attention_forward=8)
+    if launches != want:
+        raise RuntimeError(f"calibrate launches {launches}, expected {want}")
+    moved = [k for k, p in model.named_parameters() if k in towers
+             and (p.grad is not None or not torch.equal(p.detach(), towers[k]))]
+    if moved:
+        raise RuntimeError(f"calibration moved or gave a gradient to tower parameters {moved[:5]}")
+    if not res["bpe_last"] < res["bpe_first"]:
+        raise RuntimeError(f"calibration did not lower the bits per element: {res}")
+    log(f"[calibrate] vaeformer_268 bf16: 2 latents {tuple(lats[0].shape)} through g_a "
+        f"{t1 - t0:.2f} s (K4 launched {launches['flash_attention_forward']}x); "
+        f"{res['steps']} steps {t2 - t1:.2f} s ({(t2 - t1) / res['steps'] * 1e3:.2f} ms a step); "
+        f"bits per latent element {res['bpe_first']:.4f} at the first step, "
+        f"{res['bpe_last']:.4f} at the last; {len(towers)} tower parameters bitwise unchanged, "
+        f"none with a gradient")
+    del towers, lats
+    codec.update(force=True)
+    return dict(calibration=res, seconds=t2 - t1, launches=launches)
+
+
+def phase_calibrated_roundtrip(codec, x, dev, uncal: dict) -> dict:
+    """The calibrated codec compresses and decompresses the main phase's
+    field: bytes, escapes, stage ms and the roundtrip beside the
+    uncalibrated figures; the decoded symbols equal the encoded ones."""
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+    model = codec.model
+    out = codec.compress(x)  # warm-up
+    codec.decompress(out["strings"], out["z_shape"])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = codec.compress(x)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = kernels.launch_counts()
+    y_str, z_str = out["strings"][0][0], out["strings"][1][0]
+    yh = parse_v2_header(y_str)
+    k3 = int(yh[4] and yh[5])
+    want = {k: 0 for k in launches}
+    want.update(rans_encode=2, rans_decode_generic=2 - k3, rans_decode_sorted=k3,
+                flash_attention_forward=7)
+    if launches != want:
+        raise RuntimeError(f"calibrated roundtrip launches {launches}, expected {want}")
+    with torch.inference_mode():
+        enc = model.encode_symbols(torch.from_numpy(x).to(dev))
+    z, y = bench.decode_symbols(codec, out["strings"], out["z_shape"])
+    if not (torch.equal(z, enc["z_sym"]) and torch.equal(y, enc["y_sym"])):
+        raise RuntimeError("calibrated roundtrip: decoded symbols differ from the encoded ones")
+    if not torch.isfinite(x_hat).all():
+        raise RuntimeError("calibrated roundtrip: x_hat is not finite")
+    total, uncal_total = len(y_str) + len(z_str), uncal["y_bytes"] + uncal["z_bytes"]
+    if not total < uncal_total:
+        raise RuntimeError(f"calibrated streams {total} B are not below the uncalibrated "
+                           f"{uncal_total} B")
+    codec.stage_times = {}
+    o = codec.compress(x)
+    codec.decompress(o["strings"], o["z_shape"])
+    stages, codec.stage_times = codec.stage_times, None
+    log(f"[calibrated] y {len(y_str)} B ({yh[2]} escapes of {yh[0]}, {yh[2] / yh[0]:.2%}), z "
+        f"{len(z_str)} B, y+z {total} B; uncalibrated y {uncal['y_bytes']} B ({uncal['y_escapes']} "
+        f"escapes), z {uncal['z_bytes']} B, y+z {uncal_total} B; y header {yh}")
+    log(f"[calibrated] compress {t1 - t0:.4f} s, decompress {t2 - t1:.4f} s, roundtrip "
+        f"{t2 - t0:.4f} s (uncalibrated {uncal['roundtrip_s']:.4f} s); symbols roundtrip "
+        f"exactly; launches {launches}")
+    log("[calibrated] stages (each ends in a synchronize): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    return dict(roundtrip_s=t2 - t0, y_bytes=len(y_str), z_bytes=len(z_str), y_escapes=yh[2],
+                launches=launches)
+
+
+def phase_bench(codec, dev, calibration: dict) -> dict:
+    """cra5_tpu_torch/bench.py's functions in-process on the calibrated
+    model (no second fit) at a short setting: 3 iterations, one pipelined
+    window at the bench's concurrency, the production point, config 4,
+    config 3 at batch 2 only, configs 1 and 5 skipped. Prints the headline
+    JSON and the detail."""
+    from cra5_tpu_torch import bench, kernels
+
+    s = bench.Setup(codec.model, codec, bench.field(codec.model.cfg, dev, seed=0), dev,
+                    bench.card_line(dev), {"calibration": calibration})
+    conc = 6
+    per_window = 2 * conc
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    result, detail = bench.headline(s, iters=3, warmup=1, concurrency=conc,
+                                    per_window=per_window, n_windows=1)
+    bench.run_extras(s, detail, iters=3, concurrency=conc, per_window=per_window, n_windows=1,
+                     production=True, prod_bytes=2.6e6, configs34=True, full=False,
+                     batches=(2,), budget=bench.Budget(600), calibrate=False, calib_steps=0)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for k in ("rans_encode", "rans_decode_generic", "rans_decode_sorted",
+              "flash_attention_forward"):
+        if launches[k] == 0:
+            raise RuntimeError(f"bench: {k} was not launched ({launches})")
+    log(f"[bench] detail {json.dumps(detail)}")
+    log(f"[bench] {time.time() - t0:.2f} s; launches {launches}")
+    print(json.dumps(result), flush=True)
+    return dict(result=result, detail=detail, launches=launches)
+
+
+def phase_train_cli(dev) -> dict:
+    """python -m cra5_tpu_torch.tools.train on a synthetic per-channel .npy
+    tree at full 268 x 721 x 1440 for two timestamps (written with
+    ERA5NpyDataset.save_timestep), through a config whose _base_ is the
+    port's train_era5_268v_1h.py: the float32 268v model without remat,
+    batch 1, its dp=-1 mesh resolving to this one card, three steps. The
+    counters are zeroed just before and read just after (float32 K4, K5
+    and K6 seven times a step each); the loss is finite, the parameters
+    moved from their seeded init, and the checkpoint written reloads equal
+    to them."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.data import ERA5NpyDataset, device_put
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.tools import train as train_cli
+    from cra5_tpu_torch.train.checkpoints import load_variables
+
+    base = os.path.abspath(os.path.join(os.path.dirname(train_cli.__file__), "..", "api",
+                                        "configs", "train_era5_268v_1h.py"))
+    years = ("2020-01-01T00:00:00", "2020-01-01T06:00:00")
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ckpt = os.path.join(tmp, "era5_np"), os.path.join(tmp, "ckpt")
+        cfg_path = os.path.join(tmp, "train_smoke.py")
+        with open(cfg_path, "w") as f:
+            f.write(f"_base_ = [{base!r}]\n"
+                    f"dataset = dict(root={root!r}, years={years!r}, batch_size=1)\n"
+                    f"trainer = dict(log_every=1)\n"
+                    f"steps = 3\n")
+        from cra5_tpu_torch.utils.config import Config
+
+        dcfg = Config.fromfile(cfg_path)["dataset"]
+        ds = ERA5NpyDataset(root, dcfg["vnames"], dcfg["pressure_level"], years,
+                            dcfg["time_interval"])
+        t0 = time.time()
+        rng = np.random.default_rng(SEED)
+        shape = (ds.num_channels, 721, 1440)
+        for ts in ds.timestamps:
+            data = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.5)
+            ERA5NpyDataset.save_timestep(root, ts, data, ds.channel_names())
+        del data
+        nbytes = sum(os.path.getsize(os.path.join(d, n)) for d, _, fs in os.walk(root) for n in fs)
+        log(f"[train_cli] wrote {len(ds.timestamps)} timesteps x {ds.num_channels} channels "
+            f"(.npy, {nbytes / 1e9:.2f} GB) in {time.time() - t0:.2f} s")
+
+        stamps, metrics = [], []
+
+        def log_fn(step, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            metrics.append(m)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, state, path = train_cli.run(
+            [cfg_path, "--steps", "3", "--ckpt-dir", ckpt], log_fn=log_fn)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+        for i, (sec, m) in enumerate(zip(steps_s, metrics)):
+            log(f"[train_cli] step {i + 1}: {sec:.4f} s{' (with init)' if i == 0 else ''}; loss "
+                f"{m['loss']:.6g} bpp {m['bpp_loss']:.6g} mse {m['mse_loss']:.6g} aux "
+                f"{m['aux_loss']:.6g}")
+        if len(metrics) != 3 or not all(np.isfinite(v) for m in metrics for v in m.values()):
+            raise RuntimeError(f"train_cli metrics {metrics}")
+        per_step = {"flash_attention_forward": 7, "flash_attention_backward_dq": 7,
+                    "flash_attention_backward_dkv": 7}
+        want = {k: 3 * per_step.get(k, 0) for k in launches}
+        if launches != want:
+            raise RuntimeError(f"train_cli launches {launches}, expected {want}")
+        model = trainer.model
+        if model.dtype != torch.float32 or model.cfg.remat or model.cfg != vaeformer_268():
+            raise RuntimeError(f"train_cli built {model.cfg} in {model.dtype}")
+        saved = load_variables(path)
+        same = set(saved) == set(state.params) and all(
+            torch.equal(saved[k], p.detach().cpu()) for k, p in state.params.items())
+        if not same:
+            raise RuntimeError(f"{path} does not reload equal to the parameters")
+        # where a step's time goes: one batch read from the tree and moved to
+        # the card, and one step on a batch already on the card
+        t0 = time.perf_counter()
+        batch = ds[0]["inputs"][:1]
+        t1 = time.perf_counter()
+        on_card = device_put(dev)(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.fit([on_card], state=state, num_steps=1, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        log(f"[train_cli] one batch: read {t1 - t0:.4f} s (268 .npy files, stacked), to the "
+            f"card {t2 - t1:.4f} s (pinned, non-blocking); one step on a batch on the card "
+            f"{t3 - t2:.4f} s")
+        del trainer, saved, batch, on_card
+        fresh = VAEformer(vaeformer_268(), device=dev).reset_parameters(0)
+        init = dict(fresh.named_parameters())
+        watch = ("g_a.blocks.3.attn.qkv.weight", "quant_conv.weight",
+                 "entropy_bottleneck.quantiles", "g_s.final.weight")
+        moved = {k: (state.params[k].detach() - init[k].detach()).abs().max().item()
+                 for k in watch}
+        if not all(v > 0 for v in moved.values()):
+            raise RuntimeError(f"train_cli: parameters did not move: {moved}")
+        del fresh, init, model, state
+    torch.cuda.empty_cache()
+    log(f"[train_cli] float32 268v, no remat, batch 1, dp=-1 mesh on 1 card: steps "
+        f"{', '.join(f'{t:.4f}' for t in steps_s)} s; peak {peak / 2**30:.2f} GiB; loss finite; "
+        f"max |change| from the seeded init {moved}; {os.path.basename(path)} reloads equal; "
+        f"launches {launches}")
+    return dict(steps_s=steps_s, peak_bytes=peak, launches=launches)
 
 
 def phase_profile(codec, x) -> None:
@@ -1514,12 +1881,16 @@ def main(args) -> int:
     hyper_launches = phase_hyper_width(dev)
     main_res, codec, x = phase_main_path(dev)
     phase_profile(codec, x)
+    calib_res = phase_calibrate(codec, dev)
+    calrt_res = phase_calibrated_roundtrip(codec, x, dev, main_res)
+    bench_res = phase_bench(codec, dev, calib_res["calibration"])
     del codec, x
     torch.cuda.empty_cache()
     train_res = phase_train(dev)
     torch.cuda.empty_cache()
     train_f32_res = phase_train(dev, torch.float32)
     torch.cuda.empty_cache()
+    cli_res = phase_train_cli(dev)
     probe_launches = phase_probe(dev)
     api_launches = phase_api(dev)
 
@@ -1531,7 +1902,9 @@ def main(args) -> int:
     paths = {"codec": main_res["launches"], "tiny": ref_launches, "train": train_res["launches"],
              "train_f32": train_f32_res["launches"], "probe": probe_launches,
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
-             "hyper_f32": hyper_launches["f32"]}
+             "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
+             "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
+             "train_cli": cli_res["launches"]}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -1582,10 +1955,11 @@ def main(args) -> int:
     # counter each: the head-dim-64 float32 paths are the API's and the
     # float32 train step's, the head-dim-72 paths hyper_width's two, every
     # other path is bf16 at head dim 64
-    bf16 = ("codec", "tiny", "train", "probe")
+    bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
-            "flash_attn_fwd_f32": ("api", "train_f32"), "flash_attn_bwd_dq_f32": ("train_f32",),
-            "flash_attn_bwd_dkv_f32": ("train_f32",)}
+            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli"),
+            "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
+            "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
     only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in
                  ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_anydim",
                   "flash_attn_bwd_dkv_anydim")})

@@ -1,8 +1,9 @@
 """The 268-variable ERA5 configuration of ``cra5_api``: 7 pressure-level
 variables x 37 levels + 9 surface variables = 268 channels, in this order.
 
-Counterpart of ``cra5_tpu/api/configs/cra5_268v.py``, as plain constants
-read by import.
+Counterpart of ``cra5_tpu/api/configs/cra5_268v.py``, as plain constants:
+``cra5_api`` reads it by import by default, and ``Config.fromfile`` reads
+it as a file (``cra5_api(config=<path>)``).
 """
 
 vnames = dict(

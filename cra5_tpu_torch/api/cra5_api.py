@@ -4,14 +4,17 @@ Counterpart of ``cra5_tpu/api/cra5_api.py``, method for method:
 ``encode_to_latent``, ``latent_to_bin``, ``encode_era5_as_bin``,
 ``bin_to_latent``, ``latent_to_reconstruction``, ``decode_from_bin``,
 ``read_data_from_nc``, ``get_mean_std``, ``normalization``,
-``de_normalization``, ``show_image`` and ``show_latent``. The downloader
-(``download_era5_data``) is not ported yet.
+``de_normalization``, ``show_image``, ``show_latent`` and
+``download_era5_data`` (``api/downloader.py``, ``cdsapi`` imported at first
+use).
 
     api = cra5_api(model_version=268, coder="v1")  # on the card, float32
     api.encode_era5_as_bin("2024-01-01T00:00:00", save_root="data")
     x = api.decode_from_bin("2024-01-01T00:00:00")["x_hat"]
 
-``coder="v2"`` (default) writes the lane-rANS streams (CRX2) into the
+``config`` is a config file read by ``Config.fromfile`` (default:
+``configs/cra5_268v.py``), as in the JAX package, or a mapping of the same
+keys. ``coder="v2"`` (default) writes the lane-rANS streams (CRX2) into the
 ``.bin`` framing; ``coder="v1"`` writes and reads the serial rANS streams
 of the published CRA5 archives. The model runs on ``device`` (default: the
 card) in ``dtype`` (default float32, as the JAX package). Weights come
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -34,19 +37,17 @@ import torch
 from ..device import resolve_device
 from ..models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268, vaeformer_tiny
 from ..train.checkpoints import load_variables
+from ..utils.config import Config
 from . import era5
 from .bitstream import load_bin, save_bin
-from .configs import cra5_268v
 
-
-def _config(module) -> Dict[str, Any]:
-    return {k: getattr(module, k) for k in dir(module) if not k.startswith("_")}
+_HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class cra5_api:
     def __init__(
         self,
-        config: Optional[Mapping[str, Any]] = None,
+        config: Union[str, Mapping[str, Any], None] = None,
         local_root: Optional[str] = None,
         weights: Optional[str] = None,
         model_version: int = 268,
@@ -55,7 +56,11 @@ class cra5_api:
         seed: int = 0,
         device=None,
     ):
-        self.cfg = dict(config) if config is not None else _config(cra5_268v)
+        if config is None or isinstance(config, (str, os.PathLike)):
+            path = config or os.path.join(_HERE, "configs", "cra5_268v.py")
+            self.cfg = Config.fromfile(os.fspath(path)).to_dict()
+        else:
+            self.cfg = dict(config)
         self.local_root = local_root or os.path.join(os.getcwd(), "data")
         self.mean, self.std = era5.load_mean_std(self.cfg)
         self.channels_to_vname, self.vname_to_channels = era5.channel_vname_mapping(self.cfg)
@@ -79,6 +84,7 @@ class cra5_api:
         else:
             self.net.reset_parameters(seed)
         self.codec = VAEformerCodec(self.net, coder=coder)
+        self._downloader = None
 
     # -- weights -----------------------------------------------------------
     @torch.no_grad()
@@ -94,6 +100,14 @@ class cra5_api:
             p.copy_(params[name])
 
     # -- data --------------------------------------------------------------
+    def download_era5_data(self, time_stamp: str, save_root: Optional[str] = None):
+        from .downloader import era5_downloader
+
+        if self._downloader is None:
+            self._downloader = era5_downloader()
+        return self._downloader.get_form_timestamp(
+            time_stamp=time_stamp, local_root=save_root or self.local_root)
+
     def read_data_from_nc(self, time_stamp: str) -> np.ndarray:
         return era5.read_data_from_nc(self.cfg, self.local_root, time_stamp)
 

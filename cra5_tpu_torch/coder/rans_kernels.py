@@ -264,7 +264,7 @@ def rans_encode(starts: torch.Tensor, freqs: torch.Tensor):
         states.data_ptr(), emit.data_ptr(), words.data_ptr(), kernels.raw_stream(dev.index),
     )
     kernels.check(status, "rans_encode")
-    rans_encode.launches += 1
+    kernels.count(rans_encode)
     return states, emit, words
 
 
@@ -331,7 +331,7 @@ def rans_decode_generic(cdf, idx, states, words, max_values, offsets, slots=None
         return lane_decode_plain(cdf, idx, states, words, max_values, offsets)
     values, sentinel = _decode_on_card(False, cdf, slots, (idx, None, None, None), states,
                                        words, max_values, offsets, M, K)
-    rans_decode_generic.launches += 1
+    kernels.count(rans_decode_generic)
     return values, sentinel
 
 
@@ -392,5 +392,5 @@ def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets, s
         return rans_decode_sorted_plain(cdf, r0, r1, split, states, words, max_values, offsets)
     values, sentinel = _decode_on_card(True, cdf, slots, (None, r0, r1, split), states,
                                        words, max_values, offsets, M, K)
-    rans_decode_sorted.launches += 1
+    kernels.count(rans_decode_sorted)
     return values, sentinel

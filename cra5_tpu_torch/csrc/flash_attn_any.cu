@@ -1,4 +1,4 @@
-// K4, K5 and K6 for every head dim up to 256 and every float dtype the
+// K4, K5 and K6 for every head dim and every float dtype the
 // model may compute in (bf16, float16, float32, float64): the counterparts
 // of _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel of
 // cra5_tpu/ops/attention.py, which take their head dim from the operands.
@@ -16,7 +16,8 @@
 // registers; a dot product over the head dim is the lanes' part sums
 // joined by __shfl_xor, so every lane of a row holds the same logits and
 // statistics. The head dim is padded with zeros to kD (64, 128 or 256),
-// which adds zero products and changes no sum. The walked rows are staged
+// which adds zero products and changes no sum; a head dim past 256 is
+// walked in 256-column chunks (the *_wide kernels below). The walked rows are staged
 // kTile at a time in shared memory, converted to the accumulation type,
 // with each lane's part kPad elements after the last, so the kLanes
 // distinct addresses a warp reads in one step fall in different banks.
@@ -96,33 +97,36 @@ struct Tile {
                                    : 64;
   static constexpr float kNegInf = -1e30f;
 
-  // Rows [r0, r0 + kTile) of a (N, D) matrix into dst; rows past N and
-  // head dims past D are zero. Every thread of the block calls it.
+  // Rows [r0, r0 + kTile) of a (N, D) matrix, head dims [c0, c0 + kD),
+  // into dst; rows past N and head dims past D are zero. Every thread of
+  // the block calls it.
   static __device__ __forceinline__ void stage(Acc* dst, const T* __restrict__ src, int r0,
-                                               int N, int D) {
+                                               int N, int D, int c0 = 0) {
     for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
       const int r = i / kD, d = i % kD;
       Acc x = 0;
-      if (r0 + r < N && d < D) x = Num<T>::load(src[(size_t)(r0 + r) * D + d]);
+      if (r0 + r < N && c0 + d < D) x = Num<T>::load(src[(size_t)(r0 + r) * D + c0 + d]);
       dst[r * kLd + (d / kPart) * kStride + d % kPart] = x;
     }
   }
 
-  // This lane's part of a row, times `scale`; zeros past D or when !valid.
+  // This lane's part of a row's head dims [c0, c0 + kD), times `scale`;
+  // zeros past D or when !valid.
   static __device__ __forceinline__ void load_part(Acc (&x)[kPart], const T* __restrict__ row,
-                                                   int lane, bool valid, int D, Acc scale) {
+                                                   int lane, bool valid, int D, Acc scale,
+                                                   int c0 = 0) {
 #pragma unroll
     for (int i = 0; i < kPart; ++i) {
-      const int d = lane * kPart + i;
+      const int d = c0 + lane * kPart + i;
       x[i] = valid && d < D ? Num<T>::load(row[d]) * scale : Acc(0);
     }
   }
 
   static __device__ __forceinline__ void store_part(T* __restrict__ row, const Acc (&x)[kPart],
-                                                    int lane, int D, Acc scale) {
+                                                    int lane, int D, Acc scale, int c0 = 0) {
 #pragma unroll
     for (int i = 0; i < kPart; ++i) {
-      const int d = lane * kPart + i;
+      const int d = c0 + lane * kPart + i;
       if (d < D) row[d] = Num<T>::store(x[i] * scale);
     }
   }
@@ -312,6 +316,228 @@ __global__ void __launch_bounds__(128)
   C::store_part(a.out1 + base + (size_t)row * D, dv, lane, D, Acc(1));
 }
 
+// Head dims past 256: the same tile at kD = 256, walked over the head dim
+// in 256-column chunks. A block owns kRows rows and ONE 256-column chunk of
+// the output (blockIdx.x = row block x chunks + chunk), so its accumulators
+// stay kPart registers a lane whatever D is; each walked tile's logits (and
+// for K5/K6 the dO v or v dO products) are summed over every chunk first,
+// staging one chunk of the walked rows at a time, and only then is the
+// tile's output chunk staged and accumulated. The ceil(D / 256) blocks of a
+// row block each recompute the logits: (chunks + 1) / 2 times the products
+// of one pass in all, for a block whose registers do not grow with D and a
+// grid of chunks times more blocks. The rounding points are those of the
+// kernels above; only the order of the head-dim sums differs (chunk part
+// sums added in chunk order).
+constexpr int kWide = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    fwd_wide_kernel(Args<T, typename Num<T>::Acc> a) {
+  using C = Tile<T, kWide>;
+  using Acc = typename C::Acc;
+  __shared__ __align__(16) Acc sK[C::kTile * C::kLd];
+  __shared__ __align__(16) Acc sV[C::kTile * C::kLd];
+
+  const int N = a.N, D = a.D;
+  const int nc = (D + kWide - 1) / kWide;
+  const int c0 = (blockIdx.x % nc) * kWide;  // this block's output columns
+  const int rb = blockIdx.x / nc;
+  const int bh = rb / a.nb;
+  const int row = (rb % a.nb) * C::kRows + threadIdx.x / C::kLanes;
+  const int lane = threadIdx.x % C::kLanes;
+  const int off = lane * C::kStride;
+  const size_t base = (size_t)bh * N * D;
+  const bool valid = row < N;
+  const T* qrow = a.q + base + (size_t)(valid ? row : 0) * D;
+
+  Acc o[C::kPart];
+#pragma unroll
+  for (int i = 0; i < C::kPart; ++i) o[i] = 0;
+  Acc m = C::kNegInf, l = 0;
+
+  for (int k0 = 0; k0 < N; k0 += C::kTile) {
+    Acc s[C::kTile];
+#pragma unroll
+    for (int j = 0; j < C::kTile; ++j) s[j] = 0;
+    for (int d0 = 0; d0 < D; d0 += kWide) {
+      __syncthreads();  // every thread is done with the previous chunk
+      C::stage(sK, a.k + base, k0, N, D, d0);
+      __syncthreads();
+      Acc qs[C::kPart];
+      C::load_part(qs, qrow, lane, valid, D, a.scale, d0);
+#pragma unroll
+      for (int i = 0; i < C::kPart; ++i) qs[i] = rnd<T>(qs[i]);
+#pragma unroll
+      for (int j = 0; j < C::kTile; ++j) s[j] += C::dot(qs, sK + j * C::kLd + off);
+    }
+    __syncthreads();
+    C::stage(sV, a.v + base, k0, N, D, c0);
+    __syncthreads();
+    const int nk = min(C::kTile, N - k0);
+    Acc mx = m;
+#pragma unroll
+    for (int j = 0; j < C::kTile; ++j) {
+      if (j >= nk) s[j] = C::kNegInf;
+      mx = s[j] > mx ? s[j] : mx;
+    }
+    const Acc alpha = acc_exp(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < C::kPart; ++i) o[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < C::kTile; ++j) {
+      const Acc p = acc_exp(s[j] - m);
+      l += p;
+      C::axpy(o, rnd<T>(p), sV + j * C::kLd + off);
+    }
+  }
+  if (!valid) return;
+  const Acc lc = l > Acc(1e-30) ? l : Acc(1e-30);
+#pragma unroll
+  for (int i = 0; i < C::kPart; ++i) o[i] /= lc;
+  C::store_part(a.out0 + base + (size_t)row * D, o, lane, D, Acc(1), c0);
+  if (c0 == 0 && lane == 0) a.lse_out[(size_t)bh * N + row] = m + acc_log(lc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    dq_wide_kernel(Args<T, typename Num<T>::Acc> a) {
+  using C = Tile<T, kWide>;
+  using Acc = typename C::Acc;
+  __shared__ __align__(16) Acc sK[C::kTile * C::kLd];
+  __shared__ __align__(16) Acc sV[C::kTile * C::kLd];
+
+  const int N = a.N, D = a.D;
+  const int nc = (D + kWide - 1) / kWide;
+  const int c0 = (blockIdx.x % nc) * kWide;
+  const int rb = blockIdx.x / nc;
+  const int bh = rb / a.nb;
+  const int row = (rb % a.nb) * C::kRows + threadIdx.x / C::kLanes;
+  const int lane = threadIdx.x % C::kLanes;
+  const int off = lane * C::kStride;
+  const size_t base = (size_t)bh * N * D;
+  const bool valid = row < N;
+  const size_t roff = base + (size_t)(valid ? row : 0) * D;
+
+  Acc acc[C::kPart];
+#pragma unroll
+  for (int i = 0; i < C::kPart; ++i) acc[i] = 0;
+  const Acc lse_r = valid ? a.lse_in[(size_t)bh * N + row] : Acc(0);
+  const Acc dl_r = valid ? a.delta[(size_t)bh * N + row] : Acc(0);
+
+  for (int k0 = 0; k0 < N; k0 += C::kTile) {
+    Acc s[C::kTile], dp[C::kTile];
+#pragma unroll
+    for (int j = 0; j < C::kTile; ++j) s[j] = dp[j] = 0;
+    for (int d0 = 0; d0 < D; d0 += kWide) {
+      __syncthreads();
+      C::stage(sK, a.k + base, k0, N, D, d0);
+      C::stage(sV, a.v + base, k0, N, D, d0);
+      __syncthreads();
+      Acc x[C::kPart];
+      C::load_part(x, a.q + roff, lane, valid, D, a.scale, d0);
+#pragma unroll
+      for (int i = 0; i < C::kPart; ++i) x[i] = rnd<T>(x[i]);
+#pragma unroll
+      for (int j = 0; j < C::kTile; ++j) s[j] += C::dot(x, sK + j * C::kLd + off);  // (q * scale) k
+      C::load_part(x, a.dout + roff, lane, valid, D, Acc(1), d0);
+#pragma unroll
+      for (int j = 0; j < C::kTile; ++j) dp[j] += C::dot(x, sV + j * C::kLd + off);  // dO v
+    }
+    __syncthreads();
+    C::stage(sK, a.k + base, k0, N, D, c0);
+    __syncthreads();
+    const int nk = min(C::kTile, N - k0);
+#pragma unroll
+    for (int j = 0; j < C::kTile; ++j)
+      if (j < nk) C::axpy(acc, rnd<T>(acc_exp(s[j] - lse_r) * (dp[j] - dl_r)), sK + j * C::kLd + off);
+  }
+  if (valid) C::store_part(a.out0 + roff, acc, lane, D, a.scale, c0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    dkv_wide_kernel(Args<T, typename Num<T>::Acc> a) {
+  using C = Tile<T, kWide>;
+  using Acc = typename C::Acc;
+  __shared__ __align__(16) Acc sQ[C::kTile * C::kLd];
+  __shared__ __align__(16) Acc sO[C::kTile * C::kLd];
+  __shared__ Acc sL[C::kTile];
+  __shared__ Acc sD[C::kTile];
+
+  const int N = a.N, D = a.D;
+  const int nc = (D + kWide - 1) / kWide;
+  const int c0 = (blockIdx.x % nc) * kWide;
+  const int rb = blockIdx.x / nc;
+  const int bh = rb / a.nb;
+  const int row = (rb % a.nb) * C::kRows + threadIdx.x / C::kLanes;
+  const int lane = threadIdx.x % C::kLanes;
+  const int off = lane * C::kStride;
+  const size_t base = (size_t)bh * N * D;
+  const bool valid = row < N;
+  const size_t roff = base + (size_t)(valid ? row : 0) * D;
+
+  Acc dk[C::kPart], dv[C::kPart];
+#pragma unroll
+  for (int i = 0; i < C::kPart; ++i) dk[i] = dv[i] = 0;
+
+  for (int q0 = 0; q0 < N; q0 += C::kTile) {
+    Acc s[C::kTile], dp[C::kTile];
+#pragma unroll
+    for (int i = 0; i < C::kTile; ++i) s[i] = dp[i] = 0;
+    for (int d0 = 0; d0 < D; d0 += kWide) {
+      __syncthreads();
+      C::stage(sQ, a.q + base, q0, N, D, d0);
+      C::stage(sO, a.dout + base, q0, N, D, d0);
+      if (d0 == 0) {
+        for (int i = threadIdx.x; i < C::kTile; i += C::kThreads) {
+          const bool in = q0 + i < N;
+          sL[i] = in ? a.lse_in[(size_t)bh * N + q0 + i] : Acc(0);
+          sD[i] = in ? a.delta[(size_t)bh * N + q0 + i] : Acc(0);
+        }
+      }
+      __syncthreads();
+      Acc x[C::kPart];
+      C::load_part(x, a.k + roff, lane, valid, D, Acc(1), d0);
+#pragma unroll
+      for (int i = 0; i < C::kTile; ++i) s[i] += C::dot(x, sQ + i * C::kLd + off);  // raw q k
+      C::load_part(x, a.v + roff, lane, valid, D, Acc(1), d0);
+#pragma unroll
+      for (int i = 0; i < C::kTile; ++i) dp[i] += C::dot(x, sO + i * C::kLd + off);  // v dO
+    }
+    __syncthreads();
+    C::stage(sQ, a.q + base, q0, N, D, c0);
+    C::stage(sO, a.dout + base, q0, N, D, c0);
+    __syncthreads();
+    const int nq = min(C::kTile, N - q0);
+#pragma unroll
+    for (int i = 0; i < C::kTile; ++i) {
+      if (i < nq) {
+        const Acc p = acc_exp(s[i] * a.scale - sL[i]);  // logits scaled
+        const Acc ds = p * (dp[i] - sD[i]);
+        C::axpy(dv, rnd<T>(p), sO + i * C::kLd + off);   // dV += P^T dO
+        C::axpy(dk, rnd<T>(ds), sQ + i * C::kLd + off);  // dK += dS^T Q
+      }
+    }
+  }
+  if (!valid) return;
+  C::store_part(a.out0 + roff, dk, lane, D, a.scale, c0);
+  C::store_part(a.out1 + roff, dv, lane, D, Acc(1), c0);
+}
+
+template <Kind kKind, typename T>
+int launch_wide(Args<T, typename Num<T>::Acc> a, int BH, cudaStream_t stream) {
+  using C = Tile<T, kWide>;
+  a.nb = (a.N + C::kRows - 1) / C::kRows;
+  const long long blocks = (long long)BH * a.nb * ((a.D + kWide - 1) / kWide);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if constexpr (kKind == kFwd) fwd_wide_kernel<T><<<(unsigned)blocks, C::kThreads, 0, stream>>>(a);
+  if constexpr (kKind == kDq) dq_wide_kernel<T><<<(unsigned)blocks, C::kThreads, 0, stream>>>(a);
+  if constexpr (kKind == kDkv) dkv_wide_kernel<T><<<(unsigned)blocks, C::kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <Kind kKind, typename T, int kD>
 int launch(Args<T, typename Num<T>::Acc> a, int BH, cudaStream_t stream) {
   using C = Tile<T, kD>;
@@ -324,7 +550,8 @@ int launch(Args<T, typename Num<T>::Acc> a, int BH, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The kernel of the narrowest padded head dim that holds D.
+// The kernel of the narrowest padded head dim that holds D; past 256 the
+// chunked walk.
 template <Kind kKind, typename T>
 int by_dim(const void* q, const void* k, const void* v, const void* dout, const void* lse_in,
            const void* delta, void* out0, void* out1, void* lse_out, int BH, int N, int D,
@@ -335,7 +562,8 @@ int by_dim(const void* q, const void* k, const void* v, const void* dout, const 
   const cudaStream_t s = (cudaStream_t)stream;
   if (D <= 64) return launch<kKind, T, 64>(a, BH, s);
   if (D <= 128) return launch<kKind, T, 128>(a, BH, s);
-  return launch<kKind, T, 256>(a, BH, s);
+  if (D <= kWide) return launch<kKind, T, 256>(a, BH, s);
+  return launch_wide<kKind, T>(a, BH, s);
 }
 
 // dtype: 0 bf16, 1 float16, 2 float32, 3 float64.
@@ -343,7 +571,7 @@ template <Kind kKind>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* dout,
              const void* lse_in, const void* delta, void* out0, void* out1, void* lse_out, int BH,
              int N, int D, double scale, void* stream) {
-  if (N < 1 || BH < 1 || D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (N < 1 || BH < 1 || D < 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return by_dim<kKind, __nv_bfloat16>(q, k, v, dout, lse_in, delta, out0, out1, lse_out, BH,

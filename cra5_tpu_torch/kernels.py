@@ -17,7 +17,9 @@ object kept on the library), so a wrapper calls
 ``kernels.lib().<entry>(...)`` and ``check``s the status.
 
 Each kernel wrapper carries an integer ``launches`` attribute that it
-increments where, and only where, it launches its kernel.
+increments through ``count`` where, and only where, it launches its
+kernel; ``count`` holds a lock, so wrappers called from several threads
+(each on its own stream) lose no launch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -65,6 +68,7 @@ _SIGNATURES = {
 _lib = None
 build_info: Dict[str, object] = {}
 _wrappers: List[Callable] = []
+_count_lock = threading.Lock()
 
 
 def counted(fn: Callable) -> Callable:
@@ -72,6 +76,12 @@ def counted(fn: Callable) -> Callable:
     fn.launches = 0
     _wrappers.append(fn)
     return fn
+
+
+def count(fn: Callable) -> None:
+    """One launch of ``fn``'s kernel."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,9 +10,9 @@ K4, K5 and K6 at the other head dims that ``anydim_supports`` names (bf16
 and float16 rows of a multiple of 8 up to 128, float32 rows of a multiple
 of 4 up to 96) run on the tensor cores too (``csrc/flash_attn_anydim.cu``
 and ``csrc/flash_attn_anydim_f32.cu``). What remains (float64, head dims
-past those kernels' reach up to ``FLASH_MAX_HEAD_DIM``) takes the SIMT
-kernels of ``csrc/flash_attn_any.cu``, as the TPU kernels take any head
-dim.
+past those kernels' reach, of any size) takes the SIMT kernels of
+``csrc/flash_attn_any.cu``, which walk a head dim past 256 in 256-column
+chunks, as the TPU kernels take any head dim.
 ``FlashAttention`` is the ``custom_vjp`` of the JAX package as a
 ``torch.autograd.Function``: its forward keeps (q, k, v, out, lse) and its
 backward runs the two backward kernels, so no (N, N) logits are ever kept
@@ -42,7 +42,6 @@ from .. import kernels
 # the tensor-core kernels' dtypes (head dim 64) and the SIMT kernels' codes
 _HOPPER_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 _ANY_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.float64: 3}
-FLASH_MAX_HEAD_DIM = 256
 # the any-head-dim tensor-core kernels (K4, K5 and K6 alike): their entries
 # take the SIMT codes; (row multiple, largest head dim) of each dtype. K6's
 # dK and dV accumulators bound the 16-bit reach, shared memory the float32
@@ -52,8 +51,8 @@ _ANYDIM_REACH = {torch.bfloat16: (8, 128), torch.float16: (8, 128), torch.float3
 
 def flash_supports(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether the flash kernels compute attention of this dtype and head
-    dim on the card."""
-    return dtype in _ANY_DTYPES and 1 <= head_dim <= FLASH_MAX_HEAD_DIM
+    dim on the card: every float dtype, every head dim from 1."""
+    return dtype in _ANY_DTYPES and head_dim >= 1
 
 
 def anydim_supports(dtype: torch.dtype, head_dim: int) -> bool:
@@ -94,8 +93,8 @@ def _kernel_entry(name: str, *ts: torch.Tensor):
     dtype, D = ts[0].dtype, ts[0].shape[-1]
     if not flash_supports(dtype, D):
         raise NotImplementedError(
-            f"the flash kernels take bf16, float16, float32 or float64 with a head dim up to "
-            f"{FLASH_MAX_HEAD_DIM}, got {dtype} and {D}")
+            f"the flash kernels take bf16, float16, float32 or float64 with a head dim of at "
+            f"least 1, got {dtype} and {D}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the flash kernels' operands must be contiguous and 16-byte aligned")
@@ -144,7 +143,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B * H, N, D, float(scale), kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_forward")
-    flash_attention_forward.launches += 1
+    kernels.count(flash_attention_forward)
     return out, lse
 
 
@@ -190,7 +189,7 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, scale: float):
         kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_backward_dq")
-    flash_attention_backward_dq.launches += 1
+    kernels.count(flash_attention_backward_dq)
     return dq
 
 
@@ -226,7 +225,7 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, scale: float):
         kernels.raw_stream(q.get_device()),
     )
     kernels.check(status, "flash_attention_backward_dkv")
-    flash_attention_backward_dkv.launches += 1
+    kernels.count(flash_attention_backward_dkv)
     return dk, dv
 
 

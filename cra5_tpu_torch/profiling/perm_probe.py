@@ -159,7 +159,7 @@ def expand(mask: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
         mask.data_ptr(), words.data_ptr(), out.data_ptr(), K, *expand_geometry(K),
         kernels.raw_stream(words.get_device()))
     kernels.check(status, "expand")
-    expand.launches += 1
+    kernels.count(expand)
     return out
 
 
@@ -195,7 +195,7 @@ def dynroll(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     status = kernels.lib().cra5_perm_dynroll(x.data_ptr(), shift.data_ptr(), out.data_ptr(), R_,
                                              Kd, kernels.raw_stream(x.get_device()))
     kernels.check(status, "dynroll")
-    dynroll.launches += 1
+    kernels.count(dynroll)
     return out
 
 

@@ -1,0 +1,47 @@
+"""The port's registries, filled with what the port has.
+
+Counterpart of ``cra5_tpu/registry.py``: one import wires every built-in
+of the port into the registries of ``utils/registry.py`` so config-driven
+builds (``tools/train.py``) work. The names of the JAX package's
+registries that the port does not have yet are listed in ``NOT_PORTED``;
+they are registered when their modules land (ROADMAP.md queue A5).
+"""
+
+from __future__ import annotations
+
+from .utils.registry import CRITERIONS, DATASETS, MODELS, OPTIMIZERS, SCHEDULERS
+
+# registered in the JAX package, not yet in the port (ROADMAP.md queue A5)
+NOT_PORTED = {
+    "models": (
+        "FactorizedPrior", "FactorizedPriorReLU", "ScaleHyperprior", "MeanScaleHyperprior",
+        "JointAutoregressiveHierarchicalPriors", "SampledYInBmshj2018", "Cheng2020Anchor",
+        "Cheng2020Attention", "ELIC2022", "SymmetricalTransFormer2022", "TCM2023",
+        "InvCompress", "ScaleSpaceFlow", "VITAutoencoderKL", "VariationCNNPrior",
+    ),
+    "datasets": ("ImageFolder", "PreGeneratedMemmapDataset", "VideoFolder", "Vimeo90kDataset"),
+}
+
+
+def _register_all() -> None:
+    from .data import ERA5NcDataset, ERA5NpyDataset
+    from .models.vaeformer import VAEformer
+    from .train.loss import RateDistortionLoss
+    from .train.optim import make_net_aux_optimizers
+    from .train.schedulers import SCHEDULERS as schedules
+
+    for registry, entries in (
+        (MODELS, {"VAEformer": VAEformer}),
+        (DATASETS, {"ERA5NpyDataset": ERA5NpyDataset, "ERA5NcDataset": ERA5NcDataset}),
+        (CRITERIONS, {"RateDistortionLoss": RateDistortionLoss}),
+        (OPTIMIZERS, {"net_aux": make_net_aux_optimizers}),
+        (SCHEDULERS, schedules),
+    ):
+        for name, obj in entries.items():
+            if name not in registry:
+                registry.register(name)(obj)
+
+
+_register_all()
+
+__all__ = ["MODELS", "DATASETS", "CRITERIONS", "OPTIMIZERS", "SCHEDULERS", "NOT_PORTED"]

@@ -14,7 +14,7 @@ each forced by the framework:
     ``jax.random.fold_in(rng, step)``), so a resumed run repeats an
     uninterrupted one exactly;
   - a mesh (data/tensor parallel training) is not ported yet
-    (ROADMAP.md queue A6): passing one raises.
+    (ROADMAP.md queue A4): passing one raises.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ class Trainer:
                  mesh=None, seed: int = 0):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh-parallel training is not ported yet (ROADMAP.md queue A6); "
+                "mesh-parallel training is not ported yet (ROADMAP.md queue A4); "
                 "the port trains on one device")
         self.model, self.cfg, self.seed = model, cfg, seed
         self.tx = make_net_aux_optimizers(

@@ -31,6 +31,7 @@ from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update, gc_update, get_
 from cra5_tpu_torch.entropy.cdf import CdfTable
 from cra5_tpu_torch.profiling import perm_probe as pp
 from cra5_tpu_torch.ops.attention import (
+    anydim_supports,
     flash_attention,
     flash_attention_backward_dkv,
     flash_attention_backward_dkv_plain,
@@ -603,6 +604,22 @@ def test_flash_attn_any_head_dim_close_to_plain(card, rng, dtype, D, B, H, N):
     """K4, K5 and K6 at another head dim or dtype than the head-dim-64
     kernels take, against the plain versions, and bitwise equal over two
     calls."""
+    _check_any_head_dim(card, rng, dtype, D, B, H, N)
+
+
+# Head dims past 256 (ROADMAP C5): the SIMT kernels walk the head dim in
+# 256-column chunks, one chunk of the output a block (a second, partly
+# filled chunk at 320, a third at 520); N = 257 crosses the walked tile's
+# edge (16 rows in 32-bit, 8 in float64). Bounds as for the SIMT cases
+# above.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [320, 520])
+def test_flash_attn_past_256_head_dims_close_to_plain(card, rng, dtype, D):
+    assert not anydim_supports(dtype, D)
+    _check_any_head_dim(card, rng, dtype, D, 1, 2, 257)
+
+
+def _check_any_head_dim(card, rng, dtype, D, B, H, N):
     rtol, lse_atol = FLASH_ANY_TOL[dtype]
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D)) * 1.5).to(card, dtype)
                    for _ in range(4))

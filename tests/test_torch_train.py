@@ -639,7 +639,7 @@ def test_resume_repeats_an_uninterrupted_run(tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A4"):
         Trainer(VAEformer(vaeformer_tiny(), device="cpu"), mesh=object())
 
 
