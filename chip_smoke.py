@@ -93,7 +93,26 @@ result line is printed then:
      the counters zeroed just before and read just after (float32 K4 seven
      times a roundtrip, K1-K3 for the v2 file); every z and y symbol
      decodes exactly from both files, both give the same z symbols, and
-     x_hat is a finite full-size field.
+     x_hat is a finite full-size field;
+  10. dist phases (each line carries the card's name and power limit):
+     [recompress] tools/recompress.main on vaeformer_268 in float32 from
+     the seeded init over 2 synthetic (268, 721, 1440) .npy timesteps, as
+     one process at --batch 1 and 2 and as 2 gloo ranks sharing the card
+     (NCCL refuses two ranks on one device) at --batch 1: every 2-rank bin
+     byte-identical to the one-process --batch 1 bin (--batch 2 printed
+     beside), then decompress_batch on the 2 ranks against the one-process
+     decompress; seconds and each rank's peak; [dp_train] one 268v bf16
+     remat step on 2 gloo ranks at local batch 1 (Trainer with a dp mesh)
+     against one step at batch 2 in this process: metrics and the
+     parameters' update within stated bounds, step s, the gradient
+     all-reduce s, each rank's peak; [remat_dots] the 268v bf16 step with
+     remat="dots" beside remat=True (step s, peak), and one global block's
+     gradients under "dots" held to remat=True's; [ring]
+     ring_attention_sharded at world size 1 on (1, 16, 10368, 64) in bf16
+     and float32 against the plain attention, timed beside K4; [msgpack]
+     the 268v params through the port's msgpack writer and reader, bitwise,
+     into a fresh model. The ranks reset their launch counters just before
+     their path and report them; those launches join the kernels line.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -118,18 +137,21 @@ the last is a JSON object listing every kernel (the float32 K4, K5 and K6
 rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
 of the bf16 paths, the calibration's, the calibrated roundtrip's and the
-bench's included; the float32 rows those of the train CLI too; the
-head-dim-72 rows those of the hyper_width path in
-their dtype); the last is {"ok": true, "device": {...}}. It needs
+bench's included, and dp_train's and remat_dots'; the float32 rows those
+of the train CLI too, and the float32 K4 row recompress's, whose K1-K3
+launches join those rows; the head-dim-72 rows those of the hyper_width
+path in their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
 
     python3 chip_smoke.py --coder
     python3 chip_smoke.py --perm
+    python3 chip_smoke.py --dist
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
-y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), or
-only K7 and K8 (exact, event ms and device us, torch.roll beside K8; no
-launch floor or host breakdown), and print no result line. They import
+y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
+K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
+floor or host breakdown), or only the dist phases (10), and print no
+result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -138,6 +160,7 @@ script's timers, for a comparison in one run.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import re
 import statistics
@@ -178,6 +201,7 @@ FLASH_GRAD_RTOL = 2e-2
 FLASH_F32_RTOL = 1e-5
 FLASH_F32_LSE_ATOL = 1e-5
 TRAIN_STEPS = 3  # timed steps of the train path, after one warm-up step
+CARD = ""  # nvidia-smi's name and power limit, set by phase_card
 
 
 def log(msg: str) -> None:
@@ -262,6 +286,8 @@ def phase_card() -> dict:
     ).stdout.strip().splitlines()[0]
     dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()}
+    global CARD
+    CARD = smi
     log(smi)  # name and power limit, as nvidia-smi gives them
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{dev['kind']} x{dev['count']}")
@@ -1857,9 +1883,467 @@ def phase_api(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- dist phases
+# the rank script of the multi-rank phases: two processes on the one card
+# join a gloo world (NCCL refuses two ranks on one device), reset the
+# launch counters just before their path and print one JSON line
+RANK_SCRIPT = r'''
+import json, os, sys, time
+import numpy as np, torch
+mode, args = sys.argv[1], json.loads(sys.argv[2])
+from cra5_tpu_torch import kernels
+from cra5_tpu_torch.device import resolve_device
+from cra5_tpu_torch.parallel import init_distributed, make_mesh
+dev = resolve_device("cuda")
+rank = init_distributed(backend="gloo", device=dev)
+dev = torch.device("cuda", torch.cuda.current_device())
+res = {"rank": rank}
+mesh = make_mesh({"dp": -1}, device_type="cuda")
+if mode == "recompress":
+    from cra5_tpu_torch.api.bitstream import load_bin
+    from cra5_tpu_torch.tools import recompress
+    torch.cuda.synchronize(); kernels.reset_launch_counts(); torch.cuda.reset_peak_memory_stats()
+    import contextlib, io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = recompress.main(args["main"])
+    res["main"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    bins = [load_bin(p) for p in args["bins"]]
+    codec = recompress.build_codec("268", None, dev)
+    strings = [[b[0][0][0] for b in bins], [b[0][1][0] for b in bins]]
+    t0 = time.perf_counter()
+    x_hat = recompress.decompress_batch(codec, mesh, strings, bins[0][1])
+    torch.cuda.synchronize()
+    res.update(rc=rc, decompress_s=time.perf_counter() - t0, launches=kernels.launch_counts(),
+               peak=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        np.save(args["x_hat"], x_hat)
+elif mode == "dp_train":
+    import dataclasses
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+    cfg = dataclasses.replace(vaeformer_268(), remat=True)
+    tr = Trainer(VAEformer(cfg, dtype=torch.bfloat16, device=dev), TrainerConfig(), mesh=mesh,
+                 seed=args["seed"])
+    x = torch.load(args["batch"])
+    batch = tr.shard_batch(x[rank:rank + 1])
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    state = tr.init_state(batch)
+    torch.cuda.synchronize(); t1 = time.perf_counter()
+    kernels.reset_launch_counts(); torch.cuda.reset_peak_memory_stats()
+    state, m = tr._step_fn(state, batch, args["rng"])
+    torch.cuda.synchronize(); t2 = time.perf_counter()
+    res.update(init_s=t1 - t0, first_s=t2 - t1, first_allreduce_s=tr._step_fn.timing["allreduce_s"],
+               launches=kernels.launch_counts(), metrics={k: float(v) for k, v in m.items()})
+    if rank == 0:
+        torch.save({k: p.detach().cpu() for k, p in state.params.items()}, args["params"])
+    torch.distributed.barrier()
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    tr._step_fn(state, batch, args["rng"])  # a second step, timed warm
+    torch.cuda.synchronize()
+    res.update(step_s=time.perf_counter() - t0, allreduce_s=tr._step_fn.timing["allreduce_s"],
+               peak=torch.cuda.max_memory_allocated())
+print("RANK_RESULT " + json.dumps(res), flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def run_ranks(mode: str, args: dict, n: int = 2, timeout: float = 600.0) -> list:
+    """RANK_SCRIPT on ``n`` gloo ranks sharing the card; each rank's result."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CRA5_TPU_COORDINATOR": f"127.0.0.1:{port}",
+           "CRA5_TPU_NUM_PROCESSES": str(n),
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, mode, json.dumps(args)],
+                              env={**env, "CRA5_TPU_PROCESS_ID": str(r)}, cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(n)]
+    results, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            lines = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
+            for ln in out.splitlines():
+                if not ln.startswith("RANK_RESULT "):
+                    log(f"[{mode} rank {r}] {ln}")
+            if p.returncode or not lines:
+                failed.append((r, p.returncode, err[-3000:]))
+            else:
+                results.append(json.loads(lines[0][len("RANK_RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError(f"[{mode}] ranks failed: {failed}")
+    return sorted(results, key=lambda r: r["rank"])
+
+
+def _require(launches: dict, kernels_: tuple, tag: str) -> None:
+    """Each of ``kernels_`` (launch counter names) launched on the path."""
+    missing = [k for k in kernels_ if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"[{tag}] the path launched no {missing}: {launches}")
+
+
+def _sum_launches(*counts) -> dict:
+    out = defaultdict(int)
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return dict(out)
+
+
+def phase_recompress(dev, card: str) -> dict:
+    """tools/recompress.main at full width: vaeformer_268 in float32 from
+    the seeded init on 2 synthetic (268, 721, 1440) float32 timesteps,
+    first as one process at --batch 1 and at --batch 2 (in this process),
+    then as 2 gloo ranks on the card at --batch 1, a file each, which then
+    decompress the bins with decompress_batch (a row each, all-gathered
+    through the host). Every 2-rank .bin must be byte-identical to the
+    one-process --batch 1 run's, and the 2-rank decompress must equal the
+    one-process decompress at the same per-call batch; whether --batch 2
+    writes the --batch 1 bytes is printed, not required (a GEMM may choose
+    another order at another row count)."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.api.bitstream import load_bin
+    from cra5_tpu_torch.tools import recompress
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        t0 = time.time()
+        for i in range(2):
+            x = torch.randn((268, 721, 1440), generator=gen, device=dev) * 0.5
+            np.save(os.path.join(src, f"ts{i}.npy"), x.cpu().numpy())
+        del x
+        log(f"[recompress] wrote 2 timesteps (268, 721, 1440) float32 in {time.time() - t0:.2f} s "
+            f"({card})")
+        outs, res = {}, {}
+        for batch in (1, 2):
+            out = os.path.join(tmp, f"one_b{batch}")
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = recompress.main([src, "-o", out, "--config", "268", "--batch", str(batch)])
+            torch.cuda.synchronize()
+            res[f"one_b{batch}"] = dict(seconds=time.perf_counter() - t0,
+                                        main=json.loads(buf.getvalue().strip().splitlines()[-1]),
+                                        launches=kernels.launch_counts(),
+                                        peak=torch.cuda.max_memory_allocated())
+            if rc != 0:
+                raise RuntimeError(f"recompress --batch {batch} exited {rc}")
+            outs[batch] = {n: open(os.path.join(out, n), "rb").read()
+                           for n in sorted(os.listdir(out))}
+        same_b2 = outs[2] == outs[1]
+        one = {b: res[f"one_b{b}"] for b in (1, 2)}
+        log(f"[recompress] one process, main's own line: --batch 1 {one[1]['main']}, --batch 2 "
+            f"{one[2]['main']}; with the model build {one[1]['seconds']:.3f} and "
+            f"{one[2]['seconds']:.3f} s; --batch 2 bins "
+            f"{'byte-identical to' if same_b2 else 'DIFFER from'} --batch 1's "
+            f"({[len(v) for v in outs[1].values()]} B); peak "
+            f"{res['one_b1']['peak'] / 2**30:.2f} / {res['one_b2']['peak'] / 2**30:.2f} GiB  ({card})")
+        if not same_b2:
+            for n in outs[1]:
+                a, b = load_bin(os.path.join(tmp, "one_b1", n)), load_bin(
+                    os.path.join(tmp, "one_b2", n))
+                log(f"[recompress] {n}: --batch 1 y {len(a[0][0][0])} B z {len(a[0][1][0])} B, "
+                    f"--batch 2 y {len(b[0][0][0])} B z {len(b[0][1][0])} B")
+        # the one-process decompress of each bin alone (the ranks' per-call batch)
+        codec = recompress.build_codec("268", None, dev)
+        ref = []
+        for n in sorted(outs[1]):
+            strings, zs = load_bin(os.path.join(tmp, "one_b1", n))
+            ref.append(codec.decompress(strings, zs)["x_hat"].float().cpu())
+        ref = torch.cat(ref).numpy()
+        del codec
+        torch.cuda.empty_cache()
+
+        two = os.path.join(tmp, "two")
+        args = dict(main=[src, "-o", two, "--config", "268", "--batch", "1",
+                          "--backend", "gloo"],
+                    bins=[os.path.join(two, n) for n in sorted(outs[1])],
+                    x_hat=os.path.join(tmp, "x_hat.npy"))
+        t0 = time.perf_counter()
+        ranks = run_ranks("recompress", args)
+        wall = time.perf_counter() - t0
+        for n, data in outs[1].items():
+            if open(os.path.join(two, n), "rb").read() != data:
+                raise RuntimeError(f"[recompress] 2-rank {n} differs from the one-process bin")
+        x_hat = np.load(args["x_hat"])
+        err = float(np.abs(x_hat - ref).max())
+        bound = 1e-5 * float(np.abs(ref).max())
+        if x_hat.shape != ref.shape or not np.isfinite(x_hat).all() or not err <= bound:
+            raise RuntimeError(f"[recompress] 2-rank decompress vs one process: shape "
+                               f"{x_hat.shape}, err {err} > {bound}")
+    encode = ("rans_encode", "flash_attention_forward")
+    for r in (res["one_b1"], res["one_b2"]):
+        _require(r["launches"], encode, "recompress")
+    for r in ranks:  # compress, then decompress
+        _require(r["launches"], encode + ("rans_decode_generic", "rans_decode_sorted"),
+                 "recompress")
+    for r in ranks:
+        log(f"[recompress] rank {r['rank']}: main {r['main']['seconds']} s, "
+            f"{r['main']['timesteps_per_sec']} timesteps/s; peak {r['peak'] / 2**30:.2f} GiB, decompress "
+            f"{r['decompress_s']:.3f} s, launches {r['launches']}  ({card})")
+    slowest = max(r["main"]["seconds"] for r in ranks)
+    log(f"[recompress] 2 gloo ranks on one card, --batch 1, a file each: every bin "
+        f"byte-identical to one process; decompress_batch x_hat err {err} (bound 1e-5 x max|ref| "
+        f"= {bound:.3g}); 2 timesteps in {slowest:.2f} s (the slower rank's main), "
+        f"{2 / slowest:.3f} timesteps/s; {wall:.2f} s for both ranks, process start and "
+        f"decompress included  ({card})")
+    return dict(launches=_sum_launches(res["one_b1"]["launches"], res["one_b2"]["launches"],
+                                       *[r["launches"] for r in ranks]),
+                same_b2=same_b2, seconds=res["one_b1"]["seconds"])
+
+
+DP_METRIC_RTOL = 1e-2  # bf16 losses at local batch 1 against batch 2: a few 2^-8 ulps
+DP_UPDATE_RTOL = 5e-2  # L1 of (dp update - one-process update) over L1 of the update
+
+
+def phase_dp_train(dev, card: str) -> dict:
+    """One 268v bf16 remat training step on 2 gloo ranks sharing the card at
+    local batch 1 (Trainer(mesh=make_mesh({"dp": -1}))), against one step of
+    the same seeded init, noise and rng in this process at batch 2, each
+    followed by a second step, timed (the first carries the first calls'
+    set-up). After the first step: the metrics (averaged over the ranks)
+    within DP_METRIC_RTOL; the update of
+    the parameters (new - init) within DP_UPDATE_RTOL of the one-process
+    update in L1 over every parameter (the first Adam step moves each
+    element by about lr times the sign of its gradient, so updates differ
+    where a gradient's sign moves with the bf16 rounding of batch 1 against
+    batch 2), and no element further than twice the larger rate (net or
+    aux)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(vaeformer_268(), remat=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = (torch.randn((2, cfg.in_chans, *cfg.img_size), generator=gen, device=dev) * 0.5).cpu()
+    tcfg = TrainerConfig()
+    tr = Trainer(VAEformer(cfg, dtype=torch.bfloat16, device=dev), tcfg, seed=SEED)
+    batch = tr.shard_batch(x)
+    state = tr.init_state(batch)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = tr._step_fn(state, batch, SEED + 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    one = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+    one_m = {k: float(v) for k, v in m.items()}
+    t0 = time.perf_counter()
+    tr._step_fn(state, batch, SEED + 1)  # a second step, timed warm
+    torch.cuda.synchronize()
+    one_s, one_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = dict(batch=os.path.join(tmp, "x.pt"), params=os.path.join(tmp, "p.pt"),
+                    seed=SEED, rng=SEED + 1)
+        torch.save(x, args["batch"])
+        ranks = run_ranks("dp_train", args)
+        dp = torch.load(args["params"])
+    bad = {k: (v, ranks[0]["metrics"][k]) for k, v in one_m.items()
+           if not abs(ranks[0]["metrics"][k] - v) <= DP_METRIC_RTOL * abs(v)}
+    l1_diff = sum(float((dp[k] - one[k]).abs().sum()) for k in one)
+    l1_upd = sum(float((one[k] - init[k]).abs().sum()) for k in one)
+    worst = max(float((dp[k] - one[k]).abs().max()) for k in one)
+    rel = l1_diff / l1_upd
+    step_max = max(tcfg.learning_rate, tcfg.aux_learning_rate)  # Adam's first step, at most
+    if bad or not rel <= DP_UPDATE_RTOL or not worst <= 2 * step_max * 1.001:
+        raise RuntimeError(f"[dp_train] 2 ranks vs one process at batch 2: metrics off {bad}, "
+                           f"update L1 rel {rel}, worst element {worst}")
+    for r in ranks:
+        _require(r["launches"], ("flash_attention_forward", "flash_attention_backward_dq",
+                                 "flash_attention_backward_dkv"), "dp_train")
+    for r in ranks:
+        log(f"[dp_train] rank {r['rank']}: init (with rank 0's broadcast) {r['init_s']:.3f} s; "
+            f"first step {r['first_s']:.4f} s (all-reduce {r['first_allreduce_s']:.4f}); second "
+            f"step {r['step_s']:.4f} s, its gradient all-reduce {r['allreduce_s']:.4f} s; peak "
+            f"{r['peak'] / 2**30:.2f} GiB; first step's launches {r['launches']}  ({card})")
+    log(f"[dp_train] one process at batch 2: first step {first_s:.4f} s, second {one_s:.4f} s, "
+        f"peak {one_peak / 2**30:.2f} GiB; first step's metrics {one_m}  ({card})")
+    log(f"[dp_train] 2 ranks x batch 1 vs one process x batch 2: metrics within rtol "
+        f"{DP_METRIC_RTOL} ({ranks[0]['metrics']}); update L1 rel diff {rel:.4g} (bound "
+        f"{DP_UPDATE_RTOL}); worst element {worst:.3g} (bound {2 * step_max:.3g})  ({card})")
+    return dict(launches=_sum_launches(*[r["launches"] for r in ranks]))
+
+
+def phase_remat_dots(dev, card: str) -> dict:
+    """The 268v bf16 training step with remat="dots" against remat=True:
+    step s and peak for each (a warm-up step, then one timed), the counters
+    zeroed around the timed "dots" step; then one global block's gradients
+    under "dots" held to remat=True's within FLASH_GRAD_RTOL x max|ref|."""
+    import dataclasses
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.nn import blocks
+    from cra5_tpu_torch.nn.vit import _run_block
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = vaeformer_268()
+    fields = [torch.randn((1, base.in_chans, *base.img_size), generator=gen, device=dev) * 0.5
+              for _ in range(2)]
+    res = {}
+    for remat in (True, "dots"):
+        model = VAEformer(dataclasses.replace(base, remat=remat), dtype=torch.bfloat16, device=dev)
+        tr = Trainer(model, TrainerConfig(log_every=10**9, ckpt_every=10**9), seed=SEED)
+        state = tr.fit(fields[:1], num_steps=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.fit(fields[1:], state=state, num_steps=1)
+        torch.cuda.synchronize()
+        res[remat] = dict(step_s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
+                          launches=kernels.launch_counts())
+        del model, tr, state
+        torch.cuda.empty_cache()
+    per_step = {"flash_attention_forward": 14, "flash_attention_backward_dq": 7,
+                 "flash_attention_backward_dkv": 7}
+    want = {k: per_step.get(k, 0) for k in res["dots"]["launches"]}
+    if res["dots"]["launches"] != want:
+        raise RuntimeError(f"[remat_dots] launches {res['dots']['launches']}, expected {want}")
+    for remat, r in res.items():
+        log(f"[remat_dots] 268v bf16 remat={remat!r}: step {r['step_s']:.4f} s, peak "
+            f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}  ({card})")
+    # one global block: gradients under "dots" against remat=True
+    dim, heads, (Hp, Wp) = base.y_channels, base.num_heads, base.latent_grid
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    blk = blocks.Block(dim, heads, layer_id=base.interval - 1, dtype=torch.bfloat16, device=dev)
+    for mod in blk.modules():
+        if mod is not blk and hasattr(mod, "reset_parameters") and not isinstance(mod, torch.nn.Linear):
+            mod.reset_parameters(gen)
+    x = torch.randn((1, Hp * Wp, dim), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    grads = {}
+    for remat in (True, "dots"):
+        blk.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        (_run_block(blk, xg, Hp, Wp, remat=remat).float() * w).sum().backward()
+        grads[remat] = {"x": xg.grad, **{k: p.grad.clone() for k, p in blk.named_parameters()}}
+    errs = {k: ((grads["dots"][k].float() - ref.float()).abs().max().item(),
+                FLASH_GRAD_RTOL * ref.float().abs().max().item())
+            for k, ref in grads[True].items()}
+    if any(not e <= b for e, b in errs.values()):
+        raise RuntimeError(f"[remat_dots] global block gradients, dots vs True: {errs}")
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    log(f"[remat_dots] 268v global block (1, {Hp * Wp}, {dim}) bf16: gradients under 'dots' vs "
+        f"remat=True within {FLASH_GRAD_RTOL} x max|ref| for all {len(errs)} (worst {worst}: "
+        f"err {errs[worst][0]:.3g}, bound {errs[worst][1]:.3g})  ({card})")
+    del blk, grads, x, w
+    torch.cuda.empty_cache()
+    return dict(launches=res["dots"]["launches"])
+
+
+def phase_ring(dev, card: str) -> None:
+    """ring_attention_sharded at world size 1 on the card (an NCCL world of
+    one rank, no rotation) on the 268v global block's (1, 16, 10368, 64),
+    bf16 and float32, against the plain attention (float32 logits and
+    softmax), timed beside K4 (flash_attention_forward) on the same
+    inputs."""
+    import torch.distributed as dist
+
+    from cra5_tpu_torch.ops.attention import flash_attention_forward
+    from cra5_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from cra5_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"sp": 1}, device_type="cuda")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        shape = (1, 16, 10368, 64)
+        for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+            out = ring_attention_sharded(q, k, v, mesh)
+            logits = torch.matmul(q.float() * 0.125, k.float().transpose(-1, -2))
+            ref = torch.matmul(torch.softmax(logits, -1), v.float())
+            del logits
+            err = (out.float() - ref).abs().max().item()
+            if out.dtype != dtype or not err <= atol:
+                raise RuntimeError(f"[ring] {dtype}: err {err} > {atol}")
+            ring_ms = timed_ms(lambda: ring_attention_sharded(q, k, v, mesh), 3)
+            k4_ms = timed_ms(lambda: flash_attention_forward(q, k, v, 0.125), 10)
+            log(f"[ring] {shape} {dtype}, world size 1: err vs plain {err:.3g} (atol {atol}); "
+                f"ring {ring_ms:.4f} ms, K4 {k4_ms:.4f} ms  ({card})")
+            del q, k, v, out, ref
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_msgpack(dev, card: str) -> None:
+    """The 268v params written by the port's msgpack writer (the JAX
+    package's .msgpack variables), read back bitwise, and loaded into a
+    fresh model on the card."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.train.checkpoints import load_variables, save_variables
+
+    model = VAEformer(vaeformer_268(), device=dev).reset_parameters(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step_0.msgpack")
+        t0 = time.perf_counter()
+        save_variables(path, dict(model.named_parameters()), model=model)
+        t1 = time.perf_counter()
+        fresh = VAEformer(vaeformer_268(), device=dev)
+        params = load_variables(path, model=fresh)
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            for name, p in fresh.named_parameters():
+                p.copy_(params[name])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        nbytes = os.path.getsize(path)
+    bad = [k for k, p in model.named_parameters() if not torch.equal(fresh.get_parameter(k), p)]
+    if bad:
+        raise RuntimeError(f"[msgpack] {len(bad)} params differ after the roundtrip: {bad[:3]}")
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[msgpack] 268v params ({n} float32) -> {nbytes} B: write {t1 - t0:.3f} s, read "
+        f"{t2 - t1:.3f} s, into a fresh model {t3 - t2:.3f} s; every tensor bitwise  ({card})")
+    del model, fresh, params
+    torch.cuda.empty_cache()
+
+
+def phase_dist(dev, card: str) -> dict:
+    """The multi-rank, remat, ring and msgpack phases, in order; the
+    launches of each path driven."""
+    rc = phase_recompress(dev, card)
+    dp = phase_dp_train(dev, card)
+    dots = phase_remat_dots(dev, card)
+    phase_ring(dev, card)
+    phase_msgpack(dev, card)
+    return {"recompress": rc["launches"], "dp_train": dp["launches"],
+            "remat_dots": dots["launches"]}
+
+
 def main(args) -> int:
-    if args not in ([], ["--coder"], ["--perm"]):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--coder | --perm]; got {args}")
+    if args not in ([], ["--coder"], ["--perm"], ["--dist"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--coder | --perm | --dist]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1873,6 +2357,8 @@ def main(args) -> int:
         log(f"[{args[0][2:]}] cra5_tpu_torch from {cra5_tpu_torch.__path__[0]}")
         if args == ["--coder"]:
             coder_rows(dev, np.random.default_rng(SEED), floor=False)
+        elif args == ["--dist"]:
+            phase_dist(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -1893,6 +2379,8 @@ def main(args) -> int:
     cli_res = phase_train_cli(dev)
     probe_launches = phase_probe(dev)
     api_launches = phase_api(dev)
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -1904,7 +2392,7 @@ def main(args) -> int:
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
-             "train_cli": cli_res["launches"]}
+             "train_cli": cli_res["launches"], **dist_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -1955,9 +2443,10 @@ def main(args) -> int:
     # counter each: the head-dim-64 float32 paths are the API's and the
     # float32 train step's, the head-dim-72 paths hyper_width's two, every
     # other path is bf16 at head dim 64
-    bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench")
+    bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
+            "remat_dots")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
-            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli"),
+            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
             "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
     only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in
@@ -1965,7 +2454,7 @@ def main(args) -> int:
                   "flash_attn_bwd_dkv_anydim")})
     kernels_line = []
     for name, (counter, src, replaces) in sources.items():
-        launches = sum(paths[p][counter] for p in only.get(name, paths))
+        launches = sum(paths[p].get(counter, 0) for p in only.get(name, paths))
         if launches == 0:
             raise RuntimeError(f"{name} was not launched on any path")
         kernels_line.append(dict(name=name, route="cuda", source=src, replaces=replaces,

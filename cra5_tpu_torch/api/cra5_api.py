@@ -89,7 +89,7 @@ class cra5_api:
     # -- weights -----------------------------------------------------------
     @torch.no_grad()
     def _load_weights(self, path: str) -> None:
-        params = load_variables(path)
+        params = load_variables(path, model=self.net)  # .pt, or the JAX package's .msgpack
         own = dict(self.net.named_parameters())
         if set(own) != set(params):
             raise ValueError(f"{path}: parameter names differ from {self.model_cfg.name}'s")

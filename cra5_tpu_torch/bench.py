@@ -17,8 +17,11 @@ the ~2.6e6-byte bin, its rate, bpp and RMSE), config 4 (decoder only, at
 depth 2 and at the roundtrip's depth), config 3 (batched encode, batch 8,
 else 4, else 2, with why the larger ones did not run), config 1 (the 159v
 roundtrip, with ``BENCH_FULL=1``) and config 5 (data-parallel
-recompression: skipped, ROADMAP.md queue A4). Every block carries the
-card's name and power limit as ``nvidia-smi`` prints them.
+recompression with ``BENCH_FULL=1``: ``bench.py``'s workload, 16 seeded
+(8, 41, 40) timesteps through ``tools/recompress.py --config tiny`` on 8
+gloo processes on the CPU, in place of its 8 virtual CPU devices). Every
+block carries the card's name and power limit as ``nvidia-smi`` prints
+them.
 
 The model is ``vaeformer_268()`` with seeded weights in bf16, its entropy
 side calibrated by default (``train/calibrate.py``, two seeded latents,
@@ -62,7 +65,8 @@ import torch
 
 METRIC = "era5_268v_roundtrips_per_sec_per_chip"
 BASELINE_RPS = 1.0 / (0.0983 + 0.0343)  # the reference's published GPU roundtrips/s
-CACHE_DIR = Path(__file__).resolve().parents[1] / "build" / "cra5_tpu_torch" / "bench_cache"
+ROOT = Path(__file__).resolve().parents[1]
+CACHE_DIR = ROOT / "build" / "cra5_tpu_torch" / "bench_cache"
 
 
 def log(msg: str) -> None:
@@ -423,6 +427,72 @@ def config1(device, dtype, iters: int, concurrency: int, per_window: int, calibr
             "calibration": s.info.get("calibration")}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+C5_SCRIPT = (
+    "import sys, time\n"
+    "from cra5_tpu_torch.tools import recompress\n"
+    "t0 = time.time()\n"
+    "rc = recompress.main([sys.argv[1], '-o', sys.argv[2], '--config', 'tiny', "
+    "'--device', 'cpu', '--backend', 'gloo'])\n"
+    "print('ELAPSED', time.time() - t0)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def config5(n_procs: int = 8, n_ts: int = 16, timeout: float = 1200.0) -> Dict[str, Any]:
+    """bench.py's config 5: ``n_ts`` seeded (8, 41, 40) timesteps
+    recompressed by ``tools/recompress.main`` (``--config tiny``) on
+    ``n_procs`` gloo processes on the CPU, one thread each; the rate is
+    ``n_ts`` over the slowest process's ``main`` (its model init
+    included, as bench.py times it)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="bench_rc_") as td:
+        indir = os.path.join(td, "in")
+        os.makedirs(indir)
+        rng = np.random.default_rng(0)
+        for i in range(n_ts):
+            np.save(os.path.join(indir, f"ts{i}.npy"),
+                    rng.normal(size=(8, 41, 40)).astype(np.float32))
+        port = _free_port()
+        env = {**os.environ, "OMP_NUM_THREADS": "1", "CRA5_TPU_NUM_PROCESSES": str(n_procs),
+               "CRA5_TPU_COORDINATOR": f"127.0.0.1:{port}",
+               "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        procs = [subprocess.Popen([sys.executable, "-c", C5_SCRIPT, indir,
+                                   os.path.join(td, "out")],
+                                  env={**env, "CRA5_TPU_PROCESS_ID": str(r)}, cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(n_procs)]
+        elapsed, errors = [], []
+        try:
+            for r, p in enumerate(procs):
+                out, err = p.communicate(timeout=timeout)
+                lines = [ln for ln in out.splitlines() if ln.startswith("ELAPSED")]
+                if p.returncode or not lines:
+                    errors.append({"rank": r, "rc": p.returncode, "tail": err[-300:]})
+                else:
+                    elapsed.append(float(lines[0].split()[1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        n_bins = len(list(Path(td, "out").glob("*.bin")))
+    if errors or n_bins != n_ts:
+        return {"error": f"{len(errors)} ranks failed, {n_bins} of {n_ts} bins",
+                "ranks": errors}
+    return {"samples_per_sec": round(n_ts / max(elapsed), 4), "n_samples": n_ts,
+            "mesh": f"{n_procs} gloo cpu processes (one device a rank)",
+            "rank_seconds": [round(e, 4) for e in elapsed]}
+
+
 class Budget:
     """Seconds left of ``BENCH_TIME_BUDGET`` since the run began; a stage
     that would not fit is recorded as skipped."""
@@ -458,7 +528,9 @@ def run_extras(s: Setup, detail: Dict[str, Any], *, iters: int, concurrency: int
         extras["config3_batched_encode"] = budget.skip(240) or config3(
             s, batches, iters, concurrency)
         log(json.dumps({"config3": extras["config3_batched_encode"]}))
-        extras["config5_mesh_recompress"] = {"skipped": "ROADMAP A4"}
+        extras["config5_mesh_recompress"] = (
+            {"skipped": "BENCH_FULL=0"} if not full else budget.skip(600) or config5())
+        log(json.dumps({"config5": extras["config5_mesh_recompress"]}))
     if extras:
         detail["baseline_configs"] = extras
 

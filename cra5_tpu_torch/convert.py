@@ -15,13 +15,16 @@ without JAX) and fills every parameter of the port's ``VAEformer``:
     they are.
 
 It is strict: every flax leaf must be consumed and every torch parameter
-filled, with matching shapes, or it raises ValueError.
+filled, with matching shapes, or it raises ValueError. ``flax_layout``
+is the one table of that correspondence; ``to_flax_params`` is its
+inverse (port tensors -> the flax ``params`` tree), which the ``.msgpack``
+checkpoints write through.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -50,53 +53,111 @@ def _flax_path(torch_name: str) -> str:
     return re.sub(r"blocks\.(\d+)", r"blocks_\1", torch_name).replace(".", "/")
 
 
-@torch.no_grad()
-def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
-    params = variables.get("params", variables)
-    flat = _flatten(params)
-    used, filled = set(), set()
+# how a port parameter's layout maps to its flax leaf: (to flax, from flax)
+_LAYOUTS = {
+    "as_is": (lambda a: a, lambda a: a),
+    "dense": (lambda a: a.T, lambda a: a.T),  # (out, in) <-> (in, out)
+    "conv": (lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1)),  # OIHW <-> HWIO
+    # ConvTranspose2d (in, out, kh, kw) <-> flax's flipped (kh, kw, in, out)
+    "conv_t": (lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+               lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)),
+}
 
-    def take(path: str) -> np.ndarray:
-        path = path.lstrip("/")  # the root module's own leaves
-        if path not in flat:
-            raise ValueError(f"flax variables lack {path}")
-        used.add(path)
-        return flat[path]
 
-    def put(param: torch.Tensor, value: np.ndarray, path: str) -> None:
-        value = np.ascontiguousarray(value)
-        if tuple(param.shape) != value.shape:
-            raise ValueError(f"{path}: flax {value.shape} vs torch {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(value.astype(np.float32)).to(param.dtype))
-        filled.add(id(param))
+def flax_layout(model: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """Every parameter of the port's model: port name -> (flax path under
+    ``params``, layout name in ``_LAYOUTS``), in the model's order."""
+    out: Dict[str, Tuple[str, str]] = {}
+
+    def add(name: str, path: str, layout: str) -> None:
+        out[name] = (path.lstrip("/"), layout)  # the root module's own leaves
 
     for name, mod in model.named_modules():
-        p = _flax_path(name)
+        p, pre = _flax_path(name), f"{name}." if name else ""
         if isinstance(mod, nn.Linear):
-            put(mod.weight, take(f"{p}/kernel").T, f"{p}/kernel")
+            add(f"{pre}weight", f"{p}/kernel", "dense")
             if mod.bias is not None:
-                put(mod.bias, take(f"{p}/bias"), f"{p}/bias")
+                add(f"{pre}bias", f"{p}/bias", "as_is")
         elif isinstance(mod, LayerNorm):
-            put(mod.weight, take(f"{p}/scale"), f"{p}/scale")
-            put(mod.bias, take(f"{p}/bias"), f"{p}/bias")
+            add(f"{pre}weight", f"{p}/scale", "as_is")
+            add(f"{pre}bias", f"{p}/bias", "as_is")
         elif isinstance(mod, PatchEmbed):
-            put(mod.weight, take(f"{p}/proj/kernel").transpose(3, 2, 0, 1), f"{p}/proj/kernel")
-            put(mod.bias, take(f"{p}/proj/bias"), f"{p}/proj/bias")
+            add(f"{pre}weight", f"{p}/proj/kernel", "conv")
+            add(f"{pre}bias", f"{p}/proj/bias", "as_is")
         elif isinstance(mod, PatchUnembed):
-            k = take(f"{p}/final/kernel")[::-1, ::-1]
-            put(mod.weight, k.transpose(2, 3, 0, 1), f"{p}/final/kernel")
+            add(f"{pre}weight", f"{p}/final/kernel", "conv_t")
         elif isinstance(mod, Conv1x1):
-            put(mod.weight, take(f"{p}/kernel").transpose(3, 2, 0, 1), f"{p}/kernel")
-            put(mod.bias, take(f"{p}/bias"), f"{p}/bias")
+            add(f"{pre}weight", f"{p}/kernel", "conv")
+            add(f"{pre}bias", f"{p}/bias", "as_is")
         elif isinstance(mod, EntropyBottleneck):
-            for pname, param in mod.named_parameters():
-                put(param, take(f"{p}/{pname}"), f"{p}/{pname}")
+            for pname, _ in mod.named_parameters():
+                add(f"{pre}{pname}", f"{p}/{pname}", "as_is")
         if isinstance(mod, _PosEmbed):
-            put(mod.pos_embed, take(f"{p}/pos_embed"), f"{p}/pos_embed")
+            add(f"{pre}pos_embed", f"{p}/pos_embed", "as_is")
+    return out
 
-    missing = [n for n, prm in model.named_parameters() if id(prm) not in filled]
-    unused = sorted(set(flat) - used)
-    if missing or unused:
-        raise ValueError(f"conversion incomplete: torch params unfilled {missing}, "
-                         f"flax leaves unused {unused}")
+
+def to_flax_leaf(layout: str, value) -> np.ndarray:
+    """A port tensor (or array) in its flax leaf's layout, float32."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().float().cpu().numpy()
+    return np.ascontiguousarray(_LAYOUTS[layout][0](np.asarray(value, np.float32)))
+
+
+def from_flax_leaf(layout: str, value) -> np.ndarray:
+    return np.ascontiguousarray(_LAYOUTS[layout][1](np.asarray(value)))
+
+
+def to_flax_params(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The flax ``params`` tree (nested dicts, keys sorted at every level,
+    as ``jax.tree.map`` leaves them) of port tensors named as the model's
+    parameters (the parameters themselves, Adam moments or an EMA)."""
+    layout = flax_layout(model)
+    if set(tensors) != set(layout):
+        raise ValueError(f"tensor names differ from the model's parameters: "
+                         f"{sorted(set(tensors) ^ set(layout))[:5]}")
+    tree: Dict[str, Any] = {}
+    for name, (path, kind) in layout.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = to_flax_leaf(kind, tensors[name])
+    return _sorted(tree)
+
+
+def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def from_flax_params(model: nn.Module, variables: dict) -> Dict[str, np.ndarray]:
+    """Port name -> array in the port's layout, for every parameter of the
+    model, from a flax ``params`` tree (or a variables dict holding one).
+    Strict: every flax leaf is consumed and every parameter found, with
+    matching shapes, or it raises ValueError."""
+    flat = _flatten(variables.get("params", variables))
+    layout = flax_layout(model)
+    params = dict(model.named_parameters())
+    out, missing = {}, []
+    for name, (path, kind) in layout.items():
+        if path not in flat:
+            missing.append(path)
+            continue
+        value = from_flax_leaf(kind, flat[path])
+        if tuple(params[name].shape) != value.shape:
+            raise ValueError(f"{path}: flax {value.shape} vs torch {tuple(params[name].shape)}")
+        out[name] = value
+    unfilled = [n for n in params if n not in layout]
+    unused = sorted(set(flat) - {path for path, _ in layout.values()})
+    if missing or unfilled or unused:
+        raise ValueError(f"conversion incomplete: flax variables lack {missing}, torch params "
+                         f"unfilled {unfilled}, flax leaves unused {unused}")
+    return out
+
+
+@torch.no_grad()
+def load_flax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    for name, value in from_flax_params(model, variables).items():
+        param = model.get_parameter(name)
+        param.copy_(torch.from_numpy(value.astype(np.float32)).to(param.dtype))
     return model

@@ -67,7 +67,11 @@ def device_put(device=None) -> Callable[[np.ndarray], torch.Tensor]:
 
 class PrefetchLoader:
     """Wrap any batch iterable: a producer thread keeps ``depth`` batches
-    loaded (and, with ``to_device``, transferred) ahead of the consumer."""
+    loaded (and, with ``to_device``, transferred) ahead of the consumer.
+    A consumer that stops early (``Trainer.fit`` after ``num_steps``)
+    releases them: when its iterator is closed or dropped, the producer
+    stops at its next batch and the queued batches are freed, so no
+    device batch outlives the loop that read it."""
 
     def __init__(
         self,
@@ -85,24 +89,43 @@ class PrefetchLoader:
 
         put = self.to_device or (lambda x: x)
         q: _queue.Queue = _queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
         _END = object()
+
+        def offer(item) -> bool:
+            """Queue ``item`` unless the consumer has stopped."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except _queue.Full:
+                    pass
+            return False
 
         def producer():
             try:
                 for batch in self.batches:
-                    q.put(put(batch))
+                    if stop.is_set() or not offer(put(batch)):
+                        return
             except BaseException as e:  # surfaced on the consumer side
-                q.put(("__error__", e))
-            finally:
-                q.put(_END)
+                offer(("__error__", e))
+            offer(_END)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is _END:
-                break
-            if isinstance(item, tuple) and len(item) == 2 and item[0] == "__error__":
-                raise item[1]
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    break
+                if isinstance(item, tuple) and len(item) == 2 and item[0] == "__error__":
+                    raise item[1]
+                yield item
+        finally:
+            stop.set()
+            while True:  # free what the producer queued ahead
+                try:
+                    q.get_nowait()
+                except _queue.Empty:
+                    break
         t.join()

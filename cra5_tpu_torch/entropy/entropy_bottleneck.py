@@ -21,7 +21,7 @@ from scipy.special import expit as sigmoid
 from torch import nn
 
 from .cdf import CdfTable, build_cdf_table
-from .ops import lower_bound, quantize
+from .ops import along, lower_bound, quantize
 
 
 def _logits_cumulative(params: dict, inputs: torch.Tensor, nfilters: int) -> torch.Tensor:
@@ -112,7 +112,8 @@ class EntropyBottleneck(nn.Module):
         values = xt.reshape(shape[0], 1, -1)
         medians = self.medians().reshape(-1, 1, 1)
         mode = "noise" if training else "dequantize"
-        outputs = quantize(values, mode, means=medians, generator=generator)
+        # values is (C, 1, B * prod(spatial)): the batch is the outer factor of dim 2
+        outputs = quantize(values, mode, means=medians, generator=along(generator, 2))
         likelihood = self.likelihood(outputs)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)

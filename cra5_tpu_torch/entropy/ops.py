@@ -4,13 +4,61 @@ Counterpart of ``cra5_tpu/entropy/ops.py``. ``torch.round`` rounds half to
 even, as ``jnp.round`` does, so symbols agree with the JAX package exactly.
 ``lower_bound`` and ``quantize_ste`` are ``autograd.Function``s with the
 custom gradients of the JAX package's ``custom_vjp``s.
+
+``BatchRows`` stands where a generator stands when a data-parallel rank
+computes some rows of a global batch (``train/loop.py``): each draw takes
+the whole batch's noise and keeps the rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional, Sequence, Union
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """Rows [start, stop) of a global batch of ``total`` rows: every draw
+    takes the global batch's values from ``generator`` and keeps these
+    rows, so a rank adds to its rows exactly what one device running the
+    whole batch adds there (a CUDA draw's values depend on how many it
+    draws, so a local draw would differ). ``dim`` is the dim of the drawn
+    shape whose outermost factor is the batch (``along`` sets it)."""
+    generator: torch.Generator
+    start: int
+    stop: int
+    total: int
+    dim: int = 0
+
+    def along(self, dim: int) -> "BatchRows":
+        return dataclasses.replace(self, dim=dim)
+
+    def draw(self, shape: Sequence[int], fill: Callable[[Sequence[int], torch.Generator],
+                                                        torch.Tensor]) -> torch.Tensor:
+        rows = self.stop - self.start
+        per = shape[self.dim] // rows
+        full = list(shape)
+        full[self.dim] = per * self.total
+        return fill(full, self.generator).narrow(self.dim, per * self.start,
+                                                 per * rows).contiguous()
+
+
+Noise = Union[torch.Generator, BatchRows]
+
+
+def along(generator: Optional[Noise], dim: int) -> Optional[Noise]:
+    """``generator`` with its batch at ``dim`` (a plain generator as is)."""
+    return generator.along(dim) if isinstance(generator, BatchRows) else generator
+
+
+def draw(shape: Sequence[int], generator: Noise,
+         fill: Callable[[Sequence[int], torch.Generator], torch.Tensor]) -> torch.Tensor:
+    """``fill(shape, generator)``, or a ``BatchRows``' rows of it."""
+    if isinstance(generator, BatchRows):
+        return generator.draw(shape, fill)
+    return fill(shape, generator)
 
 
 class _LowerBound(torch.autograd.Function):
@@ -52,17 +100,19 @@ def quantize(
     inputs: torch.Tensor,
     mode: str,
     means: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Noise] = None,
 ) -> torch.Tensor:
     """"noise": inputs + uniform(-0.5, 0.5) noise in the inputs' dtype,
-    drawn from ``generator`` (training); "ste": round(x - means) + means
+    drawn from ``generator`` (training; a ``BatchRows`` draws its rows of
+    the global batch's noise); "ste": round(x - means) + means
     with the straight-through gradient; "dequantize": round(x - means) +
     means; "symbols": int32 round(x - means)."""
     if mode == "noise":
         if generator is None:
             raise ValueError("mode='noise' requires a generator")
-        noise = torch.empty(inputs.shape, dtype=inputs.dtype, device=inputs.device)
-        return inputs + noise.uniform_(-0.5, 0.5, generator=generator)
+        fill = lambda shape, g: torch.empty(shape, dtype=inputs.dtype, device=inputs.device
+                                            ).uniform_(-0.5, 0.5, generator=g)
+        return inputs + draw(inputs.shape, generator, fill)
     outputs = inputs - means if means is not None else inputs
     if mode == "ste":
         outputs = quantize_ste(outputs)

@@ -41,6 +41,7 @@ from ..entropy import (
     get_scale_table,
 )
 from ..entropy.cdf import CdfTable
+from ..entropy.ops import draw
 from ..nn.init import lecun_normal_
 from ..nn.vit import HyperDecoder, HyperEncoder, ViTDecoder, ViTEncoder
 
@@ -126,8 +127,9 @@ class DiagonalGaussian:
         return torch.exp(self.logvar)
 
     def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
-                          device=self.mean.device)
+        fill = lambda shape, g: torch.randn(shape, generator=g, dtype=self.mean.dtype,
+                                            device=self.mean.device)
+        eps = draw(self.mean.shape, generator, fill)
         return self.mean + self.std * eps
 
     def mode(self) -> torch.Tensor:

@@ -9,19 +9,34 @@ NLC inside, NCHW at the module boundaries.
     ``blocks[n_seq]`` (logvar) both read the same activations.
   - The decoder's window pattern uses i = depth // 2 + j, while its block
     index and layer_id use j.
-  - ``remat=True`` recomputes each block of g_a and g_s in the backward
-    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
-    ``nn.remat`` does; the hyperprior towers are never rematerialized.
+  - ``remat=True`` (or "full") recomputes each block of g_a and g_s in
+    the backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
+    package's ``nn.remat`` does; the hyperprior towers are never
+    rematerialized. ``remat="dots"`` is the JAX package's
+    ``dots_with_no_batch_dims_saveable`` policy as selective activation
+    checkpointing: the outputs of matmuls without batch dims are saved and
+    everything else is recomputed. A ``Dense`` (``F.linear``) on the
+    blocks' 3-D tokens lowers to ``aten.addmm`` on the flattened tokens
+    (``aten.mm`` without a bias), and those are the ops saved: qkv, proj,
+    fc1 and fc2, four a block. The attention logits and their product with
+    v are ``aten.bmm`` (a batch dim, as the einsum has in JAX), the global
+    blocks' flash kernels run inside an ``autograd.Function``, and the
+    norms and elementwise work are all recomputed.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .blocks import Block, Dense, LayerNorm, Mlp
 from .init import init_linear_
@@ -37,18 +52,28 @@ def _win_for_block(i: int, window: bool, interval: int,
     return tuple(window_sizes[min(i % interval, len(window_sizes) - 1)])
 
 
-def _check_remat(remat) -> bool:
-    if remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" (save the matmul outputs, recompute the rest) is not '
-            "ported; it is listed in ROADMAP.md queue A. Use remat=True.")
-    if remat not in (False, True, "full"):
-        raise ValueError(f"remat must be False, True or 'full', got {remat!r}")
-    return bool(remat)
+Remat = Union[bool, str]
+# matmuls without batch dims: what dots_with_no_batch_dims_saveable saves
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _run_block(blk: nn.Module, x: torch.Tensor, H: int, W: int, remat: bool) -> torch.Tensor:
+def _check_remat(remat) -> Remat:
+    """False, True (the whole block recomputed) or "dots"."""
+    if remat not in (False, True, "full", "dots"):
+        raise ValueError(f"remat must be False, True, 'full' or 'dots', got {remat!r}")
+    return "dots" if remat == "dots" else bool(remat)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save the outputs of the matmuls without batch dims, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(blk: nn.Module, x: torch.Tensor, H: int, W: int, remat: Remat) -> torch.Tensor:
     if remat and torch.is_grad_enabled():
+        if remat == "dots":
+            return checkpoint(blk, x, H, W, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, dots_policy))
         return checkpoint(blk, x, H, W, use_reentrant=False)
     return blk(x, H, W)
 

@@ -1,4 +1,4 @@
-"""Config-driven training CLI, on one device.
+"""Config-driven training CLI, on one device or data-parallel over ranks.
 
 Counterpart of ``cra5_tpu/tools/train.py``: a Python-file config
 (``utils/config.py``: ``_base_`` inheritance, ``{{$ENV:default}}``
@@ -18,14 +18,22 @@ Config keys (all optional except model):
   mesh       = dict(dp=-1) | dict(dp=4, tp=2)
   steps      = the run's whole step budget (the schedule's horizon)
 
-It runs on the card unless ``--device cpu``. A mesh is resolved as the JAX
-package resolves it (-1: the axis takes every visible device); a mesh of
-one device is the one-device trainer, and a mesh of more raises: mesh
-training waits for ROADMAP.md queue A4. ``--resume`` takes a directory
-with a ``last_state`` pointer, a ``state_*.pt`` file (parameters, moments,
-EMA and step) or a ``step_*.pt`` parameters file (optimizer and EMA start
-fresh). Reading the JAX package's ``.msgpack`` checkpoints is ROADMAP.md
-queue A3.
+It runs on the card unless ``--device cpu``. Under torchrun (or
+``CRA5_TPU_COORDINATOR`` / ``CRA5_TPU_NUM_PROCESSES`` /
+``CRA5_TPU_PROCESS_ID``) it joins the world first
+(``parallel.init_distributed``), one device a rank:
+
+  torchrun --nproc-per-node N -m cra5_tpu_torch.tools.train CONFIG.py ...
+
+A mesh is resolved over the world's ranks as the JAX package resolves it
+over its devices (-1: the axis takes every rank); a dp axis of several
+ranks trains data-parallel (each rank reads its own batches, seeded by
+seed + rank), a mesh of one device is the one-device trainer, and a tp
+axis of more than one device raises (tensor parallelism, ROADMAP.md queue
+A4b). ``--resume`` takes a directory with a ``last_state`` pointer, a
+``state_*`` file (parameters, moments, EMA and step) or a ``step_*``
+parameters file (optimizer and EMA start fresh), each ``.pt`` or the JAX
+package's ``.msgpack``.
 """
 
 from __future__ import annotations
@@ -84,18 +92,9 @@ def build_data(data_cfg, seed: int = 0, device=None):
 def mesh_devices(axes: Dict[str, int], visible: int) -> int:
     """The devices a mesh of ``axes`` takes out of ``visible``, resolved as
     ``cra5_tpu/parallel/mesh.py::make_mesh`` resolves it."""
-    sizes = [int(s) for s in dict(axes).values()] or [visible]
-    if sizes.count(-1) > 1:
-        raise ValueError("at most one axis may be -1")
-    if -1 in sizes:
-        known = int(np.prod([s for s in sizes if s != -1]))
-        if visible % known:
-            raise ValueError(f"{visible} devices not divisible by {known}")
-        sizes[sizes.index(-1)] = visible // known
-    need = int(np.prod(sizes))
-    if need > visible:
-        raise ValueError(f"mesh {dict(axes)} needs {need} devices, only {visible} visible")
-    return need
+    from ..parallel.mesh import mesh_axes
+
+    return int(np.prod(list(mesh_axes(axes, visible).values())))
 
 
 def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None):
@@ -112,19 +111,24 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
     args = parser.parse_args(argv)
 
     from ..device import resolve_device
+    from ..parallel import init_distributed, make_mesh, process_count, process_index
+    from ..parallel.sharding import check_no_tp
     from ..train import Trainer, TrainerConfig
     from ..train.checkpoints import load_variables, resolve_last_checkpoint
     from ..utils.config import Config
 
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
+    init_distributed(device=device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = None
     if "mesh" in cfg:
         axes = dict(cfg["mesh"])
-        visible = torch.cuda.device_count() if device.type == "cuda" else 1
-        if any(int(s) > 1 for s in axes.values()) or mesh_devices(axes, visible) > 1:
-            raise NotImplementedError(
-                f"mesh {axes} takes more than one device: mesh-parallel training is not "
-                f"ported yet (ROADMAP.md queue A4); the port trains on one device")
+        check_no_tp({k: v for k, v in axes.items() if v != -1})
+        if mesh_devices(axes, process_count()) > 1:
+            mesh = make_mesh(axes, device_type=device.type)
+            check_no_tp(mesh)
     model = build_model(cfg["model"], device=device)
     trainer_cfg = dict(cfg.get("trainer", {}))
     if trainer_cfg.get("scheduler") is not None:
@@ -139,8 +143,8 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
     if args.ckpt_dir:
         tc.ckpt_dir = args.ckpt_dir
 
-    trainer = Trainer(model, tc, mesh=None, seed=args.seed)
-    data = build_data(cfg.get("dataset"), seed=args.seed, device=device)
+    trainer = Trainer(model, tc, mesh=mesh, seed=args.seed)
+    data = build_data(cfg.get("dataset"), seed=args.seed + process_index(), device=device)
 
     state = None
     if args.resume:
@@ -156,7 +160,7 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
         elif os.path.basename(resume).startswith("state_"):
             state = trainer.restore(first, path=resume)
         else:  # parameters only: the optimizer and the EMA start fresh
-            params = load_variables(resume)
+            params = load_variables(resume, model=model)
             state = trainer.init_state(trainer.shard_batch(first))
             if set(params) != set(state.params):
                 raise ValueError(f"{resume}: parameter names differ from the model's")

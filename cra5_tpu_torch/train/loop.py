@@ -1,5 +1,5 @@
 """The training loop: one step of loss, backward, net/aux Adam and EMA,
-with checkpointed resume, on one device.
+with checkpointed resume, on one device or data-parallel over ranks.
 
 Counterpart of ``cra5_tpu/train/loop.py``. ``make_train_step`` returns
 ``train_step(state, batch, rng) -> (state, metrics)``; ``Trainer`` wraps
@@ -13,8 +13,16 @@ each forced by the framework:
     ``(rng, step)`` (``step_generator``, the counterpart of
     ``jax.random.fold_in(rng, step)``), so a resumed run repeats an
     uninterrupted one exactly;
-  - a mesh (data/tensor parallel training) is not ported yet
-    (ROADMAP.md queue A4): passing one raises.
+  - under a mesh with a dp axis of several ranks (``parallel/``), each
+    rank computes the loss of its local batch; the gradients are averaged
+    over dp (an all-reduce) before the net clip, so the clip sees the
+    global gradient, and the metrics are averaged too. Each rank draws the
+    global batch's noise from ``step_generator(rng, step)`` and keeps its
+    own rows (``entropy.ops.BatchRows``), so the dp step is the
+    single-device step at the global batch. Rank 0's initial parameters
+    are broadcast, only rank 0 writes checkpoints, and a barrier follows.
+    Tensor parallelism (a tp axis of more than one device) waits for
+    ROADMAP.md queue A4b and raises.
 """
 
 from __future__ import annotations
@@ -34,6 +42,17 @@ from .checkpoints import (
     save_variables,
     write_last_checkpoint,
 )
+from ..entropy.ops import BatchRows
+from ..parallel.distributed import (
+    all_reduce_mean_,
+    barrier,
+    is_primary,
+    make_global_batch,
+    process_count,
+    put_tree,
+)
+from ..parallel.mesh import axis_group
+from ..parallel.sharding import check_no_tp
 from .ema import EmaState, ema_init, ema_update_
 from .loss import RateDistortionLoss, kl_weighted_loss
 from .optim import NetAuxAdam, OptState, make_net_aux_optimizers
@@ -78,8 +97,19 @@ def step_generator(rng: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed >> 1)
 
 
-def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig) -> Callable:
+def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
+                    dp_group=None) -> Callable:
+    """``train_step(state, batch, rng) -> (state, metrics)``. With a
+    ``dp_group`` of several ranks, ``batch`` is this rank's rows of the
+    global batch (the ranks' local batches are equal in size, in rank
+    order), and ``train_step.timing["allreduce_s"]`` holds the last step's
+    seconds in the gradient all-reduce."""
+    import torch.distributed as dist
+
     rd = RateDistortionLoss(lmbda=cfg.lmbda, bpp_weight=cfg.bpp_weight)
+    world = dist.get_world_size(dp_group) if dp_group is not None else 1
+    rank = dist.get_rank(dp_group) if dp_group is not None else 0
+    timing = {"allreduce_s": 0.0}  # not an attribute set inside: no cycle keeps the model
 
     def loss_fn(batch: torch.Tensor, generator: torch.Generator):
         out = model(batch, training=True, generator=generator)
@@ -95,13 +125,30 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig) 
         return total, metrics
 
     def train_step(state: TrainState, batch: torch.Tensor, rng: int):
+        if hasattr(batch, "to_local"):  # a global batch: this rank's rows
+            batch = batch.to_local()
         generator = step_generator(rng, state.step, batch.device)
+        if world > 1:
+            b = batch.shape[0]
+            generator = BatchRows(generator, rank * b, (rank + 1) * b, world * b)
         for p in state.params.values():
             p.grad = None
         total, metrics = loss_fn(batch, generator)
         total.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
+        if world > 1:
+            if batch.device.type == "cuda":
+                torch.cuda.synchronize(batch.device)
+            t0 = time.perf_counter()
+            all_reduce_mean_(list(grads.values()), dp_group)
+            if batch.device.type == "cuda":
+                torch.cuda.synchronize(batch.device)
+            timing["allreduce_s"] = time.perf_counter() - t0
+            names = list(metrics)
+            stacked = torch.stack([metrics[k].detach().float() for k in names])
+            all_reduce_mean_([stacked], dp_group)
+            metrics = dict(zip(names, stacked.unbind()))
         tx.update_(state.params, grads, state.opt_state)
         for p in state.params.values():
             p.grad = None
@@ -110,6 +157,7 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig) 
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    train_step.timing = timing
     return train_step
 
 
@@ -118,26 +166,37 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, cfg: TrainerConfig = TrainerConfig(),
                  mesh=None, seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-parallel training is not ported yet (ROADMAP.md queue A4); "
-                "the port trains on one device")
-        self.model, self.cfg, self.seed = model, cfg, seed
+        """``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) whose dp axis
+        the step averages its gradients over; None trains on one device."""
+        check_no_tp(mesh)
+        self.model, self.cfg, self.seed, self.mesh = model, cfg, seed, mesh
+        self.dp_group = axis_group(mesh, "dp")[0]
         self.tx = make_net_aux_optimizers(
             cfg.learning_rate, cfg.aux_learning_rate, cfg.max_grad_norm,
             scheduler=cfg.scheduler, total_steps=cfg.total_steps,
         )
-        self._step_fn = make_train_step(model, self.tx, cfg)
+        self._step_fn = make_train_step(model, self.tx, cfg, dp_group=self.dp_group)
 
     def init_state(self, example_batch: torch.Tensor) -> TrainState:
-        """Seeded init of the model's parameters, zero moments, the EMA."""
+        """Seeded init of the model's parameters (rank 0's on every rank),
+        zero moments, the EMA."""
+        if process_count() > 1 and self.mesh is None:
+            raise ValueError(
+                "multi-process training requires a mesh: pass one to Trainer(..., mesh=...) "
+                "(e.g. parallel.make_mesh({'dp': -1})) so the ranks know what to average over")
         self.model.reset_parameters(self.seed)
         params = dict(self.model.named_parameters())
+        if process_count() > 1:
+            put_tree(self.mesh, {k: p.data for k, p in params.items()})
         ema = ema_init(params) if self.cfg.use_ema else None
         return TrainState(step=0, params=params, opt_state=self.tx.init(params), ema=ema)
 
     def shard_batch(self, batch) -> torch.Tensor:
-        """Place a batch on the model's device."""
+        """Place a batch for the step on the model's device. Multi-process
+        with a dp axis: ``batch`` is this rank's local rows and the result
+        is the global batch (local x dp) over the mesh's dp axis."""
+        if self.dp_group is not None and process_count() > 1:
+            return make_global_batch(self.mesh, torch.as_tensor(batch).to(self.model.device))
         return torch.as_tensor(batch, device=self.model.device)
 
     def fit(self, data: Iterable, state: Optional[TrainState] = None,
@@ -174,17 +233,24 @@ class Trainer:
 
     def save(self, state: TrainState) -> str:
         """Write a params-only checkpoint and the full resumable state, and
-        point ``last_checkpoint`` / ``last_state`` at them."""
+        point ``last_checkpoint`` / ``last_state`` at them. Only the primary
+        rank writes (every rank holds the same state); a barrier follows."""
         d = self.cfg.ckpt_dir
         path = os.path.join(d, f"step_{state.step}{_SUFFIX}")
         state_path = os.path.join(d, f"state_{state.step}{_SUFFIX}")
-        save_variables(path, state.params)
-        write_last_checkpoint(d, path)
-        save_train_state(state_path, state)
-        write_last_checkpoint(d, state_path, "last_state")
-        if self.cfg.ckpt_keep > 0:
-            self._prune_checkpoints()
+        if is_primary():
+            save_variables(path, state.params, model=self.model)
+            write_last_checkpoint(d, path)
+            save_train_state(state_path, state, model=self.model, scheduled=self._scheduled)
+            write_last_checkpoint(d, state_path, "last_state")
+            if self.cfg.ckpt_keep > 0:
+                self._prune_checkpoints()
+        barrier("ckpt_save")
         return path
+
+    @property
+    def _scheduled(self) -> bool:
+        return callable(self.tx.net_lr)
 
     def _prune_checkpoints(self) -> None:
         # never delete what the pointer files reference: a reused dir with
@@ -210,10 +276,12 @@ class Trainer:
 
     def restore(self, example_batch: torch.Tensor, path: Optional[str] = None) -> TrainState:
         """Resume from a full train-state checkpoint (default: the
-        ``last_state`` pointer under ``cfg.ckpt_dir``)."""
+        ``last_state`` pointer under ``cfg.ckpt_dir``); a ``.msgpack`` path
+        is the JAX package's train state."""
         if path is None:
             path = resolve_last_checkpoint(self.cfg.ckpt_dir, "last_state")
-        return load_train_state(path, self.init_state(self.shard_batch(example_batch)))
+        return load_train_state(path, self.init_state(self.shard_batch(example_batch)),
+                                model=self.model, scheduled=self._scheduled)
 
 
 def _chain_first(first, rest):

@@ -49,7 +49,7 @@ def test_headline_is_the_last_stdout_line_and_detail_on_stderr(short_env, capsys
     assert configs["config3_batched_encode"]["batch"] == 8
     assert configs["config4_decoder_only"]["pipelined_by_depth"].keys() == {"2"}
     assert configs["config1_159v"] == {"skipped": "BENCH_FULL=0"}
-    assert configs["config5_mesh_recompress"] == {"skipped": "ROADMAP A4"}
+    assert configs["config5_mesh_recompress"] == {"skipped": "BENCH_FULL=0"}
     for block in (detail, detail["production_point"], configs["config3_batched_encode"],
                   configs["config4_decoder_only"]):
         assert block["card"] == "cpu"
@@ -105,3 +105,12 @@ def test_launch_counts_lose_no_launch_across_threads():
         sys.setswitchinterval(saved)
         kernels._wrappers.remove(probe_wrapper)
     assert probe_wrapper.launches == 32000
+
+
+def test_config5_recompresses_on_gloo_processes():
+    """bench.py's config 5 at 2 gloo processes on the CPU (the bench runs
+    8): 16 timesteps recompressed, a rate, each rank's seconds."""
+    res = bench.config5(n_procs=2, timeout=240)
+    assert set(res) == {"samples_per_sec", "n_samples", "mesh", "rank_seconds"}, res
+    assert res["n_samples"] == 16 and res["samples_per_sec"] > 0
+    assert len(res["rank_seconds"]) == 2 and res["mesh"].startswith("2 gloo cpu processes")

@@ -809,3 +809,44 @@ def test_wrappers_launch_on_the_callers_stream(card, rng, gc_table, name):
     assert fn.launches == before + 1
     assert torch.equal(decoy[late], args[late])
     assert same(got, want)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_ring_attention_at_one_rank_close_to_plain(card, rng, dtype, atol):
+    """ring_attention_sharded at world size 1 on the card (no rotation):
+    the float32 online softmax against the plain attention, on a ragged N;
+    the bf16 output is q's dtype, within a few bf16 ulps."""
+    import torch.distributed as dist
+
+    from cra5_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from cra5_tpu_torch.parallel import make_mesh
+
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 300, 64)).astype(np.float32))
+               .to(card, dtype) for _ in range(3))
+    try:
+        out = ring_attention_sharded(q, k, v, make_mesh({"sp": 1}, device_type="cuda"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    logits = torch.matmul(q.float() * 64 ** -0.5, k.float().transpose(-1, -2))
+    want = torch.matmul(torch.softmax(logits, -1), v.float())
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - want).abs().max().item() <= atol
+
+
+def test_msgpack_roundtrip_of_card_params(card, tmp_path):
+    """The port's writer on a card-resident model's params and its reader
+    back: every tensor bitwise, and a fresh model on the card takes them."""
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_tiny
+    from cra5_tpu_torch.train.checkpoints import load_variables, save_variables
+
+    model = VAEformer(vaeformer_tiny(), device=card).reset_parameters(5)
+    path = str(tmp_path / "tiny.msgpack")
+    save_variables(path, dict(model.named_parameters()), model=model)
+    fresh = VAEformer(vaeformer_tiny(), device=card)
+    params = load_variables(path, model=fresh)
+    with torch.no_grad():
+        for name, p in fresh.named_parameters():
+            p.copy_(params[name])
+    for name, p in model.named_parameters():
+        assert torch.equal(fresh.get_parameter(name), p), name

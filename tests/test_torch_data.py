@@ -287,3 +287,38 @@ def test_api_download_era5_data_goes_through_the_downloader(fake_cdsapi, tmp_pat
     paths = api.download_era5_data("2022-07-01T12:00:00")
     assert sorted(paths) == ["2022-07-01T12:00:00_pressure.nc", "2022-07-01T12:00:00_single.nc"]
     assert all(p.startswith(str(tmp_path)) for p in paths.values())
+
+
+def test_prefetch_loader_releases_its_batches_when_the_consumer_stops():
+    """A consumer that stops early (Trainer.fit after num_steps) and drops
+    its iterator: the producer thread ends and no batch it loaded ahead
+    stays alive (on the card those are whole timesteps)."""
+    import gc
+    import threading
+    import time
+    import weakref
+
+    class Batch:
+        pass
+
+    made = []
+
+    def endless():
+        while True:
+            b = Batch()
+            made.append(weakref.ref(b))
+            yield b
+
+    before = threading.active_count()
+    it = iter(tdata.PrefetchLoader(endless(), depth=2))
+    first = next(it)
+    time.sleep(0.2)  # the producer fills the queue and blocks
+    assert len(made) >= 3
+    del it
+    gc.collect()
+    deadline = time.time() + 5
+    while threading.active_count() > before and time.time() < deadline:
+        time.sleep(0.05)
+    assert threading.active_count() == before
+    gc.collect()
+    assert [r for r in made if r() is not None and r() is not first] == []

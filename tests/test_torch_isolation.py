@@ -29,7 +29,7 @@ NO_CARD = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 def test_every_module_imports_with_jax_blocked():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax", "cra5_tpu"):
+        for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "cra5_tpu"):
             sys.modules[name] = None  # any import of these now raises
         import cra5_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(cra5_tpu_torch.__path__, "cra5_tpu_torch.")]
@@ -45,7 +45,9 @@ def test_every_module_imports_with_jax_blocked():
     assert len(mods) >= 15
     assert {f"cra5_tpu_torch.{m}" for m in (
         "bench", "tools.train", "train.calibrate", "data.era5", "data.prefetch", "utils.config",
-        "utils.registry", "registry", "api.downloader", "api.configs.train_era5_base")} <= mods
+        "utils.registry", "registry", "api.downloader", "api.configs.train_era5_base",
+        "utils.msgpack", "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharding",
+        "ops.ring_attention", "tools.recompress", "train.checkpoints")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -71,6 +73,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LaneCoder(table)
     assert VAEformer(vaeformer_tiny(), device="cpu").device.type == "cpu"
     assert LaneCoder(table, device="cpu").device.type == "cpu"
+
+
+def test_distributed_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """recompress and a world's join resolve their device as every entry
+    point does: the card unless the caller asks for the CPU."""
+    from cra5_tpu_torch.parallel import init_distributed
+    from cra5_tpu_torch.tools import recompress
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recompress.main([str(tmp_path), "-o", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed(coordinator="127.0.0.1:1", num_processes=2, process_id=0)
 
 
 def test_kernel_wrappers_take_no_other_route():

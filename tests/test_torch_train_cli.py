@@ -1,7 +1,7 @@
 """``python -m cra5_tpu_torch.tools.train`` on the CPU: a tiny config over a
 synthetic per-channel .npy tree, three steps, a checkpoint and a resume;
-the mesh rule (a mesh of one device is the one-device trainer, a larger
-one raises naming ROADMAP A4); the data the CLI feeds bitwise equal to the
+the mesh rule (a mesh of one device is the one-device trainer, a tp axis
+of more raises naming ROADMAP A4b); the data the CLI feeds bitwise equal to the
 JAX CLI's ``build_data``; the card by default."""
 
 import os
@@ -93,7 +93,10 @@ def test_mesh_devices_refuse_what_make_mesh_refuses(mesh, visible, err):
 
 
 def test_a_mesh_of_more_devices_raises_naming_a4(tree, tmp_path):
-    cfg = _config(tmp_path, tree, mesh="dict(dp=2)")
+    """A tp axis of more than one device is tensor parallelism, ROADMAP.md
+    queue A4b (a dp axis over several ranks trains: tests/
+    test_torch_distributed.py)."""
+    cfg = _config(tmp_path, tree, mesh="dict(dp=-1, tp=2)")
     with pytest.raises(NotImplementedError, match="A4"):
         train.run([cfg, "--steps", "1", "--ckpt-dir", str(tmp_path / "c"), "--device", "cpu"])
 
