@@ -112,7 +112,29 @@ result line is printed then:
      and float32 against the plain attention, timed beside K4; [msgpack]
      the 268v params through the port's msgpack writer and reader, bitwise,
      into a fresh model. The ranks reset their launch counters just before
-     their path and report them; those launches join the kernels line.
+     their path and report them; those launches join the kernels line;
+  11. zoo phase (each line carries the card's name and power limit):
+     mbt2018-mean at a small width (N=32, M=48) on the card against the same
+     weights on the CPU (streams byte-identical, x_hat within ZOO_XHAT_RTOL);
+     then cra5_tpu_torch.tools.eval_model.main --device cuda at the zoo's
+     full widths with seeded weights on seeded Kodak-size (3 x 512 x 768)
+     .npy images: bmshj2018-factorized, bmshj2018-hyperprior and
+     mbt2018-mean at q8 with the v2 coder, mbt2018-mean q8 with v1,
+     cheng2020-anchor q6 through AutoregressiveCodec on one image, and
+     mbt2018-mean q8 --entropy-estimation (bpp, encode s, decode s); after
+     each coded run one synchronised roundtrip of its first image (host ms
+     a codec stage, which kernel decodes each stream); then one CLIC-size
+     (3 x 2048 x 1365) image through mbt2018-mean q8 v2, whose y stream (8192
+     lanes, sorted, kernel-safe) must decode on K3. Gates: every decoded
+     symbol equals the encoded one, decompress's x_hat equals reconstruct
+     of the encoded symbols bitwise, the counters zeroed just before each
+     eval_model run and each roundtrip and read just after show K1 and K2
+     (and K3 for the CLIC image) on v2 and no coder kernel on v1; those
+     launches join the kernels line. On each v2 stream of those
+     roundtrips, at its own geometry, K1 is held exactly against its plain
+     version on the stream's grids and against the container, and the
+     decode kernel (K2 or K3) against its plain version on the uploaded
+     stream; [zoo kernels] lines give both kernels' device times.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -146,12 +168,13 @@ one card and no network.
     python3 chip_smoke.py --coder
     python3 chip_smoke.py --perm
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --zoo
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
-floor or host breakdown), or only the dist phases (10), and print no
-result line. They import
+floor or host breakdown), only the dist phases (10), or only the zoo phase
+(11), and print no result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -1789,7 +1812,7 @@ def _bin_symbols(api, path):
 
     codec, cfg = api.codec, api.model_cfg
     strings, z_shape = load_bin(path)
-    z_idx = codec._z_indexes((1, cfg.z_channels, *z_shape))
+    z_idx = codec._channel_indexes((1, cfg.z_channels, *z_shape))
     with torch.inference_mode():
         if codec.coder == "v1":
             z = codec._v1_decode(codec._eb_table, strings[1], z_idx)
@@ -2341,9 +2364,311 @@ def phase_dist(dev, card: str) -> dict:
             "remat_dots": dots["launches"]}
 
 
+# the image-codec zoo: card against CPU at a small width, x_hat within
+# this share of max |x_hat| (the card's im2col / cuBLAS GEMMs and the
+# CPU's convolutions sum in other orders, TF32 off;
+# tests/test_torch_cuda.py states the same bound)
+ZOO_XHAT_RTOL = 1e-4
+KODAK = (3, 512, 768)  # Kodak's published size, landscape (C, H, W)
+CLIC = (3, 2048, 1365)  # CLIC 2020 professional's largest, padded to 2048 x 1408
+# eval_model.main runs at the zoo's full widths: (arch, quality, options, images)
+ZOO_RUNS = (
+    ("bmshj2018-factorized", 8, ["--entropy-coder", "v2"], 2),
+    ("bmshj2018-hyperprior", 8, ["--entropy-coder", "v2"], 2),
+    ("mbt2018-mean", 8, ["--entropy-coder", "v2"], 2),
+    ("mbt2018-mean", 8, ["--entropy-coder", "v1"], 2),
+    ("cheng2020-anchor", 6, [], 1),
+    ("mbt2018-mean", 8, ["--entropy-estimation"], 2),
+)
+RANS = ("rans_encode", "rans_decode_generic", "rans_decode_sorted")
+
+
+def _zoo_folder(root: str, name: str, n: int, shape, seed: int) -> str:
+    """A folder of n seeded float32 .npy images in [0, 1]."""
+    import os
+
+    folder = os.path.join(root, name)
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        np.save(os.path.join(folder, f"img{i}.npy"), rng.random(shape, np.float32))
+    return folder
+
+
+def _record(obj, name: str, seen: dict) -> None:
+    """Make obj.name record its arguments and result in seen[name]."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args):
+        out = fn(*args)
+        seen.setdefault(name, []).append((args, out))
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def _stream_kernels(out: dict) -> tuple:
+    """Each v2 stream's (group, lanes, sorted, safe, bytes, decode kernel),
+    and the K1/K2/K3 launches a roundtrip of them makes."""
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+    rows, want = [], dict.fromkeys(RANS, 0)
+    for group, strings in zip(("y", "z"), out["strings"]):
+        for s in strings:
+            _, K, _, _, srt, safe, _ = parse_v2_header(s)
+            k = "rans_decode_sorted" if srt and safe else "rans_decode_generic"
+            rows.append((group, K, srt, safe, len(s), "K3" if k.endswith("sorted") else "K2"))
+            want["rans_encode"] += 1
+            want[k] += 1
+    return rows, want
+
+
+def kernel_us(fn, match: str, iters: int = 10) -> float:
+    """Device microseconds of the one kernel a call of ``fn`` launches whose
+    name holds ``match`` (torch.profiler): the mean over the launches the
+    trace recorded, since a trace late in a long run can drop some. A trace
+    that recorded none is taken again, up to three times; then nan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name]
+        if spans:
+            return sum(spans) / len(spans)
+    return float("nan")
+
+
+def zoo_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str) -> None:
+    """Each of the roundtrip's v2 streams at its own geometry: K1 on the
+    (M, K) grids of the encoded symbols and indexes against
+    rans_encode_plain (states, emit, emitted words) and against the
+    container's states and words; the decode kernel the stream takes (K2
+    or K3) on it as uploaded against lane_decode_plain or
+    rans_decode_sorted_plain (values, sentinels). Every comparison is
+    exact and raises on a difference; each kernel's device time beside."""
+    from cra5_tpu_torch.coder import rans_kernels as rk
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+    if codec.kind == "factorized":
+        streams = {"y": (codec._eb_coder, enc["y_sym"], codec._channel_indexes(enc["y_sym"].shape))}
+    else:
+        streams = {"y": (codec._gc_coder, enc["y_sym"], codec._gc_indexes(enc["scales"])),
+                   "z": (codec._eb_coder, enc["z_sym"], codec._channel_indexes(enc["z_sym"].shape))}
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
+    for group, strings in zip(("y", "z"), out["strings"]):
+        coder, sym, idx = streams[group]
+        n, K, _, _, srt, safe, _ = parse_v2_header(strings[0])
+        dec_name = "K3" if srt and safe else "K2"
+        up = coder.upload_batch([strings[0]])[0]
+        with torch.inference_mode():
+            starts, freqs = coder.encode_grids(sym[0], idx[0])[3:5]
+            got, want = rk.rans_encode(starts, freqs), rk.rans_encode_plain(starts, freqs)
+            if not (same(got[:2], want[:2]) and torch.equal(got[2][got[1]], want[2][want[1]])):
+                raise RuntimeError(f"[zoo kernels] {tag} {group}: K1 rans_encode differs from "
+                                   f"rans_encode_plain on the stream's grids")
+            if not (torch.equal(got[0], up[1]) and torch.equal(got[2][got[1]], up[2])):
+                raise RuntimeError(f"[zoo kernels] {tag} {group}: K1's states and words differ "
+                                   f"from the container's")
+            kernel, plain, args, _ = coder.decode_call(up, idx[0])
+            if not same(kernel(*args, coder._slots), plain(*args)):
+                raise RuntimeError(f"[zoo kernels] {tag} {group}: {dec_name} differs from "
+                                   f"{plain.__name__} on the uploaded stream")
+            k1 = kernel_us(lambda: rk.rans_encode(starts, freqs), "rans_encode")
+            dec = kernel_us(lambda: kernel(*args, coder._slots), "rans_decode")
+        steps = -(-n // K)
+        log(f"[zoo kernels] {tag} {group}: {n} symbols, {K} lanes x {steps} steps; K1 and "
+            f"{dec_name} exact against their plain versions; K1 device {k1:.2f} us "
+            f"({k1 * 1e3 / steps:.1f} ns a step), {dec_name} device {dec:.2f} us "
+            f"({dec / steps:.3f} us a step)  ({card})")
+
+
+def zoo_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
+    """One roundtrip with every stage synchronised (host ms a stage), the
+    counters zeroed just before and read just after; then its gates: the
+    decoded symbols (the AR codec: the decoded y_hat) equal the encoded
+    ones, and x_hat equals the model's reconstruct of the encoded symbols
+    bitwise."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import AutoregressiveCodec
+
+    model, ar = codec.model, isinstance(codec, AutoregressiveCodec)
+    codec.update()  # the CDF tables, built on the host at first use: not timed
+    seen = {}
+    spies = ((codec, "_encode_ar"), (model, "hyper_synthesis"), (model, "synthesis")) if ar else (
+        (model, "hyper_params_from_z"), (model, "reconstruct"))
+    spies = [(obj, name) for obj, name in spies if hasattr(obj, name)]
+    for obj, name in spies:
+        _record(obj, name, seen)
+    codec.stage_times = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = codec.compress(x)
+    t1 = time.perf_counter()
+    x_hat = codec.decompress(out["strings"], out["shape"])["x_hat"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    stages, codec.stage_times = codec.stage_times, None
+    for obj, name in spies:
+        delattr(obj, name)
+
+    with torch.inference_mode():
+        if ar:
+            y_enc = seen["_encode_ar"][0][1][2]
+            y_dec = seen["synthesis"][0][0][0]
+            (z_enc,), (z_dec,) = (a for a, _ in seen["hyper_synthesis"])
+            same = torch.equal(z_enc, z_dec) and np.array_equal(y_dec[0].cpu().numpy(), y_enc)
+            ref = model.synthesis(torch.from_numpy(y_enc)[None].to(dev))
+        else:
+            enc = model.encode_symbols(torch.from_numpy(x).to(dev))
+            same = torch.equal(seen["reconstruct"][0][0][0], enc["y_sym"])
+            if "z_sym" in enc:
+                same &= torch.equal(seen["hyper_params_from_z"][0][0][0], enc["z_sym"])
+            ref = model.reconstruct(enc["y_sym"], enc.get("means"))
+    if not same:
+        raise RuntimeError(f"[zoo] {tag}: decoded symbols differ from the encoded ones")
+    if not torch.equal(x_hat, ref):
+        raise RuntimeError(f"[zoo] {tag}: decompress's x_hat differs from reconstruct of the "
+                           f"encoded symbols")
+    if codec.coder == "v2":
+        zoo_stream_kernels(codec, out, enc, tag, card)
+        rows, want = _stream_kernels(out)
+        for group, K, srt, safe, nbytes, kern in rows:
+            log(f"[zoo] {tag}: {group} stream {nbytes} B on {K} lanes, sorted {srt}, kernel-safe "
+                f"{safe}: decodes on {kern}  ({card})")
+    else:
+        want = dict.fromkeys(RANS, 0)  # v1: the host coder
+        log(f"[zoo] {tag}: v1 streams y {[len(s) for s in out['strings'][0]]} B, z "
+            f"{[len(s) for s in out['strings'][1]]} B  ({card})")
+    got = {k: launches.get(k, 0) for k in RANS}
+    if got != want or any(v for k, v in launches.items() if k not in RANS):
+        raise RuntimeError(f"[zoo] {tag}: launches {launches}, expected {want}")
+    ms = {k: round(v * 1e3, 3) for k, v in stages.items()}
+    log(f"[zoo] {tag}: synchronised roundtrip compress {t1 - t0:.4f} s, decompress "
+        f"{t2 - t1:.4f} s; host ms a stage {ms}; launches {got}; symbols exact, x_hat "
+        f"bitwise reconstruct  ({card})")
+    return dict(launches=launches, out=out)
+
+
+def zoo_card_vs_cpu(dev, card: str) -> dict:
+    """mbt2018-mean at a small width (N=32, M=48), the same seeded weights on
+    the card and on the CPU, one ImageCodec v2 roundtrip of a seeded
+    3 x 256 x 384 image on each: the same symbols and bytes, x_hat within
+    ZOO_XHAT_RTOL."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import MeanScaleHyperprior, make_codec
+
+    gpu = MeanScaleHyperprior(N=32, M=48, device=dev).reset_parameters(SEED)
+    cpu = MeanScaleHyperprior(N=32, M=48, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = np.random.default_rng(SEED).random((1, 3, 256, 384), np.float32)
+    a, b = make_codec(gpu), make_codec(cpu)
+    a.compress(x)  # warm-up
+    kernels.reset_launch_counts()
+    out = a.compress(x)
+    x_gpu = a.decompress(out["strings"], out["shape"])["x_hat"]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ref = b.compress(x)
+    x_cpu = b.decompress(ref["strings"], ref["shape"])["x_hat"]
+    err = (x_gpu.cpu() - x_cpu).abs().max().item()
+    bound = ZOO_XHAT_RTOL * x_cpu.abs().max().item()
+    if out["strings"] != ref["strings"] or not err <= bound:
+        raise RuntimeError(f"[zoo] card vs CPU: streams equal {out['strings'] == ref['strings']}, "
+                           f"x_hat err {err} > {bound}")
+    _require(launches, ("rans_encode", "rans_decode_generic"), "zoo card vs CPU")
+    log(f"[zoo] card vs CPU, mbt2018-mean N=32 M=48 on (1, 3, 256, 384): y and z streams "
+        f"byte-identical ({[len(s[0]) for s in out['strings']]} B), x_hat err {err:.3g} (bound "
+        f"{ZOO_XHAT_RTOL} x max|ref| = {bound:.3g}); launches {launches}  ({card})")
+    return launches
+
+
+def phase_zoo(dev, card: str) -> dict:
+    """The image-codec zoo on the card: card against CPU; then
+    tools/eval_model.main (--device cuda) at the zoo's full widths on
+    Kodak-size .npy images for each of ZOO_RUNS, each followed by one
+    synchronised roundtrip of its first image (zoo_roundtrip); then one
+    CLIC-size image through mbt2018-mean q8 v2, whose y stream must decode
+    on K3. The counters are zeroed just before each eval_model run and each
+    roundtrip and read just after; the launches of every run join the
+    kernels line."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import load_model
+    from cra5_tpu_torch.tools import eval_model
+
+    t_phase = time.time()
+    launches = [zoo_card_vs_cpu(dev, card)]
+    with tempfile.TemporaryDirectory() as root:
+        kodak = {n: _zoo_folder(root, f"kodak{n}", n, KODAK, SEED) for n in (1, 2)}
+        clic = _zoo_folder(root, "clic", 1, CLIC, SEED + 1)
+        runs = [(a, q, o, kodak[n]) for a, q, o, n in ZOO_RUNS]
+        runs.append(("mbt2018-mean", 8, ["--entropy-coder", "v2"], clic))
+        for arch, q, opts, folder in runs:
+            tag = f"{arch} q{q} {' '.join(opts) or 'v1 (autoregressive)'}" + (
+                " CLIC" if folder == clic else "")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = eval_model.main([folder, "-a", arch, "-q", str(q), "--device", "cuda", *opts])
+            wall = time.perf_counter() - t0
+            got = kernels.launch_counts()
+            if rc != 0:
+                raise RuntimeError(f"[zoo] {tag}: eval_model exited {rc}")
+            res = json.loads(buf.getvalue())["results"]
+            if not all(np.isfinite(v[0]) for v in res.values()):
+                raise RuntimeError(f"[zoo] {tag}: eval_model results not finite: {res}")
+            coder = "none" if "--entropy-estimation" in opts else (
+                "v1" if "v1" in opts or arch.startswith("cheng") else "v2")
+            need = ("rans_encode", "rans_decode_generic") if coder == "v2" else ()
+            _require(got, need + (("rans_decode_sorted",) if folder == clic else ()), tag)
+            if coder != "v2" and any(got.get(k, 0) for k in RANS):
+                raise RuntimeError(f"[zoo] {tag}: the {coder} path launched {got}")
+            launches.append(got)
+            log(f"[zoo] {tag}: eval_model.main {wall:.2f} s with the model build; bpp "
+                f"{res['bpp'][0]:.6f}, encode {res['encoding_time'][0]:.4f} s, decode "
+                f"{res['decoding_time'][0]:.4f} s (means over {len(os.listdir(folder))} "
+                f"image(s)), mse {res['mse'][0]:.6g}, psnr {res['psnr'][0]:.4f}; launches "
+                f"{got}  ({card})")
+            if coder == "none":
+                continue
+            _, codec = load_model(arch, q, coder="v2" if coder == "v2" else "v1", device=dev)
+            x, _ = eval_model._pad(eval_model.read_input(Path(folder, "img0.npy"))[None], 64)
+            rt = zoo_roundtrip(codec, x, dev, tag, card)
+            launches.append(rt["launches"])
+            if folder == clic:
+                from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+                n, K, esc, _, srt, safe, _ = parse_v2_header(rt["out"]["strings"][0][0])
+                if not (K == 8192 and srt and safe):
+                    raise RuntimeError(f"[zoo] CLIC y stream: K {K}, sorted {srt}, safe {safe}; "
+                                       f"expected 8192 lanes sorted and kernel-safe (K3)")
+                log(f"[zoo] CLIC y: {n} symbols padded to {x.shape[-2:]} on {K} lanes, sorted, "
+                    f"kernel-safe, {esc} escapes, {len(rt['out']['strings'][0][0])} B: K3  "
+                    f"({card})")
+            del codec
+            torch.cuda.empty_cache()
+    log(f"[zoo] phase {time.time() - t_phase:.1f} s  ({card})")
+    return _sum_launches(*launches)
+
+
 def main(args) -> int:
-    if args not in ([], ["--coder"], ["--perm"], ["--dist"]):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--coder | --perm | --dist]; got {args}")
+    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo]; "
+                         f"got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2359,6 +2684,8 @@ def main(args) -> int:
             coder_rows(dev, np.random.default_rng(SEED), floor=False)
         elif args == ["--dist"]:
             phase_dist(dev, CARD)
+        elif args == ["--zoo"]:
+            phase_zoo(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -2381,6 +2708,7 @@ def main(args) -> int:
     api_launches = phase_api(dev)
     torch.cuda.empty_cache()
     dist_launches = phase_dist(dev, CARD)
+    zoo_launches = phase_zoo(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -2392,7 +2720,7 @@ def main(args) -> int:
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
-             "train_cli": cli_res["launches"], **dist_launches}
+             "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),

@@ -151,7 +151,7 @@ def decode_symbols(codec, strings, z_shape) -> Tuple[torch.Tensor, torch.Tensor]
     full_z = (len(strings[1]), cfg.z_channels, int(z_shape[0]), int(z_shape[1]))
     with torch.inference_mode():
         z = codec._eb_coder.decode_batch_to_device(
-            list(strings[1]), codec._z_indexes(full_z).to(codec.device))
+            list(strings[1]), codec._channel_indexes(full_z))
         scales, _ = codec.model.scales_from_z_symbols(z)
         y = codec._gc_coder.decode_batch_to_device(list(strings[0]), codec._gc_indexes(scales))
     return z, y

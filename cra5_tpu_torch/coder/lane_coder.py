@@ -34,8 +34,10 @@ import torch
 from ..device import resolve_device
 from ..entropy.cdf import CdfTable
 from .rans_kernels import (
+    lane_decode_plain,
     rans_decode_generic,
     rans_decode_sorted,
+    rans_decode_sorted_plain,
     rans_encode,
     slot_table,
 )
@@ -231,6 +233,12 @@ class LaneCoder:
         as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=self.device)
         return self.encode_finalize_many([self.encode_dispatch(as_t(symbols), as_t(indexes))])[0]
 
+    def encode_from_device(self, symbols: torch.Tensor, indexes: torch.Tensor) -> bytes:
+        """Encode int32 symbols and indexes that already lie on the coder's
+        device: prep, K1 and compaction stay there, and only the compacted
+        buffers cross to the host."""
+        return self.encode_finalize_many([self.encode_dispatch(symbols, indexes)])[0]
+
     def encode_dispatch_batch(self, symbols: torch.Tensor, indexes: torch.Tensor) -> list:
         """One encode per sample of a (B, ...) batch."""
         return [self.encode_dispatch(symbols[b], indexes[b]) for b in range(symbols.shape[0])]
@@ -355,12 +363,26 @@ class LaneCoder:
         return out.cpu().numpy()
 
     def _decode(self, up, indexes: torch.Tensor):
-        (n, K, n_esc, _, sorted_mode, kernel_safe, merged), states, stream, escs = up
+        n = up[0][0]
         indexes = indexes.to(self.device)
         if n != indexes.numel():
             raise ValueError(f"symbol count mismatch: stream {n}, indexes {tuple(indexes.shape)}")
         if n == 0:
             return torch.zeros(indexes.shape, dtype=torch.int32, device=self.device), 0
+        kernel, _, args, perm = self.decode_call(up, indexes)
+        values, sentinel = kernel(*args, self._slots)
+        values, n_sent = _apply_escapes(values, sentinel, up[3], n)
+        if perm is not None:
+            values = torch.empty_like(values).index_copy_(0, perm, values)
+        return values.reshape(indexes.shape), n_sent
+
+    def decode_call(self, up, indexes: torch.Tensor):
+        """The decode kernel an uploaded non-empty stream takes (K3
+        ``rans_decode_sorted`` when it is sorted and kernel-safe, else K2
+        ``rans_decode_generic``), that kernel's plain version, their
+        common arguments (the table's slots apart) and the sort
+        permutation (None for an unsorted stream)."""
+        (n, K, _, _, sorted_mode, kernel_safe, merged), states, stream, _ = up
         M = -(-n // K)
         pad = M * K - n
         idx = indexes.reshape(-1).to(torch.int32)
@@ -375,15 +397,9 @@ class LaneCoder:
         idx2 = torch.cat([idx, pidx.expand(pad)]).reshape(M, K) if pad else idx.reshape(M, K)
         tabs = (self._max_values, self._offsets)
         if sorted_mode and kernel_safe:
-            values, sentinel = rans_decode_sorted(self._cdf, *sorted_rows(idx2), states, stream,
-                                                  *tabs, self._slots)
-        else:
-            values, sentinel = rans_decode_generic(self._cdf, idx2, states, stream, *tabs,
-                                                   self._slots)
-        values, n_sent = _apply_escapes(values, sentinel, escs, n)
-        if perm is not None:
-            values = torch.empty_like(values).index_copy_(0, perm, values)
-        return values.reshape(indexes.shape), n_sent
+            return (rans_decode_sorted, rans_decode_sorted_plain,
+                    (self._cdf, *sorted_rows(idx2), states, stream, *tabs), perm)
+        return rans_decode_generic, lane_decode_plain, (self._cdf, idx2, states, stream, *tabs), perm
 
 
 def _unwrap_bytes(s):
@@ -391,3 +407,16 @@ def _unwrap_bytes(s):
     if isinstance(s, (list, tuple)):
         return s[0]
     return s
+
+
+def lane_encode(symbols, indexes, table: CdfTable, num_lanes: Optional[int] = None,
+                device=None) -> bytes:
+    """One v2 container of numpy ``symbols`` against ``table``'s rows
+    ``indexes``."""
+    return LaneCoder(table, num_lanes, device=device).encode(symbols, indexes)
+
+
+def lane_decode(data: bytes, indexes, table: CdfTable, num_lanes: Optional[int] = None,
+                device=None) -> np.ndarray:
+    """The symbols of a v2 container, shaped like ``indexes``."""
+    return LaneCoder(table, num_lanes, device=device).decode(data, indexes)

@@ -1,18 +1,24 @@
-"""Copy the JAX package's VAEformer variables into the port's modules.
+"""Copy the JAX package's variables into the port's modules.
 
 ``load_flax_variables(model, variables)`` takes the flax variables as nested
 dicts of numpy arrays (``jax.device_get`` output, or a checkpoint read
-without JAX) and fills every parameter of the port's ``VAEformer``:
+without JAX) and fills every parameter of the port's model: the
+``VAEformer``, the image-codec zoo (``models/google.py``, ``waseda.py``)
+and the latent codecs. Module names are the flax names, so a torch name
+is its flax path with dots for slashes:
 
   - Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
-  - conv ``kernel`` in HWIO -> Conv2d layout (out, in, kh, kw) for the
-    patch embeds and the 1x1 quant convs;
-  - the ConvTranspose ``g_s/final/final/kernel`` (kh, kw, in, out) ->
-    ConvTranspose2d layout (in, out, kh, kw), spatially flipped, because
-    flax applies its ConvTranspose kernel flipped;
-  - LayerNorm ``scale``/``bias``, ``pos_embed``, and the entropy
-    bottleneck's ``matrix{i}``/``bias{i}``/``factor{i}``/``quantiles`` as
-    they are.
+  - conv ``kernel`` in HWIO -> Conv2d layout (out, in, kh, kw): the patch
+    embeds, the 1x1 quant convs, every ``nn.Conv2d`` (``conv2d``'s) and
+    the masked convs' raw kernels (the mask is applied at call time on
+    both sides);
+  - every ConvTranspose ``kernel`` (kh, kw, in, out) -> ConvTranspose2d
+    layout (in, out, kh, kw), spatially flipped, because flax applies its
+    ConvTranspose kernel flipped: ``g_s/final/final`` of the VAEformer and
+    each ``deconv2d`` (``.../l{i}/conv`` in a ``_ConvStack``);
+  - LayerNorm ``scale``/``bias``, ``pos_embed``, GDN's re-parameterised
+    ``beta``/``gamma``, the gain vectors, and the entropy bottleneck's
+    ``matrix{i}``/``bias{i}``/``factor{i}``/``quantiles`` as they are.
 
 It is strict: every flax leaf must be consumed and every torch parameter
 filled, with matching shapes, or it raises ValueError. ``flax_layout``
@@ -31,8 +37,11 @@ import torch
 from torch import nn
 
 from .entropy import EntropyBottleneck
+from .models.latent_codecs import GainHyperLatentCodec, GainHyperpriorLatentCodec
 from .models.vaeformer import Conv1x1
 from .nn.blocks import LayerNorm
+from .nn.conv import _MaskedConv
+from .nn.gdn import GDN
 from .nn.patch_embed import PatchEmbed, PatchUnembed
 from .nn.vit import _PosEmbed
 
@@ -86,11 +95,13 @@ def flax_layout(model: nn.Module) -> Dict[str, Tuple[str, str]]:
             add(f"{pre}bias", f"{p}/proj/bias", "as_is")
         elif isinstance(mod, PatchUnembed):
             add(f"{pre}weight", f"{p}/final/kernel", "conv_t")
-        elif isinstance(mod, Conv1x1):
-            add(f"{pre}weight", f"{p}/kernel", "conv")
+        elif isinstance(mod, (Conv1x1, nn.Conv2d, _MaskedConv, nn.ConvTranspose2d)):
+            kind = "conv_t" if isinstance(mod, nn.ConvTranspose2d) else "conv"
+            add(f"{pre}weight", f"{p}/kernel", kind)
             add(f"{pre}bias", f"{p}/bias", "as_is")
-        elif isinstance(mod, EntropyBottleneck):
-            for pname, _ in mod.named_parameters():
+        elif isinstance(mod, (EntropyBottleneck, GDN, GainHyperLatentCodec,
+                              GainHyperpriorLatentCodec)):
+            for pname, _ in mod.named_parameters(recurse=False):
                 add(f"{pre}{pname}", f"{p}/{pname}", "as_is")
         if isinstance(mod, _PosEmbed):
             add(f"{pre}pos_embed", f"{p}/pos_embed", "as_is")

@@ -9,7 +9,7 @@ from .gaussian_conditional import (
     gc_update,
     get_scale_table,
 )
-from .ops import lower_bound, quantize, quantize_ste
+from .ops import compute_padding, dequantize, lower_bound, quantize, quantize_ste
 
 __all__ = [
     "CdfTable",
@@ -25,6 +25,8 @@ __all__ = [
     "build_indexes",
     "gc_update",
     "get_scale_table",
+    "compute_padding",
+    "dequantize",
     "lower_bound",
     "quantize",
     "quantize_ste",

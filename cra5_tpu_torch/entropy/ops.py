@@ -123,3 +123,31 @@ def quantize(
     if mode == "symbols":
         return outputs.to(torch.int32)
     raise ValueError(f"Invalid quantization mode: {mode!r}")
+
+
+def dequantize(inputs: torch.Tensor, means: Optional[torch.Tensor] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Integer symbols back to values: symbols + means in the means' dtype,
+    or the symbols in ``dtype``."""
+    if means is not None:
+        return inputs.to(means.dtype) + means
+    return inputs.to(dtype)
+
+
+def compute_padding(in_h: int, in_w: int, *, out_h: Optional[int] = None,
+                    out_w: Optional[int] = None, min_div: int = 1):
+    """(pad, unpad), each (left, right, top, bottom), that take an
+    in_h x in_w image to out_h x out_w (by default the next multiple of
+    ``min_div``), centred; unpad is pad negated."""
+    if out_h is None:
+        out_h = (in_h + min_div - 1) // min_div * min_div
+    if out_w is None:
+        out_w = (in_w + min_div - 1) // min_div * min_div
+    if out_h % min_div != 0 or out_w % min_div != 0:
+        raise ValueError(f"Padded size not divisible by {min_div}")
+    left = (out_w - in_w) // 2
+    right = out_w - in_w - left
+    top = (out_h - in_h) // 2
+    bottom = out_h - in_h - top
+    pad = (left, right, top, bottom)
+    return pad, tuple(-p for p in pad)

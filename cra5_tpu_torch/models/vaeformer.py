@@ -20,30 +20,20 @@ are built from float32 scales.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..coder import native
-from ..coder.lane_coder import LaneCoder, _unwrap_bytes
+from ..coder.lane_coder import LaneCoder
 from ..device import resolve_device
-from ..entropy import (
-    EntropyBottleneck,
-    GaussianConditional,
-    build_indexes,
-    eb_update,
-    gc_update,
-    get_scale_table,
-)
-from ..entropy.cdf import CdfTable
+from ..entropy import EntropyBottleneck, GaussianConditional
 from ..entropy.ops import draw
 from ..nn.init import lecun_normal_
 from ..nn.vit import HyperDecoder, HyperEncoder, ViTDecoder, ViTEncoder
+from .codec import _CodecBase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +156,8 @@ class Conv1x1(nn.Module):
 
 
 class VAEformer(nn.Module):
+    CODEC_KIND = "vaeformer"  # make_codec dispatches to VAEformerCodec
+
     def __init__(self, cfg: VAEformerConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
@@ -280,7 +272,7 @@ class VAEformer(nn.Module):
         return self.decode_y(y_sym.to(means.dtype) + means)
 
 
-class VAEformerCodec:
+class VAEformerCodec(_CodecBase):
     """compress / decompress around a VAEformer: owns the CDF tables and
     the coders, on the model's device. Strings come back in the
     [[y_string, ...], [z_string, ...]] nesting, one string per sample.
@@ -295,75 +287,13 @@ class VAEformerCodec:
     named ``compress/<stage>`` or ``decompress/<stage>``. When
     ``stage_times`` is a dict, each stage also ends in a device synchronize
     and records its host seconds there under that name (stages then no
-    longer overlap, so their sum exceeds an unsynchronised roundtrip)."""
-
-    def __init__(self, model: VAEformer, coder: str = "v2",
-                 scale_table: Optional[np.ndarray] = None):
-        if coder not in ("v1", "v2"):
-            raise ValueError(f"unknown coder {coder!r}: 'v1' or 'v2'")
-        self.model = model
-        self.device = model.device
-        self.coder = coder
-        self.scale_table = (
-            np.asarray(scale_table, np.float32) if scale_table is not None else get_scale_table()
-        )
-        self._scale_table_dev = torch.as_tensor(self.scale_table, device=self.device)
-        self._eb_table: Optional[CdfTable] = None
-        self._gc_table: Optional[CdfTable] = None
-        self.stage_times: Optional[Dict[str, float]] = None
-
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            if self.stage_times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.stage_times[name] = time.perf_counter() - t0
-
-    def update(self, force: bool = False) -> bool:
-        """(Re)build the CDF tables from the EB params and the scale table."""
-        if self._eb_table is not None and not force:
-            return False
-        self.set_tables(eb_update(self.model.entropy_bottleneck.params_numpy()),
-                        gc_update(self.scale_table))
-        return True
-
-    def set_tables(self, eb_table: CdfTable, gc_table: CdfTable) -> None:
-        self._eb_table, self._gc_table = eb_table, gc_table
-        if self.coder == "v2":
-            self._eb_coder = LaneCoder(eb_table, device=self.device)
-            self._gc_coder = LaneCoder(gc_table, device=self.device)
-
-    def _gc_indexes(self, scales: torch.Tensor) -> torch.Tensor:
-        return build_indexes(scales.float(), self._scale_table_dev)
-
-    @staticmethod
-    def _z_indexes(z_shape) -> torch.Tensor:
-        B, C, H, W = z_shape
-        return torch.arange(C, dtype=torch.int32).reshape(1, C, 1, 1).expand(B, C, H, W)
-
-    @staticmethod
-    def _v1_encode(table: CdfTable, sym: torch.Tensor, idx: torch.Tensor) -> List[bytes]:
-        """One v1 stream per sample, on the host."""
-        sym, idx = sym.cpu().numpy(), idx.cpu().numpy()
-        tabs = (table.quantized_cdf, table.cdf_length, table.offset)
-        return [native.encode_with_indexes(sym[b], idx[b], *tabs) for b in range(sym.shape[0])]
-
-    def _v1_decode(self, table: CdfTable, strings, idx: torch.Tensor) -> torch.Tensor:
-        """Decode one v1 stream per sample on the host; the symbols go to
-        the device."""
-        idx = idx.cpu().numpy()
-        tabs = (table.quantized_cdf, table.cdf_length, table.offset)
-        sym = np.stack([native.decode_with_indexes(_unwrap_bytes(strings[b]), idx[b], *tabs)
-                        for b in range(idx.shape[0])])
-        return torch.from_numpy(sym).to(self.device)
+    longer overlap, so their sum exceeds an unsynchronised roundtrip). The
+    tables, the coders, the stages and the v1 helpers are ``_CodecBase``'s,
+    shared with the image codecs (``models/codec.py``)."""
 
     @torch.inference_mode()
     def compress(self, x) -> Dict[str, Any]:
-        if self._eb_table is None:
-            self.update()
+        self._require_tables()
         with self._stage("compress/h2d_input"):
             x = torch.as_tensor(x, device=self.device)
         with self._stage("compress/g_a"):  # g_a + quant_conv
@@ -374,8 +304,7 @@ class VAEformerCodec:
     def compress_from_latent(self, y) -> Dict[str, Any]:
         """compress from a (B, embed_dim, H/10, W/10) latent, as the
         archive writer of a latent that was stored or edited."""
-        if self._eb_table is None:
-            self.update()
+        self._require_tables()
         return self._compress_latent(torch.as_tensor(y, device=self.device))
 
     def _compress_latent(self, y: torch.Tensor) -> Dict[str, Any]:
@@ -386,13 +315,13 @@ class VAEformerCodec:
         zs = tuple(int(s) for s in z_sym.shape[-2:])
         if self.coder == "v1":
             with self._stage("compress/encode_z"):  # to the host, serial rANS
-                z_strings = self._v1_encode(self._eb_table, z_sym, self._z_indexes(z_sym.shape))
+                z_strings = self._v1_encode(self._eb_table, z_sym, self._channel_indexes(z_sym.shape))
             with self._stage("compress/encode_y"):  # GC indexes, to the host, serial rANS
                 y_strings = self._v1_encode(self._gc_table, out["y_sym"],
                                             self._gc_indexes(out["scales"]))
             return {"strings": [y_strings, z_strings], "z_shape": zs, "shape": zs}
         with self._stage("compress/encode_z"):
-            z_idx = self._z_indexes(z_sym.shape).to(self.device)
+            z_idx = self._channel_indexes(z_sym.shape)
             handles = self._eb_coder.encode_dispatch_batch(z_sym, z_idx)
         with self._stage("compress/encode_y"):  # GC indexes, sort, merge, K1
             gc_idx = self._gc_indexes(out["scales"])
@@ -408,8 +337,7 @@ class VAEformerCodec:
         dequantized latent y_sym + means as a float32 tensor."""
         if return_format not in ("reconstructed", "latent"):
             raise ValueError(f"unknown return_format {return_format!r}")
-        if self._eb_table is None:
-            self.update()
+        self._require_tables()
         y_strings, z_strings = strings[0], strings[1]
         B = len(z_strings)
         cfg = self.model.cfg
@@ -417,7 +345,7 @@ class VAEformerCodec:
         full_z = (B, cfg.z_channels, int(z_shape[0]), int(z_shape[1]))
         if self.coder == "v1":
             with self._stage("decompress/decode_z"):  # serial rANS, to the card
-                z_sym = self._v1_decode(self._eb_table, z_strings, self._z_indexes(full_z))
+                z_sym = self._v1_decode(self._eb_table, z_strings, self._channel_indexes(full_z))
             with self._stage("decompress/h_s"):
                 scales, means = self.model.scales_from_z_symbols(z_sym)
             with self._stage("decompress/decode_y"):  # GC indexes to the host, serial rANS
@@ -427,7 +355,7 @@ class VAEformerCodec:
                 y_up = self._gc_coder.upload_batch(list(y_strings), cfg.embed_dim * g[0] * g[1])
             with self._stage("decompress/decode_z"):  # K2
                 z_sym = self._eb_coder.decode_batch_to_device(
-                    list(z_strings), self._z_indexes(full_z).to(self.device))
+                    list(z_strings), self._channel_indexes(full_z))
             with self._stage("decompress/h_s"):
                 scales, means = self.model.scales_from_z_symbols(z_sym)
             with self._stage("decompress/decode_y"):  # GC indexes, sort, merge, K3

@@ -14,10 +14,8 @@ from .utils.registry import CRITERIONS, DATASETS, MODELS, OPTIMIZERS, SCHEDULERS
 # registered in the JAX package, not yet in the port (ROADMAP.md queue A5)
 NOT_PORTED = {
     "models": (
-        "FactorizedPrior", "FactorizedPriorReLU", "ScaleHyperprior", "MeanScaleHyperprior",
-        "JointAutoregressiveHierarchicalPriors", "SampledYInBmshj2018", "Cheng2020Anchor",
-        "Cheng2020Attention", "ELIC2022", "SymmetricalTransFormer2022", "TCM2023",
-        "InvCompress", "ScaleSpaceFlow", "VITAutoencoderKL", "VariationCNNPrior",
+        "ELIC2022", "SymmetricalTransFormer2022", "TCM2023", "InvCompress", "ScaleSpaceFlow",
+        "VITAutoencoderKL", "VariationCNNPrior",
     ),
     "datasets": ("ImageFolder", "PreGeneratedMemmapDataset", "VideoFolder", "Vimeo90kDataset"),
 }
@@ -25,13 +23,16 @@ NOT_PORTED = {
 
 def _register_all() -> None:
     from .data import ERA5NcDataset, ERA5NpyDataset
-    from .models.vaeformer import VAEformer
+    from . import models
     from .train.loss import RateDistortionLoss
     from .train.optim import make_net_aux_optimizers
     from .train.schedulers import SCHEDULERS as schedules
 
     for registry, entries in (
-        (MODELS, {"VAEformer": VAEformer}),
+        (MODELS, {name: getattr(models, name) for name in (
+            "VAEformer", "FactorizedPrior", "FactorizedPriorReLU", "ScaleHyperprior",
+            "MeanScaleHyperprior", "JointAutoregressiveHierarchicalPriors",
+            "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention")}),
         (DATASETS, {"ERA5NpyDataset": ERA5NpyDataset, "ERA5NcDataset": ERA5NcDataset}),
         (CRITERIONS, {"RateDistortionLoss": RateDistortionLoss}),
         (OPTIMIZERS, {"net_aux": make_net_aux_optimizers}),

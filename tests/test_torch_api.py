@@ -109,7 +109,7 @@ def _port_symbols(api, strings, z_shape):
     codec, cfg = api.codec, api.model_cfg
     full_z = (1, cfg.z_channels, *z_shape)
     with torch.inference_mode():
-        z_idx = codec._z_indexes(full_z)
+        z_idx = codec._channel_indexes(full_z)
         if codec.coder == "v1":
             z = codec._v1_decode(codec._eb_table, strings[1], z_idx)
             y = codec._v1_decode(codec._gc_table, strings[0],

@@ -137,8 +137,10 @@ def test_registries_build_the_ports_objects(tmp_path):
     tx = registry.OPTIMIZERS.build({"type": "net_aux", "learning_rate": 1e-3})
     assert tx.aux_lr == 1e-3 and tx.net_rate(0) == 1e-3
     assert registry.SCHEDULERS.get("WarmupCosineLR")(1.0, 10, 2)(0) == 0.0
-    with pytest.raises(KeyError, match="ScaleHyperprior"):
-        registry.MODELS.get("ScaleHyperprior")
+    with pytest.raises(KeyError, match="ELIC2022"):
+        registry.MODELS.get("ELIC2022")
+    zoo = registry.MODELS.build({"type": "ScaleHyperprior", "N": 8, "M": 12}, device="cpu")
+    assert zoo.CODEC_KIND == "hyper" and zoo.device.type == "cpu"
 
 
 def test_cra5_api_takes_a_config_file_or_a_mapping():

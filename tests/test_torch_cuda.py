@@ -323,9 +323,9 @@ def test_tiny_codec_on_the_card_writes_the_cpu_bytes(card):
     assert out["strings"] == b.compress(x)["strings"]
     z_shape = (1, cfg.z_channels, *out["z_shape"])
     before = rk.rans_decode_generic.launches
-    z_gpu = a._eb_coder.decode_batch_to_device(out["strings"][1], a._z_indexes(z_shape).to(card))
+    z_gpu = a._eb_coder.decode_batch_to_device(out["strings"][1], a._channel_indexes(z_shape))
     assert rk.rans_decode_generic.launches == before + 1
-    z_cpu = b._eb_coder.decode_batch_to_device(out["strings"][1], b._z_indexes(z_shape))
+    z_cpu = b._eb_coder.decode_batch_to_device(out["strings"][1], b._channel_indexes(z_shape))
     assert torch.equal(z_gpu.cpu(), z_cpu)
     before = rk.rans_decode_generic.launches
     x_gpu = a.decompress(out["strings"], out["z_shape"])["x_hat"]
@@ -850,3 +850,58 @@ def test_msgpack_roundtrip_of_card_params(card, tmp_path):
             p.copy_(params[name])
     for name, p in model.named_parameters():
         assert torch.equal(fresh.get_parameter(name), p), name
+
+
+# card against CPU for the image-codec zoo: the card's im2col / cuBLAS
+# GEMMs (cuDNN off, TF32 off) sum the convolutions in other orders than
+# the CPU's, so x_hat agrees within this share of max |x_hat| (the
+# symbols exactly)
+ZOO_XHAT_RTOL = 1e-4
+
+
+def test_zoo_image_codec_on_the_card_gives_the_cpu_symbols(card):
+    """mbt2018-mean at a small width (N=32, M=48) with the same seeded
+    weights on the card and on the CPU, one ImageCodec v2 roundtrip of a
+    seeded 3 x 128 x 192 image: the same symbols and bytes (K1 twice), the
+    card decodes them (K2 on z and on y) to the encoded symbols, and x_hat
+    equals reconstruct of them bitwise on the card and the CPU's within
+    ZOO_XHAT_RTOL."""
+    from cra5_tpu_torch.models import MeanScaleHyperprior, make_codec
+
+    gpu = MeanScaleHyperprior(N=32, M=48, device=card).reset_parameters(0)
+    cpu = MeanScaleHyperprior(N=32, M=48, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = np.random.default_rng(0).random((1, 3, 128, 192), np.float32)
+    with torch.inference_mode():
+        eg, ec = gpu.encode_symbols(torch.from_numpy(x).to(card)), cpu.encode_symbols(
+            torch.from_numpy(x))
+    for k in ("y_sym", "z_sym"):
+        assert torch.equal(eg[k].cpu(), ec[k]), k
+    a, b = make_codec(gpu), make_codec(cpu)
+    kernels.reset_launch_counts()
+    out = a.compress(x)
+    assert kernels.launch_counts()["rans_encode"] == 2
+    assert out["strings"] == b.compress(x)["strings"]
+    kernels.reset_launch_counts()
+    x_gpu = a.decompress(out["strings"], out["shape"])["x_hat"]
+    assert kernels.launch_counts()["rans_decode_generic"] == 2
+    with torch.inference_mode():
+        assert torch.equal(x_gpu, gpu.reconstruct(eg["y_sym"], eg["means"]))
+    x_cpu = b.decompress(out["strings"], out["shape"])["x_hat"]
+    assert (x_gpu.cpu() - x_cpu).abs().max().item() <= ZOO_XHAT_RTOL * x_cpu.abs().max().item()
+
+
+def test_y_stream_of_2048_lanes_decodes_on_k3(card, rng, gc_table):
+    """A y-sized stream of 2048 x 512 symbols on the 64-row GC table: the
+    format writes it on 2048 lanes, index-sorted and kernel-safe, and the
+    card decodes it through K3 to the symbols."""
+    idx = rng.integers(0, 64, 2048 * 512).astype(np.int32)
+    sym = _sample(rng, gc_table, idx, 0.01)
+    coder = LaneCoder(gc_table, device=card)
+    data = coder.encode(sym, idx)
+    n, K, _, _, sorted_mode, safe, _ = parse_v2_header(data)
+    assert (n, K, sorted_mode, safe) == (idx.size, 2048, True, True)
+    before = rk.rans_decode_sorted.launches
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)
+    assert rk.rans_decode_sorted.launches == before + 1
+    assert data == LaneCoder(gc_table, device="cpu").encode(sym, idx)

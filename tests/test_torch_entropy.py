@@ -124,3 +124,26 @@ def test_eb_params_from_variables_matches_jax(rng):
     want = j_eb.eb_params_from_variables(variables, "entropy_bottleneck")
     assert sorted(got) == sorted(want)
     assert _tables_equal(eb_update(got), j_eb.eb_update(want))
+
+
+@pytest.mark.parametrize("means", [False, True])
+def test_dequantize_matches_jax(rng, means):
+    from cra5_tpu_torch.entropy import dequantize
+
+    sym = rng.integers(-50, 50, (2, 3, 4, 5)).astype(np.int32)
+    mu = rng.standard_normal((2, 3, 4, 5)).astype(np.float32) if means else None
+    want = j_ops.dequantize(jnp.asarray(sym), None if mu is None else jnp.asarray(mu))
+    got = dequantize(torch.from_numpy(sym), None if mu is None else torch.from_numpy(mu))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("h,w,kw", [(512, 768, dict(min_div=64)), (1365, 2048, dict(min_div=64)),
+                                    (37, 51, dict(min_div=16)), (64, 64, {}),
+                                    (30, 40, dict(out_h=64, out_w=48, min_div=16))])
+def test_compute_padding_matches_jax(h, w, kw):
+    from cra5_tpu_torch.entropy import compute_padding
+
+    assert compute_padding(h, w, **kw) == j_ops.compute_padding(h, w, **kw)
+    with pytest.raises(ValueError):
+        compute_padding(10, 10, out_h=20, out_w=20, min_div=16)

@@ -47,7 +47,9 @@ def test_every_module_imports_with_jax_blocked():
         "bench", "tools.train", "train.calibrate", "data.era5", "data.prefetch", "utils.config",
         "utils.registry", "registry", "api.downloader", "api.configs.train_era5_base",
         "utils.msgpack", "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharding",
-        "ops.ring_attention", "tools.recompress", "train.checkpoints")} <= mods
+        "ops.ring_attention", "tools.recompress", "train.checkpoints", "nn.conv", "nn.gdn",
+        "models.google", "models.waseda", "models.latent_codecs", "models.codec", "models.zoo",
+        "tools.eval_model")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -73,6 +75,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LaneCoder(table)
     assert VAEformer(vaeformer_tiny(), device="cpu").device.type == "cpu"
     assert LaneCoder(table, device="cpu").device.type == "cpu"
+
+
+def test_zoo_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The zoo's models, load_model and eval_model resolve their device as
+    every entry point does: the card unless the caller asks for the CPU."""
+    from cra5_tpu_torch.models import MeanScaleHyperprior, create_model, load_model
+    from cra5_tpu_torch.tools import eval_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MeanScaleHyperprior(N=8, M=12)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model("bmshj2018-factorized", 1)
+    np.save(tmp_path / "x.npy", np.zeros((3, 64, 64), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_model.main([str(tmp_path), "-a", "bmshj2018-factorized"])
+    assert create_model("mbt2018-mean", 1, device="cpu").device.type == "cpu"
 
 
 def test_distributed_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -131,7 +131,7 @@ def test_bf16_codec_roundtrip_is_exact(setup):
     (y_str,), (z_str,) = out["strings"]
     with torch.inference_mode():
         z_dec = codec._eb_coder.decode_batch_to_device(
-            [z_str], codec._z_indexes(got["z_sym"].shape))
+            [z_str], codec._channel_indexes(got["z_sym"].shape))
         scales, _ = codec.model.scales_from_z_symbols(z_dec)
         y_dec = codec._gc_coder.decode_batch_to_device([y_str], codec._gc_indexes(scales))
         want = codec.model.reconstruct_from_y_symbols(got["y_sym"], got["means"])

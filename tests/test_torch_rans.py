@@ -325,6 +325,33 @@ def test_decode_routes_by_the_stream_format(rng, gc_table, eb_table, monkeypatch
     assert calls == [route]
 
 
+@pytest.mark.parametrize("kind", ["safe_sorted", "gc_unsorted", "eb_z_grid"])
+def test_decode_call_pairs_each_kernel_with_its_plain_version(rng, gc_table, eb_table, kind):
+    """decode_call names the kernel a stream takes and that kernel's plain
+    version; the plain version on its arguments, escapes applied and the
+    sort undone, gives the encoded symbols."""
+    from cra5_tpu_torch.coder.lane_coder import _apply_escapes
+
+    if kind == "safe_sorted":
+        idx = rng.integers(20, 23, 2048 * 6 + 100).astype(np.int32)
+        table, sym, K = gc_table, _sample(rng, gc_table, idx, 0.01), 2048
+        coder = LaneCoder(table, num_lanes=K, device="cpu", sorted_lanes=True)
+    else:
+        table, sym, idx, K = _streams(rng, gc_table, eb_table)[kind]
+        coder = LaneCoder(table, num_lanes=K, device="cpu")
+    data = coder.encode(sym, idx)
+    up = coder.upload_batch([data])[0]
+    kernel, plain, args, perm = coder.decode_call(up, torch.from_numpy(idx))
+    want = ((rk.rans_decode_sorted, rk.rans_decode_sorted_plain) if kind == "safe_sorted"
+            else (rk.rans_decode_generic, rk.lane_decode_plain))
+    assert (kernel, plain) == want and (perm is None) == (kind != "safe_sorted")
+    values, n_sent = _apply_escapes(*plain(*args), up[3], sym.size)
+    if perm is not None:
+        values = torch.empty_like(values).index_copy_(0, perm, values)
+    np.testing.assert_array_equal(values.reshape(idx.shape).numpy(), sym)
+    assert int(n_sent) == parse_v2_header(data)[2]
+
+
 def test_empty_stream_matches_jax(eb_table):
     empty = np.zeros(0, np.int32)
     data = LaneCoder(eb_table, device="cpu").encode(empty, empty)
@@ -351,3 +378,23 @@ def test_decode_rejects_cdf_rows_outside_the_table(eb_table, kernel, bad):
             r1 = torch.tensor([1, bad, 3], dtype=torch.int32)
             split = torch.tensor([4, 8, 0], dtype=torch.int32)
             rk.rans_decode_sorted(coder._cdf, r0, r1, split, states, words, *tabs)
+
+
+@pytest.mark.parametrize("kind", ["gc_unsorted", "eb_z_grid"])
+def test_lane_encode_decode_helpers_and_encode_from_device_match_jax(rng, gc_table, eb_table,
+                                                                     kind):
+    """lane_encode / lane_decode write and read the JAX helpers' bytes, and
+    encode_from_device on tensors already on the coder's device writes what
+    encode writes from numpy."""
+    from cra5_tpu_torch.coder import lane_decode, lane_encode
+
+    table, sym, idx, K = _streams(rng, gc_table, eb_table)[kind]
+    want = rt.lane_encode(sym, idx, _jax_table(table), K)
+    got = lane_encode(sym, idx, table, K, device="cpu")
+    assert got == want
+    np.testing.assert_array_equal(lane_decode(want, idx, table, K, device="cpu"), sym)
+    np.testing.assert_array_equal(rt.lane_decode(got, idx, _jax_table(table), K), sym)
+    coder = LaneCoder(table, num_lanes=K, device="cpu")
+    assert coder.encode_from_device(torch.from_numpy(sym), torch.from_numpy(idx)) == got
+    assert rt.LaneCoder(_jax_table(table), num_lanes=K).encode_from_device(
+        jnp.asarray(sym), jnp.asarray(idx)) == got
