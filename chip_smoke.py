@@ -134,7 +134,32 @@ result line is printed then:
      roundtrips, at its own geometry, K1 is held exactly against its plain
      version on the stream's grids and against the container, and the
      decode kernel (K2 or K3) against its plain version on the uploaded
-     stream; [zoo kernels] lines give both kernels' device times.
+     stream, and the stream's decode against the encoder's symbols; [zoo
+     kernels] lines give both kernels' device times;
+  12. serve phase (each line carries the card's name and power limit): the
+     published-model serving path at full width in float32 on seeded
+     weights written as the reference's .pth (reference_state_dict, with
+     trained-style CDF tables: the EB table of its own EB params, a GC
+     table of a non-default 48-level scale table): convert_checkpoint of it
+     gives the model's params bitwise and the tables; verify_268_manifest
+     reports only the seven CDF buffers reshaped (the manifest lists them
+     empty); tools/convert_torch.main on a manifest-exact copy exits 0;
+     cra5_api(weights=.pth) installs the file's tables and writes four
+     timesteps' .bin files (synthetic fields), whose y stream differs from
+     recomputed tables'; on the first bin's y and z streams, under the
+     file's tables, K1 and the decode kernel each takes (K3 or K2) are
+     held exactly against their plain versions and the decode against the
+     encoder's symbols ([serve kernels] lines); tools/serve.main --config 268 --checkpoint .pth
+     --threads 4 --denormalize serves them (its JSON line printed; the
+     counters zeroed just before and read just after: K2 on every z
+     stream, K3 or K2 on each y stream as its header names, the float32 K4
+     three times a decode); each .npy equals cra5_api's decode_from_bin
+     bitwise (the .npy files deleted after the check), with decode_from_bin
+     timed beside np.save of the field; era5_eval.evaluate_fields over the
+     four pairs (mean_wrmse, the worst three variables); decode_profile at
+     268 with --depths 2,4 --batches 1,2 --iters 3 (its launches counted).
+     Serve's launches join the float32 K4 and K2/K3 rows of the kernels
+     line, decode_profile's the bf16 ones.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -169,12 +194,13 @@ one card and no network.
     python3 chip_smoke.py --perm
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --zoo
+    python3 chip_smoke.py --serve
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
-floor or host breakdown), only the dist phases (10), or only the zoo phase
-(11), and print no result line. They import
+floor or host breakdown), only the dist phases (10), only the zoo phase
+(11), or only the serve phase (12), and print no result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -2445,14 +2471,19 @@ def kernel_us(fn, match: str, iters: int = 10) -> float:
     return float("nan")
 
 
-def zoo_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str) -> None:
-    """Each of the roundtrip's v2 streams at its own geometry: K1 on the
+def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
+                        where: str = "zoo kernels") -> None:
+    """Each v2 stream of a written sample (out["strings"], the first
+    sample) at its own geometry and with the codec's own tables: K1 on the
     (M, K) grids of the encoded symbols and indexes against
     rans_encode_plain (states, emit, emitted words) and against the
     container's states and words; the decode kernel the stream takes (K2
     or K3) on it as uploaded against lane_decode_plain or
-    rans_decode_sorted_plain (values, sentinels). Every comparison is
-    exact and raises on a difference; each kernel's device time beside."""
+    rans_decode_sorted_plain (values, sentinels); the stream's decode
+    (escapes applied, the sort undone) against the encoder's symbols.
+    Every comparison is exact and raises on a difference; each kernel's
+    device time beside. Used by the zoo's roundtrips and by serve's bins;
+    ``where`` heads the lines."""
     from cra5_tpu_torch.coder import rans_kernels as rk
     from cra5_tpu_torch.coder.lane_coder import parse_v2_header
 
@@ -2471,20 +2502,27 @@ def zoo_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str) -> None
             starts, freqs = coder.encode_grids(sym[0], idx[0])[3:5]
             got, want = rk.rans_encode(starts, freqs), rk.rans_encode_plain(starts, freqs)
             if not (same(got[:2], want[:2]) and torch.equal(got[2][got[1]], want[2][want[1]])):
-                raise RuntimeError(f"[zoo kernels] {tag} {group}: K1 rans_encode differs from "
+                raise RuntimeError(f"[{where}] {tag} {group}: K1 rans_encode differs from "
                                    f"rans_encode_plain on the stream's grids")
             if not (torch.equal(got[0], up[1]) and torch.equal(got[2][got[1]], up[2])):
-                raise RuntimeError(f"[zoo kernels] {tag} {group}: K1's states and words differ "
+                raise RuntimeError(f"[{where}] {tag} {group}: K1's states and words differ "
                                    f"from the container's")
             kernel, plain, args, _ = coder.decode_call(up, idx[0])
             if not same(kernel(*args, coder._slots), plain(*args)):
-                raise RuntimeError(f"[zoo kernels] {tag} {group}: {dec_name} differs from "
+                raise RuntimeError(f"[{where}] {tag} {group}: {dec_name} differs from "
                                    f"{plain.__name__} on the uploaded stream")
+            decoded, n_sent = coder._decode(up, idx[0])
+            if not torch.equal(decoded, sym[0].to(decoded)) or int(n_sent) != up[0][2]:
+                raise RuntimeError(f"[{where}] {tag} {group}: the decoded symbols differ "
+                                   f"from the encoder's ({int(n_sent)} escapes decoded, "
+                                   f"{up[0][2]} in the stream)")
             k1 = kernel_us(lambda: rk.rans_encode(starts, freqs), "rans_encode")
             dec = kernel_us(lambda: kernel(*args, coder._slots), "rans_decode")
         steps = -(-n // K)
-        log(f"[zoo kernels] {tag} {group}: {n} symbols, {K} lanes x {steps} steps; K1 and "
-            f"{dec_name} exact against their plain versions; K1 device {k1:.2f} us "
+        log(f"[{where}] {tag} {group}: {n} symbols, {K} lanes x {steps} steps, "
+            f"{up[0][2]} escapes, {coder._cdf.shape[0]} table rows; K1 and {dec_name} exact "
+            f"against their plain versions, the decode equal to the encoder's symbols; "
+            f"K1 device {k1:.2f} us "
             f"({k1 * 1e3 / steps:.1f} ns a step), {dec_name} device {dec:.2f} us "
             f"({dec / steps:.3f} us a step)  ({card})")
 
@@ -2539,7 +2577,7 @@ def zoo_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
         raise RuntimeError(f"[zoo] {tag}: decompress's x_hat differs from reconstruct of the "
                            f"encoded symbols")
     if codec.coder == "v2":
-        zoo_stream_kernels(codec, out, enc, tag, card)
+        hold_stream_kernels(codec, out, enc, tag, card)
         rows, want = _stream_kernels(out)
         for group, K, srt, safe, nbytes, kern in rows:
             log(f"[zoo] {tag}: {group} stream {nbytes} B on {K} lanes, sorted {srt}, kernel-safe "
@@ -2665,10 +2703,277 @@ def phase_zoo(dev, card: str) -> dict:
     return _sum_launches(*launches)
 
 
+# ---------------------------------------------------------------- serve phase
+SERVE_STAMPS = ("2024-01-01T00:00:00", "2024-01-01T06:00:00", "2024-01-01T12:00:00",
+                "2024-01-01T18:00:00")
+CDF_BUFFERS = ("entropy_bottleneck._cdf_length", "entropy_bottleneck._offset",
+               "entropy_bottleneck._quantized_cdf", "gaussian_conditional._cdf_length",
+               "gaussian_conditional._offset", "gaussian_conditional._quantized_cdf",
+               "gaussian_conditional.scale_table")
+
+
+def reference_state_dict(model) -> dict:
+    """The port's VAEformer as the reference's state dict (CPU float32
+    copies): the inverse of tools/convert_torch.py's layouts, kept here and
+    not in the package. The patch embeds' ``weight``/``bias`` go under
+    ``patch_embed.proj``, the EntropyBottleneck's ``matrixN``/``biasN``/
+    ``factorN`` become ``_matrixN``/..., every other name and layout stays;
+    then the reference's non-parameter buffers, at CompressAI's values."""
+    sd = {}
+    for name, p in model.named_parameters():
+        key = re.sub(r"\.patch_embed\.(weight|bias)$", r".patch_embed.proj.\1", name)
+        key = re.sub(r"^entropy_bottleneck\.(matrix|bias|factor)(\d+)$",
+                     r"entropy_bottleneck._\1\2", key)
+        sd[key] = p.detach().float().cpu().clone()
+    t = float(np.log(2 / 1e-9 - 1))
+    sd.update({"entropy_bottleneck.likelihood_lower_bound.bound": torch.tensor([1e-9]),
+               "entropy_bottleneck.target": torch.tensor([-t, 0.0, t]),
+               "gaussian_conditional.likelihood_lower_bound.bound": torch.tensor([1e-9]),
+               "gaussian_conditional.lower_bound_scale.bound": torch.tensor([0.11]),
+               "gaussian_conditional.scale_bound": torch.tensor([0.11])})
+    return sd
+
+
+def with_cdf_buffers(sd: dict, tables=None) -> dict:
+    """``sd`` with the seven CDF buffers: ``tables`` ({"eb", "gc",
+    "scale_table"}), or empty, as the published manifest lists them."""
+    out = dict(sd)
+    for key in CDF_BUFFERS:
+        module, field = key.split(".")
+        if field == "scale_table":
+            value = np.zeros(0, np.float32) if tables is None else tables["scale_table"]
+        else:
+            table = None if tables is None else tables["eb" if module[0] == "e" else "gc"]
+            value = np.zeros(0, np.int32) if table is None else getattr(table, field[1:])
+        out[key] = torch.from_numpy(np.array(value))
+    return out
+
+
+def _same_tables(got: dict, want: dict) -> bool:
+    return (all(np.array_equal(getattr(got[k], f), getattr(want[k], f))
+                for k in ("eb", "gc") for f in ("quantized_cdf", "cdf_length", "offset"))
+            and np.array_equal(got["scale_table"], want["scale_table"]))
+
+
+def phase_serve(dev, card: str) -> dict:
+    """The published-model serving path at full width in float32 (the
+    default of VAEformer, cra5_api and serve), on seeded weights in the
+    reference's .pth format (reference_state_dict) with trained-style CDF
+    tables: the EB table of its own EB params and a GC table built from a
+    non-default scale table (48 levels from 0.15). Steps: the .pth round
+    trip and the manifest gate; cra5_api(weights=.pth) writing the
+    SERVE_STAMPS .bin files (synthetic fields) with the file's tables;
+    the first bin's y and z streams held by hold_stream_kernels (K1 and
+    the decode kernel each takes exact against their plain versions under
+    the file's tables, the decode equal to the encoder's symbols);
+    tools/serve.main over them (4 threads, --denormalize; the counters
+    zeroed just before and read just after: K2 on every z stream, the y
+    kernel each header names, the float32 K4 three times a decode); each
+    .npy held bitwise to cra5_api's decode_from_bin; era5_eval over the
+    pairs; decode_profile at 268 with small depths (its launches counted
+    too). Returns {"serve": launches, "decode_profile": launches}."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.api.bitstream import load_bin
+    from cra5_tpu_torch.api.cra5_api import cra5_api
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.entropy import eb_update, gc_update, get_scale_table
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
+    from cra5_tpu_torch.nn.vit import _win_for_block
+    from cra5_tpu_torch.tools import convert_torch, decode_profile, era5_eval, serve
+
+    t_phase = time.time()
+    cfg = vaeformer_268()
+    g_s_global = sum(_win_for_block(cfg.depth // 2 + j, True, cfg.interval, cfg.window_sizes)
+                     is None for j in range(cfg.depth - cfg.depth // 2))  # 3 at 268v
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the reference-format state dict, its round trip, the gate
+        t0 = time.time()
+        model = VAEformer(cfg, device=dev).reset_parameters(SEED)
+        scale_table = get_scale_table(0.15, 256.0, 48)
+        tables = {"eb": eb_update(model.entropy_bottleneck.params_numpy()),
+                  "gc": gc_update(scale_table), "scale_table": scale_table}
+        sd = reference_state_dict(model)
+        full = with_cdf_buffers(sd, tables)
+        params = convert_torch.convert_checkpoint("", state_dict=full, model=model)
+        got_tables = params.pop("_cdf_tables")
+        own = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+        if list(params) != list(own) or not all(torch.equal(params[n], own[n]) for n in own):
+            raise RuntimeError("[serve] convert_checkpoint of the reference dict differs from "
+                               "the model's params")
+        if not _same_tables(got_tables, tables):
+            raise RuntimeError("[serve] the converted CDF tables differ from the dict's")
+        report = convert_torch.verify_268_manifest(full)
+        if report != {"missing": [], "extra": [], "shape_mismatch": sorted(CDF_BUFFERS)}:
+            raise RuntimeError(f"[serve] manifest report {report}: expected the seven CDF "
+                               f"buffers reshaped and nothing else")
+        del params, own
+        pth = os.path.join(root, "cra5_268v_seeded.pth")
+        torch.save(full, pth)
+        exact, out_msgpack = os.path.join(root, "exact.pth"), os.path.join(root, "exact.msgpack")
+        torch.save(with_cdf_buffers(sd), exact)
+        del sd, full
+        buf = io.StringIO()
+        with contextlib.redirect_stderr(buf), contextlib.redirect_stdout(io.StringIO()):
+            rc = convert_torch.main([exact, "-o", out_msgpack])
+        if rc != 0 or not buf.getvalue().startswith("manifest OK"):
+            raise RuntimeError(f"[serve] convert_torch.main on the manifest-exact copy: rc {rc}, "
+                               f"{buf.getvalue()[:300]}")
+        msgpack_gib = os.path.getsize(out_msgpack) / 2**30
+        os.remove(exact)
+        os.remove(out_msgpack)
+        log(f"[serve] reference .pth of vaeformer_268 (seed {SEED}): convert_checkpoint gives "
+            f"the params bitwise and the tables; the manifest reports only the seven CDF buffers "
+            f"reshaped; convert_torch.main on the manifest-exact copy exits 0 "
+            f"({msgpack_gib:.2f} GiB .msgpack); .pth {os.path.getsize(pth) / 2**30:.2f} GiB; "
+            f"{time.time() - t0:.1f} s  ({card})")
+
+        # 2. the bins, written by cra5_api with the file's tables
+        t0 = time.time()
+        api = cra5_api(model_version=268, weights=pth, device=dev)
+        c = api.codec
+        if not _same_tables({"eb": c._eb_table, "gc": c._gc_table,
+                             "scale_table": c.scale_table}, tables):
+            raise RuntimeError("[serve] cra5_api did not install the file's tables")
+        bins, fields = os.path.join(root, "bins"), {}
+        written = {}
+        for ts in SERVE_STAMPS:
+            fields[ts] = api._read_or_synthesize(ts)  # the synthetic field, kept as the target
+            written[ts] = api.encode_era5_as_bin(ts, save_root=bins)
+        ts0 = SERVE_STAMPS[0]
+        # the first bin's streams under the file's tables, as served: K1 and
+        # the decode kernel each takes against their plain versions, and the
+        # decode against the symbols of cra5_api's encode
+        with torch.inference_mode():
+            enc0 = c.model.symbols_from_latent(c.model.encode_latent(
+                torch.as_tensor(api.normalization(fields[ts0])[None], device=dev)))
+        hold_stream_kernels(c, {"strings": load_bin(written[ts0]["save_path"])[0]}, enc0,
+                            f"268v {ts0}", card, "serve kernels")
+        del enc0
+        fresh = VAEformerCodec(api.net)
+        fresh.update()
+        y_fresh = fresh.compress(api.normalization(fields[ts0])[None])["strings"][0][0]
+        if y_fresh == written[ts0]["output"]["strings"][0][0]:
+            raise RuntimeError("[serve] the y stream equals the one of recomputed tables")
+        del fresh
+        bin_dir = os.path.join(bins, "CRA5", "2024")
+        sizes = [os.path.getsize(w["save_path"]) for w in written.values()]
+        log(f"[serve] cra5_api(weights=.pth) float32 installed the file's scale table "
+            f"({len(scale_table)} levels) and EB/GC tables; {len(SERVE_STAMPS)} .bin files "
+            f"{sizes} B, {time.time() - t0:.1f} s with the synthetic fields; the y stream "
+            f"differs from recomputed tables' ({len(y_fresh)} B)  ({card})")
+
+        # 3. serve, the counters zeroed just before and read just after
+        out_dir = os.path.join(root, "npy")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main([bin_dir, "-o", out_dir, "--config", "268", "--checkpoint", pth,
+                             "--threads", "4", "--denormalize"])
+        torch.cuda.synchronize()
+        serve_wall = time.time() - t0
+        launches = kernels.launch_counts()
+        if rc != 0:
+            raise RuntimeError(f"[serve] serve.main exited {rc}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(json.dumps(line), flush=True)
+        served = sorted(os.listdir(bin_dir))
+        decodes = [served[0]] + served  # the warm decode, then every file
+        heads = {b: parse_v2_header(load_bin(os.path.join(bin_dir, b))[0][0][0]) for b in served}
+        k3 = sum(1 for b in decodes if heads[b][4] and heads[b][5])
+        want = {k: 0 for k in launches}
+        want.update(rans_decode_generic=len(decodes) + len(decodes) - k3,
+                    rans_decode_sorted=k3, flash_attention_forward=g_s_global * len(decodes))
+        if launches != want or line["decoded"] != len(served) or line["kernel_fallbacks"]:
+            raise RuntimeError(f"[serve] launches {launches} (expected {want}), line {line}")
+        y_heads = [(h[0], h[1], h[2], h[4], h[5]) for h in heads.values()]
+        log(f"[serve] serve.main --config 268 --threads 4 --denormalize: {line['decoded']} "
+            f"decodes in {line['seconds']} s, {line['decodes_per_sec']} decodes/s; the call "
+            f"{serve_wall:.1f} s with the model build and the .pth read; y headers (n, K, "
+            f"escapes, sorted, safe) {y_heads}; launches {launches}  ({card})")
+
+        # 4. each .npy against the API's decode, bitwise; the split; the score
+        names = [api.channels_to_vname[i] for i in range(api.model_cfg.in_chans)]
+        recon, target = [], []
+        dec_s, write_s = [], []
+        path = os.path.join(bin_dir, f"{SERVE_STAMPS[0]}.bin")
+        strings, z_shape = load_bin(path)
+        c.stage_times = {}
+        x_dev = c.decompress(strings, z_shape)["x_hat"]
+        stages, c.stage_times = c.stage_times, None
+        t1 = time.time()
+        on_host = x_dev[0].float().cpu().numpy()
+        t_host = time.time() - t1
+        t1 = time.time()
+        api.de_normalization(on_host)
+        t_denorm = time.time() - t1
+        del x_dev, on_host
+        log("[serve] one decode's split: stages (each ends in a synchronize) " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()) + f"; the field to the host "
+            f"{t_host:.4f} s, de-normalised {t_denorm:.4f} s  ({card})")
+        for ts in SERVE_STAMPS:
+            path = os.path.join(bin_dir, f"{ts}.bin")
+            torch.cuda.synchronize()
+            t1 = time.time()
+            want_x = api.decode_from_bin(custom_path=path)["x_hat"]
+            dec_s.append(time.time() - t1)
+            got_x = np.load(os.path.join(out_dir, f"{ts}.npy"))
+            if got_x.dtype != np.float32 or not np.array_equal(got_x, want_x):
+                raise RuntimeError(f"[serve] {ts}.npy differs from decode_from_bin")
+            t1 = time.time()
+            np.save(os.path.join(root, "write_probe.npy"), got_x)
+            write_s.append(time.time() - t1)
+            os.remove(os.path.join(root, "write_probe.npy"))
+            os.remove(os.path.join(out_dir, f"{ts}.npy"))
+            recon.append(got_x)
+            target.append(fields[ts])
+        log(f"[serve] every .npy equals cra5_api's decode_from_bin (de-normalized) bitwise; "
+            f"decode_from_bin {[round(s, 4) for s in dec_s]} s against np.save of the "
+            f"{recon[0].nbytes / 1e9:.2f} GB field {[round(s, 4) for s in write_s]} s  ({card})")
+        del api, fields
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        score = era5_eval.evaluate_fields(np.stack(recon), np.stack(target), names, device=dev)
+        del recon, target
+        worst = sorted(score["wrmse"].items(), key=lambda kv: -kv[1])[:3]
+        if not np.isfinite(score["mean_wrmse"]):
+            raise RuntimeError(f"[serve] era5_eval mean_wrmse {score['mean_wrmse']}")
+        log(f"[serve] era5_eval over the {len(SERVE_STAMPS)} pairs (random weights, not an RD "
+            f"point): mean_wrmse {score['mean_wrmse']:.6g}, mean_mae {score['mean_mae']:.6g}, "
+            f"worst wrmse {[(k, round(v, 6)) for k, v in worst]}, {time.time() - t0:.1f} s  "
+            f"({card})")
+
+    # 5. decode_profile at 268 with small depths
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = decode_profile.main(["--depths", "2,4", "--batches", "1,2", "--iters", "3"])
+    torch.cuda.synchronize()
+    prof_launches = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"[serve] decode_profile exited {rc}: {err.getvalue()[-2000:]}")
+    prof = json.loads(buf.getvalue().strip().splitlines()[-1])
+    _require(prof_launches, ("rans_encode", "rans_decode_generic", "flash_attention_forward"),
+             "decode_profile")
+    log(f"[serve] decode_profile --depths 2,4 --batches 1,2 --iters 3 (268v bf16, calibrated), "
+        f"{time.time() - t0:.1f} s: {json.dumps(prof)}  ({card})")
+    log(f"[serve] decode_profile launches {prof_launches}  ({card})")
+    log(f"[serve] phase {time.time() - t_phase:.1f} s  ({card})")
+    return {"serve": launches, "decode_profile": prof_launches}
+
+
 def main(args) -> int:
-    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo]; "
-                         f"got {args}")
+    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo | "
+                         f"--serve]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2686,6 +2991,8 @@ def main(args) -> int:
             phase_dist(dev, CARD)
         elif args == ["--zoo"]:
             phase_zoo(dev, CARD)
+        elif args == ["--serve"]:
+            phase_serve(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -2709,6 +3016,8 @@ def main(args) -> int:
     torch.cuda.empty_cache()
     dist_launches = phase_dist(dev, CARD)
     zoo_launches = phase_zoo(dev, CARD)
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -2720,7 +3029,8 @@ def main(args) -> int:
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
-             "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches}
+             "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches,
+             **serve_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -2768,13 +3078,13 @@ def main(args) -> int:
                          "profiling/_perm_probe.py:160"),
     }
     # the flash kernels of every dtype and head dim share one wrapper and
-    # counter each: the head-dim-64 float32 paths are the API's and the
-    # float32 train step's, the head-dim-72 paths hyper_width's two, every
-    # other path is bf16 at head dim 64
+    # counter each: the head-dim-64 float32 paths are the API's, serve's
+    # and the float32 train step's, the head-dim-72 paths hyper_width's two,
+    # every other path is bf16 at head dim 64
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
-            "remat_dots")
+            "remat_dots", "decode_profile")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
-            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress"),
+            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
             "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
     only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in

@@ -19,10 +19,16 @@ keys. ``coder="v2"`` (default) writes the lane-rANS streams (CRX2) into the
 of the published CRA5 archives. The model runs on ``device`` (default: the
 card) in ``dtype`` (default float32, as the JAX package). Weights come
 from a file of the port's own ``train/checkpoints.save_variables`` format,
-or from the seeded init. Without NetCDF files (or without ``xarray``) a
-timestep is a synthetic field keyed by ``hash(time_stamp)``; ``hash`` of a
-``str`` is salted per process, so that field is the same only within one
-process, as in the JAX package.
+the JAX package's ``.msgpack``, a reference ``.pth`` (the published
+``cra5_268v_300k.pth``, converted by ``tools/convert_torch.py``), or the
+seeded init. A ``.pth`` that carries trained CDF tables has them
+installed, as the JAX package does: its scale table first (the codec
+builds its GC indexes from it), then the EntropyBottleneck and
+GaussianConditional tables, so its archives decode without ``update()``.
+Without NetCDF files (or without ``xarray``) a timestep is a synthetic
+field keyed by ``hash(time_stamp)``; ``hash`` of a ``str`` is salted per
+process, so that field is the same only within one process, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -79,17 +85,21 @@ class cra5_api:
             self.std = self.std[: model_cfg.in_chans]
         self.device = resolve_device(device)
         self.net = VAEformer(model_cfg, dtype=dtype, device=self.device)
+        tables = None
         if weights is not None:
-            self._load_weights(weights)
+            tables = self._load_weights(weights)
         else:
             self.net.reset_parameters(seed)
-        self.codec = VAEformerCodec(self.net, coder=coder)
+        self.codec = VAEformerCodec.with_tables(self.net, tables, coder=coder)
         self._downloader = None
 
     # -- weights -----------------------------------------------------------
     @torch.no_grad()
-    def _load_weights(self, path: str) -> None:
-        params = load_variables(path, model=self.net)  # .pt, or the JAX package's .msgpack
+    def _load_weights(self, path: str) -> Optional[Dict[str, Any]]:
+        """Copy a checkpoint's params into the model; returns a reference
+        ``.pth``'s CDF tables (None for the other formats)."""
+        params = load_variables(path, model=self.net)  # .pt, .msgpack or a reference .pth
+        tables = params.pop("_cdf_tables", None)
         own = dict(self.net.named_parameters())
         if set(own) != set(params):
             raise ValueError(f"{path}: parameter names differ from {self.model_cfg.name}'s")
@@ -98,6 +108,7 @@ class cra5_api:
                 raise ValueError(f"{path}: {name} has shape {tuple(params[name].shape)}, "
                                  f"the model {tuple(p.shape)}")
             p.copy_(params[name])
+        return tables
 
     # -- data --------------------------------------------------------------
     def download_era5_data(self, time_stamp: str, save_root: Optional[str] = None):

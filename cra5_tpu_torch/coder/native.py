@@ -10,6 +10,10 @@ build raises, and no code path runs ``rans_py``.
 
 Buffers cross as flat numpy int32 arrays, not per-symbol Python lists.
 Invalid CDF tables and out-of-range indexes raise ``ValueError``.
+``pmf_to_quantized_cdf_native`` builds a quantized CDF in C; where the JAX
+package computes it in Python when its library is missing, the port raises
+as its coder does, and ``native_available`` says beforehand whether the
+library builds here.
 """
 
 from __future__ import annotations
@@ -72,12 +76,23 @@ def lib() -> ctypes.CDLL:
                 "rans_validate_cdfs": (ctypes.c_int, [i32p, i32p, sz, sz]),
                 "zz_varint_encode": (ctypes.c_longlong, [i32p, sz, u8p, sz]),
                 "zz_varint_decode": (ctypes.c_longlong, [u8p, sz, sz, i32p]),
+                "pmf_to_quantized_cdf_c": (ctypes.c_int, [ctypes.POINTER(ctypes.c_float), sz,
+                                                          ctypes.c_int, i32p]),
             }
             for name, (restype, argtypes) in sigs.items():
                 fn = getattr(handle, name)
                 fn.restype, fn.argtypes = restype, argtypes
             _lib = handle
     return _lib
+
+
+def native_available() -> bool:
+    """Whether the host coder's library builds and loads here (``g++``)."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _as_i32(a) -> np.ndarray:
@@ -199,4 +214,17 @@ def zigzag_varint_decode(data: bytes, count: int) -> np.ndarray:
     if lib().zz_varint_decode(_ptr(buf, ctypes.c_uint8), buf.size, count,
                               _ptr(out, ctypes.c_int32)) < 0:
         raise ValueError("truncated escape side channel")
+    return out
+
+
+def pmf_to_quantized_cdf_native(pmf, precision: int = 16) -> np.ndarray:
+    """The quantized CDF of ``pmf`` (length + 1 int32 entries) built in C,
+    equal to ``entropy.cdf.pmf_to_quantized_cdf``. Raises ``RuntimeError``
+    when the library does not build (no Python fallback) and ``ValueError``
+    on an invalid pmf."""
+    pmf32 = np.ascontiguousarray(pmf, dtype=np.float32).reshape(-1)
+    out = np.empty(pmf32.size + 1, dtype=np.int32)
+    if lib().pmf_to_quantized_cdf_c(_ptr(pmf32, ctypes.c_float), pmf32.size, precision,
+                                    _ptr(out, ctypes.c_int32)) != 0:
+        raise ValueError("invalid pmf")
     return out

@@ -81,6 +81,17 @@ class CdfTable:
     def max_length(self) -> int:
         return self.quantized_cdf.shape[1]
 
+    def validate(self, precision: int = 16) -> None:
+        """Raise ``AssertionError`` unless every row runs from 0 to
+        2**precision, strictly increasing, over its ``cdf_length``."""
+        one = 1 << precision
+        for i in range(self.num_indexes):
+            row = self.quantized_cdf[i, : int(self.cdf_length[i])]
+            if not (row[0] == 0 and row[-1] == one):
+                raise AssertionError(f"row {i} endpoints invalid")
+            if not np.all(np.diff(row) > 0):
+                raise AssertionError(f"row {i} not strictly increasing")
+
 
 def build_cdf_table(
     pmfs: np.ndarray,

@@ -291,6 +291,19 @@ class VAEformerCodec(_CodecBase):
     tables, the coders, the stages and the v1 helpers are ``_CodecBase``'s,
     shared with the image codecs (``models/codec.py``)."""
 
+    @classmethod
+    def with_tables(cls, model, tables: Optional[Dict[str, Any]] = None,
+                    coder: str = "v2") -> "VAEformerCodec":
+        """The codec with a checkpoint's trained CDF tables installed (a
+        reference .pth's ``"_cdf_tables"``): its scale table first, from
+        which the GC indexes are built, then its EB and GC tables. Without
+        both tables, a codec that builds them by ``update()``."""
+        if not (tables and "eb" in tables and "gc" in tables):
+            return cls(model, coder=coder)
+        codec = cls(model, coder=coder, scale_table=tables.get("scale_table"))
+        codec.set_tables(tables["eb"], tables["gc"])
+        return codec
+
     @torch.inference_mode()
     def compress(self, x) -> Dict[str, Any]:
         self._require_tables()

@@ -12,7 +12,7 @@ are gathered in rank order.
 
 Usage:
   python -m cra5_tpu_torch.tools.recompress INPUT_DIR -o OUT_DIR
-      [--config tiny|268|159] [--checkpoint PATH.pt|PATH.msgpack]
+      [--config tiny|268|159] [--checkpoint PATH.pt|PATH.msgpack|PATH.pth]
       [--batch N] [--device cuda|cpu] [--backend nccl|gloo]
   torchrun --nproc-per-node N -m cra5_tpu_torch.tools.recompress ...
 
@@ -20,10 +20,11 @@ A world is joined as ``parallel.init_distributed`` resolves it (torchrun's
 variables, or ``CRA5_TPU_COORDINATOR`` / ``CRA5_TPU_NUM_PROCESSES`` /
 ``CRA5_TPU_PROCESS_ID``); ``--backend`` names the backend (default: nccl
 on the card, gloo on the CPU). The model is float32, its weights from
-``--checkpoint`` or a seeded init (seed 0). ``--batch`` timesteps go
-through one ``compress`` call (0: all of this rank's), and the last batch
-is padded with repeats of its last timestep so every call has the same
-batch (the padding is dropped before writing).
+``--checkpoint`` or a seeded init (seed 0); a reference .pth's trained
+CDF tables are installed, as ``serve`` installs them. ``--batch``
+timesteps go through one ``compress`` call (0: all of this rank's), and
+the last batch is padded with repeats of its last timestep so every call
+has the same batch (the padding is dropped before writing).
 """
 
 from __future__ import annotations
@@ -109,23 +110,29 @@ def _finish_barrier() -> None:
 
 def build_codec(config: str, checkpoint=None, device=None):
     """The float32 VAEformer codec of ``config``, its weights from
-    ``checkpoint`` (.pt or the JAX package's .msgpack) or seed 0, its CDF
-    tables built."""
+    ``checkpoint`` (.pt, the JAX package's .msgpack or a reference .pth)
+    or seed 0. A checkpoint that carries EB and GC tables (a .pth saved
+    after ``update()``) has its scale table and tables installed, as
+    ``cra5_api`` and ``serve`` install them, so the bins written here
+    decode through ``serve --checkpoint`` of the same file; otherwise the
+    tables are built by ``update()``."""
     from ..models.vaeformer import (VAEformer, VAEformerCodec, vaeformer_159, vaeformer_268,
                                     vaeformer_tiny)
     from ..train.checkpoints import load_variables
 
     cfg = {"tiny": vaeformer_tiny, "268": vaeformer_268, "159": vaeformer_159}[config]()
     model = VAEformer(cfg, device=device)
+    tables = None
     if checkpoint:
         params = load_variables(checkpoint, model=model)
+        tables = params.pop("_cdf_tables", None)
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(params[name])
     else:
         model.reset_parameters(0)
-    codec = VAEformerCodec(model)
-    codec.update()
+    codec = VAEformerCodec.with_tables(model, tables)
+    codec.update()  # builds the tables unless they were installed
     return codec
 
 

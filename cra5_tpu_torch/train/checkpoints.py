@@ -15,6 +15,12 @@ flax tree (``convert.flax_layout``):
     leaves of the JAX ``TrainState`` in ``jax.tree_util`` order
     (``jax_state_leaves``). Orbax directories are not read.
 
+A path ending in ``.pth`` is a reference checkpoint (the published CRA5
+model's state dict), read only: ``load_variables`` converts it through
+``tools/convert_torch.py`` (the model gives the names and layouts) and
+returns its trained CDF tables beside the params under ``"_cdf_tables"``,
+as the JAX package's does. The port's own files are never written there.
+
 The ``last_checkpoint`` / ``last_state`` pointer files hold the newest path.
 """
 
@@ -30,6 +36,7 @@ from ..utils import msgpack
 from .optim import is_aux
 
 MSGPACK = ".msgpack"
+PTH = ".pth"  # a reference checkpoint, read through tools/convert_torch.py
 
 
 def _cpu(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -38,9 +45,15 @@ def _cpu(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def _need_model(path: str, model) -> Any:
     if model is None:
-        raise ValueError(f"{path}: a .msgpack checkpoint needs the model, to map the flax "
-                         f"tree to the port's parameter names")
+        raise ValueError(f"{path}: a .msgpack or .pth checkpoint needs the model, to map its "
+                         f"names and layouts to the port's parameters")
     return model
+
+
+def _writable(path: str) -> None:
+    if path.endswith(PTH):
+        raise ValueError(f"{path}: a .pth path names a reference checkpoint, which the port "
+                         f"reads only; save to a .pt or .msgpack path")
 
 
 def _write(path: str, data: bytes) -> None:
@@ -57,6 +70,7 @@ def _read(path: str) -> Any:
 def save_variables(path: str, params: Dict[str, torch.Tensor], model=None) -> str:
     """The params by name; a ``.msgpack`` path gets the JAX package's
     ``{"params": ...}`` file of the model's flax tree."""
+    _writable(path)
     if path.endswith(MSGPACK):
         from ..convert import to_flax_params
 
@@ -67,10 +81,15 @@ def save_variables(path: str, params: Dict[str, torch.Tensor], model=None) -> st
     return path
 
 
-def load_variables(path: str, model=None) -> Dict[str, torch.Tensor]:
+def load_variables(path: str, model=None) -> Dict[str, Any]:
     """The params of a ``save_variables`` file by port name, on the CPU; a
     ``.msgpack`` file (the JAX package's, or the port's) is mapped through
-    the model's layout, strictly."""
+    the model's layout, strictly. A reference ``.pth`` gives the params
+    plus ``"_cdf_tables"``: {"eb", "gc", "scale_table"}, those it holds."""
+    if path.endswith(PTH):
+        from ..tools.convert_torch import convert_checkpoint
+
+        return convert_checkpoint(path, model=_need_model(path, model))
     if path.endswith(MSGPACK):
         from ..convert import from_flax_params
 
@@ -185,6 +204,7 @@ def save_train_state(path: str, state: Any, model=None, scheduled: bool = False)
     (``scheduled``: whether the net rate follows a schedule, whose count
     the JAX state holds), which its ``load_train_state`` restores with a
     template."""
+    _writable(path)
     if path.endswith(MSGPACK):
         return _save_jax_train_state(path, state, _need_model(path, model), scheduled)
     payload = {

@@ -60,3 +60,8 @@ def kl_weighted_loss(output: Dict[str, Any], target: torch.Tensor, kl_weight: fl
     nll_loss = nll.mean()
     kl_loss = torch.mean(output["kl"])
     return {"nll_loss": nll_loss, "kl_loss": kl_loss, "vae_loss": nll_loss + kl_weight * kl_loss}
+
+
+def rate_distortion_loss(output: Dict[str, Any], target: torch.Tensor, lmbda: float = 0.01,
+                         bpp_weight: float = 0.01) -> Dict[str, torch.Tensor]:
+    return RateDistortionLoss(lmbda=lmbda, bpp_weight=bpp_weight)(output, target)

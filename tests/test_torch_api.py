@@ -22,6 +22,7 @@ from cra5_tpu.api import era5 as j_era5
 from cra5_tpu.api.cra5_api import cra5_api as j_cra5_api
 from cra5_tpu_torch.api import bitstream, era5
 from cra5_tpu_torch.api.cra5_api import cra5_api
+from cra5_tpu_torch import convert
 from cra5_tpu_torch.convert import load_flax_variables
 
 TS = "2021-06-01T12:00:00"
@@ -187,3 +188,81 @@ def test_unknown_model_version_and_coder_raise():
         cra5_api(model_version=159, device="cpu")
     with pytest.raises(ValueError, match="coder"):
         cra5_api(model_version=-1, coder="v3", device="cpu")
+
+
+# ---------------------------------------------------------------- reference .pth weights
+# A tiny reference .pth (test_torch_convert_torch.tiny_pth) carries trained
+# CDF tables: its EB params' own table and a GC table built from a 48-level
+# scale table, other than get_scale_table()'s default, so that the install
+# shows in the y stream. The JAX package's cra5_api sets codec.scale_table
+# after its codec copied the default table to the device for its index
+# builder, so it codes the file's GC rows under the default table's indexes;
+# the port builds the indexes from the file's table, as the reference's
+# GaussianConditional does from its loaded buffer (ROADMAP C8). With the
+# default table, the published checkpoint's, the two give the same bytes
+# as they stand; with the 48-level one the JAX instance's index table is
+# set to its own scale_table first.
+@pytest.fixture(scope="module")
+def pth(tmp_path_factory):
+    from cra5_tpu.entropy import get_scale_table as j_get_scale_table
+    from test_torch_convert_torch import tiny_pth
+
+    root = tmp_path_factory.mktemp("pth")
+    return {"st48": tiny_pth(root / "st48.pth"),
+            "default": tiny_pth(root / "default.pth", scale_table=j_get_scale_table())}
+
+
+def test_pth_weights_install_the_files_tables(pth):
+    from test_torch_convert_torch import _assert_tables_equal
+
+    path, params, tables = pth["st48"]
+    api = cra5_api(model_version=-1, weights=path, device="cpu")
+    c = api.codec
+    _assert_tables_equal({"eb": c._eb_table, "gc": c._gc_table, "scale_table": c.scale_table},
+                         tables)
+    assert torch.equal(c._scale_table_dev, torch.from_numpy(tables["scale_table"]))
+    assert c._gc_coder is not None  # v2 coders made from the installed tables
+    for name, value in convert.from_flax_params(api.net, {"params": params}).items():
+        assert np.array_equal(api.net.get_parameter(name).detach().numpy(), value), name
+
+
+@pytest.mark.parametrize("table", ["st48", "default"])
+def test_pth_bin_equals_jax_and_shows_the_install(pth, tmp_path, table):
+    from cra5_tpu_torch.models.vaeformer import VAEformerCodec
+
+    path, _, _ = pth[table]
+    api = cra5_api(model_version=-1, weights=path, device="cpu")
+    japi = j_cra5_api(model_version=-1, weights=path, dtype=jnp.float32)
+    if table == "st48":
+        japi.codec._scale_table_dev = jnp.asarray(japi.codec.scale_table)
+    out = api.encode_era5_as_bin(TS, save_root=str(tmp_path / "port"))
+    jout = japi.encode_era5_as_bin(TS, save_root=str(tmp_path / "jax"))
+    with open(out["save_path"], "rb") as a, open(jout["save_path"], "rb") as b:
+        assert a.read() == b.read()
+    # a codec with tables recomputed by update() writes other y bytes where
+    # the file's scale table is not the default, the same bytes where it is
+    fresh = VAEformerCodec(api.net)
+    fresh.update()
+    x = api.normalization(api._read_or_synthesize(TS))[None]
+    y_fresh, z_fresh = fresh.compress(x)["strings"]
+    assert z_fresh == out["output"]["strings"][1]
+    assert (y_fresh == out["output"]["strings"][0]) == (table == "default")
+
+
+def test_pth_without_tables_keeps_todays_behaviour(tmp_path):
+    """A reference .pth that carries no CDF buffers installs nothing: the
+    codec builds its tables at first use with the default scale table, as
+    for the port's own weight files."""
+    from cra5_tpu_torch.entropy import get_scale_table
+    from cra5_tpu_torch.models.vaeformer import VAEformerCodec
+    from test_torch_convert_torch import reference_state_dict, tiny_flax_params
+
+    path = str(tmp_path / "plain.pth")
+    torch.save(reference_state_dict(tiny_flax_params()), path)
+    api = cra5_api(model_version=-1, weights=path, device="cpu")
+    assert api.codec._eb_table is None
+    assert np.array_equal(api.codec.scale_table, get_scale_table())
+    x = api.normalization(api._read_or_synthesize(TS))[None]
+    fresh = VAEformerCodec(api.net)
+    fresh.update()
+    assert api.codec.compress(x)["strings"] == fresh.compress(x)["strings"]

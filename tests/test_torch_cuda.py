@@ -905,3 +905,64 @@ def test_y_stream_of_2048_lanes_decodes_on_k3(card, rng, gc_table):
     np.testing.assert_array_equal(coder.decode(data, idx), sym)
     assert rk.rans_decode_sorted.launches == before + 1
     assert data == LaneCoder(gc_table, device="cpu").encode(sym, idx)
+
+
+def test_serve_on_the_card_matches_the_cpu(card, tmp_path, capsys):
+    """tools/serve.py on the tiny float32 model: three .bin files written
+    by the CPU API with its seeded weights, served on the card and on the
+    CPU from those weights (a .pt checkpoint: a seeded init on the card
+    draws other numbers). Each .npy agrees within the 1e-4 of the tiny
+    card-against-CPU codec test above; the card decodes every z and every
+    (tiny, unsorted) y stream through K2, the warm decode included."""
+    import json
+
+    from cra5_tpu_torch.api.cra5_api import cra5_api
+    from cra5_tpu_torch.tools import serve
+    from cra5_tpu_torch.train.checkpoints import save_variables
+
+    api = cra5_api(model_version=-1, device="cpu")
+    weights = save_variables(str(tmp_path / "tiny.pt"), dict(api.net.named_parameters()))
+    stamps = ("2021-06-01T00:00:00", "2021-06-01T06:00:00", "2021-06-01T12:00:00")
+    for ts in stamps:
+        api.encode_era5_as_bin(ts, save_root=str(tmp_path))
+    bins = tmp_path / "CRA5" / "2021"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        assert serve.main([str(bins), "-o", str(tmp_path / dev), "--device", dev,
+                           "--checkpoint", weights, "--threads", "2"]) == 0
+        launches = kernels.launch_counts()
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["decoded"] == len(stamps) and line["kernel_fallbacks"] == []
+        out[dev] = {ts: np.load(tmp_path / dev / f"{ts}.npy") for ts in stamps}
+        want = 2 * (len(stamps) + 1) if dev == "cuda" else 0
+        assert launches.get("rans_decode_generic", 0) == want, launches
+    for ts in stamps:
+        assert np.abs(out["cuda"][ts] - out["cpu"][ts]).max() <= 1e-4, ts
+
+
+def test_rdoq_on_the_card_equals_the_cpu_but_for_ties(card):
+    """ops/rdoq.py on the card against the CPU on the same inputs. A symbol
+    may differ only where the CPU's float32 costs of the two candidates
+    lie within one ulp of each other: a tie that the card's log2 or its
+    rounding of the sum breaks the other way. Such ties are counted."""
+    from cra5_tpu_torch.ops.rdoq import rdoq, rdoq_costs
+
+    table = gc_update(get_scale_table())
+    rng = np.random.default_rng(11)
+    n = 200_000
+    idx = rng.integers(0, table.num_indexes, n).astype(np.int32)
+    half = -table.offset[idx]
+    x = rng.standard_normal(n) * (0.2 + half * 0.6)
+    esc = rng.random(n) < 0.1
+    x[esc] = np.sign(rng.standard_normal(esc.sum())) * (half[esc] + rng.uniform(1, 300, esc.sum()))
+    x = torch.from_numpy(x.astype(np.float32))
+    for lmbda in (0.01, 0.3, 4.0):
+        got = rdoq(x.to(card), torch.from_numpy(idx).to(card), table, lmbda).cpu()
+        cands, costs = rdoq_costs(x, torch.from_numpy(idx), table, lmbda)
+        want = cands.gather(0, costs.argmin(dim=0)[None])[0]
+        diff = (got != want).nonzero().flatten()
+        pick = lambda s: costs[(cands[:, diff] == s[diff]).int().argmax(0), diff]  # noqa: E731
+        a, b = pick(got).numpy(), pick(want).numpy()
+        assert np.all(np.abs(a - b) <= np.spacing(np.maximum(np.abs(a), np.abs(b)))), lmbda
+        print(f"rdoq lambda {lmbda}: {diff.numel()} ties of {n} broken the other way")

@@ -49,7 +49,9 @@ def test_every_module_imports_with_jax_blocked():
         "utils.msgpack", "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharding",
         "ops.ring_attention", "tools.recompress", "train.checkpoints", "nn.conv", "nn.gdn",
         "models.google", "models.waseda", "models.latent_codecs", "models.codec", "models.zoo",
-        "tools.eval_model")} <= mods
+        "tools.eval_model", "tools.convert_torch", "tools.serve", "tools.decode_profile",
+        "tools.era5_eval", "tools.forecast_eval", "tools.update_model", "utils.profiling",
+        "ops.rdoq")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -105,6 +107,29 @@ def test_distributed_entry_points_default_to_the_card(monkeypatch, tmp_path):
         recompress.main([str(tmp_path), "-o", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_distributed(coordinator="127.0.0.1:1", num_processes=2, process_id=0)
+
+
+def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """serve, decode_profile and the evaluation tools resolve their device
+    as every entry point does: the card unless the caller asks for the CPU."""
+    from cra5_tpu_torch.tools import decode_profile, era5_eval, forecast_eval, serve, update_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main([str(tmp_path), "-o", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_profile.main(["--model", "tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forecast_eval.main([str(tmp_path), "--years", "2020-01-01", "2020-01-02"])
+    f = np.zeros((2, 3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        era5_eval.evaluate_fields(f, f)
+    np.save(tmp_path / "f.npy", f)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        era5_eval.main([str(tmp_path / "f.npy"), str(tmp_path / "f.npy")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        update_model.main([str(tmp_path / "x.pt"), "-a", "bmshj2018-factorized"])
+    assert era5_eval.evaluate_fields(f, f, device="cpu")["mse"] == 0.0
 
 
 def test_kernel_wrappers_take_no_other_route():
