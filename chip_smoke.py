@@ -160,6 +160,30 @@ result line is printed then:
      268 with --depths 2,4 --batches 1,2 --iters 3 (its launches counted).
      Serve's launches join the float32 K4 and K2/K3 rows of the kernels
      line, decode_profile's the bf16 ones.
+  13. variants phase (each line carries the card's name and power limit):
+     the ERA5 VAEformer variants at vaeformer_268's full width and depth in
+     bf16 with seeded weights, each freed before the next: VariationCNNPrior
+     (variational), the mean-scale baseline (variational=False) and the
+     former baseline (vaeformer_former_baseline(): no quant convs, y of
+     1024 channels, 10.6 M symbols on 16384 lanes) each through one eval
+     forward (finite; the mean-scale KL all zeros) and a VAEformerCodec v2
+     roundtrip of a seeded host field (stage ms; gates: symbols exact,
+     x_hat bitwise reconstruct_from_y_symbols, the launches the headers
+     name and 7 K4; hold_stream_kernels on the y and z streams, K1 and
+     K2/K3 exact against their plain versions with their device times;
+     the former baseline's y must take K3 on 16384 lanes);
+     VITAutoencoderKL's forward in the mode and sampled from a card
+     generator (14 K4, finite KL, the sample differs); Trainer.fit on
+     VariationCNNPrior with remat and use_kl, one warm-up step and three
+     timed (14 K4, 7 K5, 7 K6 a step; finite metrics; step s, peak);
+     vivt69_experiment.main at 69 x 181 x 360, width 384, depth 10, one
+     lambda, VIVT69_STEPS steps on the device sampler, --nval 2 (s a step,
+     the RD point; K1/K2 on its streams); finalize_scaling record --model
+     268 (calibrated through the bench's cache) and replay --parse at
+     FINALIZE_WORKERS threads (samples/s; every container byte-identical).
+     The counters are zeroed just before each path and read just after;
+     its bf16 paths' launches join the bf16 rows of the kernels line, and
+     every path's K1-K3 launches the coder rows.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -195,12 +219,14 @@ one card and no network.
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --serve
+    python3 chip_smoke.py --variants
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the zoo phase
-(11), or only the serve phase (12), and print no result line. They import
+(11), only the serve phase (12), or only the variants phase (13), and
+print no result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -2482,8 +2508,10 @@ def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
     rans_decode_sorted_plain (values, sentinels); the stream's decode
     (escapes applied, the sort undone) against the encoder's symbols.
     Every comparison is exact and raises on a difference; each kernel's
-    device time beside. Used by the zoo's roundtrips and by serve's bins;
-    ``where`` heads the lines."""
+    device time and byte bound beside (the formulas of phase_rans).
+    Used by the zoo's roundtrips, by serve's bins and by the variants;
+    ``where`` heads the lines. Returns, by group, the stream's lanes and
+    steps and each kernel's device us and bound ms."""
     from cra5_tpu_torch.coder import rans_kernels as rk
     from cra5_tpu_torch.coder.lane_coder import parse_v2_header
 
@@ -2493,9 +2521,10 @@ def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
         streams = {"y": (codec._gc_coder, enc["y_sym"], codec._gc_indexes(enc["scales"])),
                    "z": (codec._eb_coder, enc["z_sym"], codec._channel_indexes(enc["z_sym"].shape))}
     same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
+    held = {}
     for group, strings in zip(("y", "z"), out["strings"]):
         coder, sym, idx = streams[group]
-        n, K, _, _, srt, safe, _ = parse_v2_header(strings[0])
+        n, K, _, n_words, srt, safe, _ = parse_v2_header(strings[0])
         dec_name = "K3" if srt and safe else "K2"
         up = coder.upload_batch([strings[0]])[0]
         with torch.inference_mode():
@@ -2519,12 +2548,19 @@ def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
             k1 = kernel_us(lambda: rk.rans_encode(starts, freqs), "rans_encode")
             dec = kernel_us(lambda: kernel(*args, coder._slots), "rans_decode")
         steps = -(-n // K)
+        ncd, L = coder._cdf.shape
+        k1_bound = bytes_bound_ms(steps * K * 11 + K * 4)
+        dec_bound = bytes_bound_ms((steps * 12 if dec_name == "K3" else steps * K * 4) + K * 4
+                                   + n_words * 2 + ncd * (L + 2) * 4 + steps * K * 5)
         log(f"[{where}] {tag} {group}: {n} symbols, {K} lanes x {steps} steps, "
-            f"{up[0][2]} escapes, {coder._cdf.shape[0]} table rows; K1 and {dec_name} exact "
+            f"{up[0][2]} escapes, {ncd} table rows; K1 and {dec_name} exact "
             f"against their plain versions, the decode equal to the encoder's symbols; "
             f"K1 device {k1:.2f} us "
-            f"({k1 * 1e3 / steps:.1f} ns a step), {dec_name} device {dec:.2f} us "
-            f"({dec / steps:.3f} us a step)  ({card})")
+            f"({k1 * 1e3 / steps:.1f} ns a step, bound {k1_bound:.4f} ms), {dec_name} device "
+            f"{dec:.2f} us ({dec / steps:.3f} us a step, bound {dec_bound:.4f} ms)  ({card})")
+        held[group] = dict(K=K, steps=steps, k1_us=k1, k1_bound_ms=k1_bound, dec=dec_name,
+                           dec_us=dec, dec_bound_ms=dec_bound)
+    return held
 
 
 def zoo_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
@@ -2970,10 +3006,289 @@ def phase_serve(dev, card: str) -> dict:
     return {"serve": launches, "decode_profile": prof_launches}
 
 
+# --variants: the ERA5 VAEformer variants, the vivt69 experiment, finalize
+VIVT69_STEPS = 300  # vivt69_experiment.main's training steps on the card
+FINALIZE_WORKERS = "1,2,4,8"
+
+
+def variant_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
+    """One warm roundtrip, then one with every stage synchronised (host ms a
+    stage), the counters zeroed just before and read just after. Gates:
+    the decoded z and y symbols equal the encoded ones, x_hat equals
+    reconstruct_from_y_symbols of the encoded symbols bitwise and is a
+    finite full-size field, the launches are the streams' (K1 each, the
+    decode kernel its header names) and 7 K4 (g_a's 4 global blocks and
+    g_s's 3); then hold_stream_kernels on the y and z streams."""
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+
+    model = codec.model
+    codec.update()
+    out = codec.compress(x)  # warm-up
+    codec.decompress(out["strings"], out["z_shape"])
+    codec.stage_times = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = codec.compress(x)
+    t1 = time.perf_counter()
+    x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    stages, codec.stage_times = codec.stage_times, None
+
+    with torch.inference_mode():
+        enc = model.encode_symbols(torch.from_numpy(x).to(dev))
+        ref = model.reconstruct_from_y_symbols(enc["y_sym"], enc["means"])
+    z_dec, y_dec = bench.decode_symbols(codec, out["strings"], out["z_shape"])
+    if not (torch.equal(z_dec, enc["z_sym"]) and torch.equal(y_dec, enc["y_sym"])):
+        raise RuntimeError(f"[variants] {tag}: decoded symbols differ from the encoded ones")
+    if not torch.equal(x_hat, ref):
+        raise RuntimeError(f"[variants] {tag}: decompress's x_hat differs from reconstruct of "
+                           f"the encoded symbols")
+    if tuple(x_hat.shape) != x.shape or not torch.isfinite(x_hat).all():
+        raise RuntimeError(f"[variants] {tag}: x_hat {tuple(x_hat.shape)} is not a finite "
+                           f"full-size field")
+    rows, want = _stream_kernels(out)
+    want["flash_attention_forward"] = 7
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or any(v for k, v in launches.items() if k not in want):
+        raise RuntimeError(f"[variants] {tag}: launches {launches}, expected {want}")
+    held = hold_stream_kernels(codec, out, enc, tag, card, where="variants kernels")
+    for group, K, srt, safe, nbytes, kern in rows:
+        log(f"[variants] {tag}: {group} stream {nbytes} B on {K} lanes, sorted {srt}, "
+            f"kernel-safe {safe}: decodes on {kern}  ({card})")
+    ms = {k: round(v * 1e3, 3) for k, v in stages.items()}
+    yh = parse_v2_header(out["strings"][0][0])
+    log(f"[variants] {tag}: compress {t1 - t0:.4f} s, decompress {t2 - t1:.4f} s, roundtrip "
+        f"{t2 - t0:.4f} s (stages synchronised); y {len(out['strings'][0][0])} B ({yh[2]} "
+        f"escapes of {yh[0]}), z {len(out['strings'][1][0])} B; host ms a stage {ms}; "
+        f"launches {launches}; symbols exact, x_hat bitwise reconstruct  ({card})")
+    return dict(launches=launches, out=out, roundtrip_s=t2 - t0, y_header=yh, held=held)
+
+
+def variant_forward(model, x: np.ndarray, tag: str, card: str, zero_kl: bool) -> None:
+    """One eval forward: finite x_hat and likelihoods, and a KL that is
+    finite (all zeros for the mean-scale baseline)."""
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x).to(model.device))
+    kl = out["kl"].float()
+    finite = all(torch.isfinite(t).all() for t in (out["x_hat"], out["likelihoods"]["y"],
+                                                   out["likelihoods"]["z"], kl))
+    if not finite or (zero_kl and kl.abs().max().item() != 0.0):
+        raise RuntimeError(f"[variants] {tag}: forward finite {finite}, kl {kl.tolist()}")
+    log(f"[variants] {tag}: forward x_hat {tuple(out['x_hat'].shape)} finite, kl "
+        f"{kl.tolist()}  ({card})")
+
+
+def phase_variants(dev, card: str) -> dict:
+    """The ERA5 VAEformer variants at vaeformer_268's full width and depth,
+    bf16, seeded weights, one seeded (1, 268, 721, 1440) host field (each
+    model freed before the next): VariationCNNPrior (variational, then the
+    mean-scale baseline) and the former baseline through VAEformerCodec v2
+    (variant_roundtrip; the former baseline's y is 10.6 M symbols on 16384
+    lanes, K3's widest model stream); VITAutoencoderKL's forward in the
+    mode and sampled from a card generator; Trainer.fit on
+    VariationCNNPrior with remat (one warm-up step, three timed);
+    vivt69_experiment.main at its default geometry and widths (float32,
+    one lambda, VIVT69_STEPS steps, the device sampler, --nval 2);
+    finalize_scaling record --model 268 (calibrated, the bench's cache)
+    and replay --parse at FINALIZE_WORKERS threads. The counters are zeroed
+    just before each path and read just after; returns each path's
+    launches by name."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import (VAEformer, VAEformerCodec, VariationCNNPrior,
+                                       VITAutoencoderKL, vaeformer_268,
+                                       vaeformer_former_baseline)
+    from cra5_tpu_torch.tools import finalize_scaling, vivt69_experiment
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.time()
+    cfg = vaeformer_268()
+    x = np.random.default_rng(SEED).standard_normal((1, cfg.in_chans, *cfg.img_size), np.float32)
+    paths = {}
+
+    # 1-3. the codecs
+    codec_launches, y_held = [], {}
+    for tag, build in (
+            ("VariationCNNPrior", lambda: VariationCNNPrior(cfg, dtype=torch.bfloat16, device=dev)),
+            ("MeanScale baseline", lambda: VariationCNNPrior(cfg, variational=False,
+                                                             dtype=torch.bfloat16, device=dev)),
+            ("former baseline", lambda: VAEformer(vaeformer_former_baseline(),
+                                                  dtype=torch.bfloat16, device=dev))):
+        t0 = time.time()
+        model = build().reset_parameters(SEED)
+        codec = VAEformerCodec(model)
+        codec.update()
+        torch.cuda.synchronize()
+        log(f"[variants] {tag} 268v bf16: {sum(p.numel() for p in model.parameters())} params, "
+            f"seeded init + tables {time.time() - t0:.2f} s  ({card})")
+        variant_forward(model, x, tag, card, zero_kl=tag.startswith("MeanScale"))
+        res = variant_roundtrip(codec, x, dev, tag, card)
+        codec_launches.append(res["launches"])
+        y_held[tag] = res["held"]["y"]
+        if tag == "former baseline":
+            n, K, _, _, srt, safe, _ = res["y_header"]
+            if (K, srt, safe) != (16384, True, True):
+                raise RuntimeError(f"[variants] former baseline y header {res['y_header']}: "
+                                   f"expected 16384 lanes, sorted and kernel-safe (K3)")
+            wide, main = y_held[tag], y_held["VariationCNNPrior"]
+            log(f"[variants] former baseline y: {n} symbols on {K} lanes x {wide['steps']} "
+                f"steps, K3 device {wide['dec_us'] / 1e3:.4f} ms "
+                f"({wide['dec_us'] / wide['steps']:.3f} us a step, bound "
+                f"{wide['dec_bound_ms']:.4f} ms); VariationCNNPrior's y in this run on "
+                f"{main['K']} lanes x {main['steps']} steps, {main['dec']} device "
+                f"{main['dec_us'] / 1e3:.4f} ms ({main['dec_us'] / main['steps']:.3f} us a "
+                f"step, bound {main['dec_bound_ms']:.4f} ms)  ({card})")
+        del model, codec, res
+        torch.cuda.empty_cache()
+    paths["variants_codec"] = _sum_launches(*codec_launches)
+
+    # 4. VITAutoencoderKL
+    model = VITAutoencoderKL(cfg, dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    xd = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        model(xd, sample_posterior=False)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mode = model(xd, sample_posterior=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sampled = model(xd, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    kl = mode["kl"].float()
+    if not (torch.isfinite(kl).all() and torch.isfinite(mode["x_hat"]).all()
+            and torch.isfinite(sampled["x_hat"]).all()):
+        raise RuntimeError(f"[variants] VITAutoencoderKL: kl {kl.tolist()}, x_hat finite "
+                           f"{bool(torch.isfinite(mode['x_hat']).all())}")
+    if torch.equal(sampled["x_hat"], mode["x_hat"]):
+        raise RuntimeError("[variants] VITAutoencoderKL: the sampled x_hat equals the mode's")
+    want = {k: 0 for k in launches}
+    want["flash_attention_forward"] = 14
+    if launches != want:
+        raise RuntimeError(f"[variants] VITAutoencoderKL launches {launches}, expected {want}")
+    log(f"[variants] VITAutoencoderKL 268v bf16: forward (mode) {t1 - t0:.4f} s, sampled "
+        f"{t2 - t1:.4f} s; kl {kl.tolist()}; max |sampled - mode| "
+        f"{(sampled['x_hat'] - mode['x_hat']).abs().max().item():.4g}; launches {launches}  "
+        f"({card})")
+    paths["variants_vae"] = launches
+    del model, mode, sampled, xd
+    torch.cuda.empty_cache()
+
+    # 5. Trainer.fit on VariationCNNPrior, bf16, remat
+    rcfg = dataclasses.replace(cfg, remat=True)
+    model = VariationCNNPrior(rcfg, dtype=torch.bfloat16, device=dev)
+    trainer = Trainer(model, TrainerConfig(log_every=1, ckpt_every=10**9, use_kl=True),
+                      seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fields = [torch.randn((1, cfg.in_chans, *cfg.img_size), generator=gen, device=dev) * 0.5
+              for _ in range(TRAIN_STEPS + 1)]
+    state = trainer.fit(fields[:1], num_steps=1, log_fn=lambda *a: None)  # init + warm-up
+    stamps, metrics = [], []
+
+    def log_fn(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    stamps.append(time.perf_counter())
+    state = trainer.fit(fields[1:], state=state, num_steps=TRAIN_STEPS, log_fn=log_fn)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    if len(metrics) != TRAIN_STEPS or not all(np.isfinite(v) for m in metrics
+                                              for v in m.values()):
+        raise RuntimeError(f"[variants] train metrics are not all finite: {metrics}")
+    per_step = {"flash_attention_forward": 14, "flash_attention_backward_dq": 7,
+                "flash_attention_backward_dkv": 7}
+    want = {k: 0 for k in launches}
+    want.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
+    if launches != want:
+        raise RuntimeError(f"[variants] train launches {launches}, expected {want}")
+    log(f"[variants] train VariationCNNPrior 268v bf16 remat use_kl: steps "
+        f"{[round(v, 4) for v in steps_s]} s, median {statistics.median(steps_s):.4f} s; peak "
+        f"{peak / 2**30:.2f} GiB; last metrics "
+        f"{ {k: round(v, 6) for k, v in metrics[-1].items() if k != 'steps_per_sec'} }; "
+        f"launches {launches}  ({card})")
+    paths["variants_train"] = launches
+    del model, trainer, state, fields
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        # 6. the VIVT-69 experiment, float32 at 181 x 360
+        out_json = os.path.join(root, "rd.json")
+        err = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rc = vivt69_experiment.main(["-o", out_json, "--steps", str(VIVT69_STEPS),
+                                         "--lmbdas", "128", "--ntrain", "0", "--nval", "2",
+                                         "--device", "cuda"])
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        if rc != 0:
+            raise RuntimeError(f"[variants] vivt69 exited {rc}: {err.getvalue()[-2000:]}")
+        rd = json.load(open(out_json))
+        (point,) = rd["points"]
+        if not (np.isfinite(point["bpsp"]) and np.isfinite(point["MSE"]) and point["bpsp"] > 0):
+            raise RuntimeError(f"[variants] vivt69 point {point}")
+        _require(launches, ("rans_encode", "rans_decode_generic"), "vivt69")
+        rates = [float(m) for m in re.findall(r"steps_per_sec=([0-9.e+-]+)", err.getvalue())]
+        trained = re.search(r"trained (\d+) steps in (\d+)s", err.getvalue())
+        log(f"[variants] vivt69 main --steps {VIVT69_STEPS} (69 x 181 x 360, width 384, depth "
+            f"10, batch 4, float32, device sampler): {wall:.1f} s in all; steps/s by log "
+            f"window {[round(r, 3) for r in rates]}, {1.0 / statistics.median(rates[1:] or rates):.4f} "
+            f"s a step (median of the windows after the first); {trained.group(0) if trained else ''}; "
+            f"point {point}; launches {launches}  ({card})")
+        paths["vivt69"] = launches
+        torch.cuda.empty_cache()
+
+        # 7. finalize_scaling: record on the card, replay on the host
+        npz = os.path.join(root, "fin.npz")
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = finalize_scaling.main(["record", "-o", npz, "--model", "268",
+                                        "--device", "cuda"])
+        launches = kernels.launch_counts()
+        if rc != 0:
+            raise RuntimeError(f"[variants] finalize record exited {rc}")
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        _require(launches, ("rans_encode", "flash_attention_forward"), "finalize record")
+        log(f"[variants] finalize record --model 268 {time.time() - t0:.1f} s: {json.dumps(rec)}; "
+            f"launches {launches}  ({card})")
+        paths["finalize"] = launches
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = finalize_scaling.main(["replay", npz, "--workers", FINALIZE_WORKERS,
+                                        "--seconds", "1.0", "--parse"])
+        if rc != 0:
+            raise RuntimeError(f"[variants] finalize replay exited {rc}")
+        log(f"[variants] finalize replay --parse ({time.time() - t0:.1f} s; every replayed "
+            f"container byte-identical to the recording): {buf.getvalue().strip()}  ({card})")
+    log(f"[variants] phase {time.time() - t_phase:.1f} s  ({card})")
+    return paths
+
+
 def main(args) -> int:
-    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"]):
+    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"],
+                    ["--variants"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo | "
-                         f"--serve]; got {args}")
+                         f"--serve | --variants]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2993,6 +3308,8 @@ def main(args) -> int:
             phase_zoo(dev, CARD)
         elif args == ["--serve"]:
             phase_serve(dev, CARD)
+        elif args == ["--variants"]:
+            phase_variants(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -3018,6 +3335,8 @@ def main(args) -> int:
     zoo_launches = phase_zoo(dev, CARD)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(dev, CARD)
+    torch.cuda.empty_cache()
+    variants_launches = phase_variants(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -3030,7 +3349,7 @@ def main(args) -> int:
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
              "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches,
-             **serve_launches}
+             **serve_launches, **variants_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -3080,9 +3399,11 @@ def main(args) -> int:
     # the flash kernels of every dtype and head dim share one wrapper and
     # counter each: the head-dim-64 float32 paths are the API's, serve's
     # and the float32 train step's, the head-dim-72 paths hyper_width's two,
-    # every other path is bf16 at head dim 64
+    # every other path is bf16 at head dim 64 (vivt69, float32, has no
+    # sequence long enough for a flash kernel: its coder launches only)
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
-            "remat_dots", "decode_profile")
+            "remat_dots", "decode_profile", "variants_codec", "variants_vae", "variants_train",
+            "finalize")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
             "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),

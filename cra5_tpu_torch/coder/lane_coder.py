@@ -152,6 +152,19 @@ def parse_v2_header(data: bytes):
     return n, K, n_esc, n_words, sorted_mode, kernel_safe, merged
 
 
+def container_arrays(data: bytes, hdr):
+    """The host arrays of a v2 container whose header ``parse_v2_header``
+    read: the states (K,) int32, the stream words (n_words,) int16 and the
+    escape values (n_esc,) int32, each a writable copy."""
+    _, K, n_esc, n_words = hdr[:4]
+    off = 20
+    states = np.frombuffer(data, "<u4", K, off).view(np.int32).copy()
+    off += 4 * K
+    stream = np.frombuffer(data, "<u2", n_words, off).view(np.int16).copy()
+    off += 2 * n_words
+    return states, stream, zigzag_varint_decode(data[off:], n_esc)
+
+
 def merge_tiny_buckets(idx_sorted: torch.Tensor, ncdfs: int, K: int) -> torch.Tensor:
     """Remap every cdf index holding fewer than K symbols to the nearest
     index holding >= K (ties toward the smaller index); the identity when
@@ -329,15 +342,8 @@ class LaneCoder:
         return ups
 
     def _upload(self, data: bytes, hdr):
-        n, K, n_esc, n_words, sorted_mode, kernel_safe, merged = hdr
-        off = 20
-        states = np.frombuffer(data, "<u4", K, off).view(np.int32)
-        off += 4 * K
-        stream = np.frombuffer(data, "<u2", n_words, off).view(np.int16)
-        off += 2 * n_words
-        escs = zigzag_varint_decode(data[off:], n_esc)
-        dev = lambda a: torch.from_numpy(a.copy()).to(self.device)
-        return hdr, dev(states), dev(stream), dev(escs)
+        dev = lambda a: torch.from_numpy(a).to(self.device)
+        return (hdr, *map(dev, container_arrays(data, hdr)))
 
     def decode_uploaded_batch(self, handle, indexes: torch.Tensor) -> torch.Tensor:
         """Decode the streams of ``upload_batch`` against (B, ...) indexes."""

@@ -3,9 +3,13 @@
 ``load_flax_variables(model, variables)`` takes the flax variables as nested
 dicts of numpy arrays (``jax.device_get`` output, or a checkpoint read
 without JAX) and fills every parameter of the port's model: the
-``VAEformer``, the image-codec zoo (``models/google.py``, ``waseda.py``)
-and the latent codecs. Module names are the flax names, so a torch name
-is its flax path with dots for slashes:
+``VAEformer`` and its variants (``models/baseline.py``'s
+``VariationCNNPrior`` with its ``_ConvStack`` hyperprior, the former
+baseline without quant convs, ``models/vit_vae.py``'s
+``VITAutoencoderKL`` with its ``encoder`` / ``decoder``), the image-codec
+zoo (``models/google.py``, ``waseda.py``) and the latent codecs. Module
+names are the flax names, so a torch name is its flax path with dots for
+slashes:
 
   - Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
   - conv ``kernel`` in HWIO -> Conv2d layout (out, in, kh, kw): the patch

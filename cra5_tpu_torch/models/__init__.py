@@ -1,3 +1,4 @@
+from .baseline import VariationCNNPrior, vaeformer_former_baseline, vaeformer_former_baseline_tiny
 from .codec import AutoregressiveCodec, ImageCodec, make_codec
 from .google import (
     FactorizedPrior,
@@ -15,6 +16,7 @@ from .vaeformer import (
     vaeformer_268,
     vaeformer_tiny,
 )
+from .vit_vae import VITAutoencoderKL
 from .waseda import Cheng2020Anchor, Cheng2020Attention
 from .zoo import cfgs, create_model, init_model, load_model, model_architectures, ssf2020
 
@@ -25,6 +27,10 @@ __all__ = [
     "vaeformer_159",
     "vaeformer_tiny",
     "VAEformerCodec",
+    "VariationCNNPrior",
+    "vaeformer_former_baseline",
+    "vaeformer_former_baseline_tiny",
+    "VITAutoencoderKL",
     "FactorizedPrior",
     "FactorizedPriorReLU",
     "ScaleHyperprior",

@@ -31,6 +31,7 @@ from ..coder.lane_coder import LaneCoder
 from ..device import resolve_device
 from ..entropy import EntropyBottleneck, GaussianConditional
 from ..entropy.ops import draw
+from ..nn.conv import reset_parameters_
 from ..nn.init import lecun_normal_
 from ..nn.vit import HyperDecoder, HyperEncoder, ViTDecoder, ViTEncoder
 from .codec import _CodecBase
@@ -56,6 +57,13 @@ class VAEformerConfig:
     hyper_num_heads: int
     hyper_patch: Tuple[int, int]
     sample_posterior: bool = False
+    # the 1x1 quant_conv / post_quant_conv between the ViT width and
+    # embed_dim; without them y carries the ViT width (embed_dim must then
+    # equal y_channels)
+    lower_dim: bool = True
+    # JAX's field: g_s ends in the exact ConvTranspose inverse. False (the
+    # JAX towers' linear un-patchify) is not ported: no model sets it
+    use_conv_transpose: bool = True
     # recompute g_a and g_s blocks in the backward: False | True ("full");
     # "dots" is not ported (ROADMAP.md queue A)
     remat: Union[bool, str] = False
@@ -155,6 +163,27 @@ class Conv1x1(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+@torch.no_grad()
+def reset_seeded_(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded init of a ViT model (the VAEformer and its variants) mirroring
+    the flax initializers: trunc_normal(0.02) Dense kernels (attention proj
+    and fc2 scaled by 1/sqrt(2 (layer_id + 1))), lecun_normal conv kernels,
+    zero biases, unit LayerNorm scales, sin-cos positional embeddings, the
+    EB init; every module with a seeded ``reset_parameters`` but the
+    Linears, which their owners init, then the torch convolutions (a conv
+    hyperprior) as ``nn/conv.py`` inits them."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    convs = (nn.Conv2d, nn.ConvTranspose2d)
+    for m in model.modules():
+        if m is not model and hasattr(m, "reset_parameters") and not isinstance(
+                m, (nn.Linear, *convs)):
+            m.reset_parameters(gen)
+    for m in model.modules():
+        if isinstance(m, convs):
+            reset_parameters_(m, gen)
+    return model
+
+
 class VAEformer(nn.Module):
     CODEC_KIND = "vaeformer"  # make_codec dispatches to VAEformerCodec
 
@@ -163,14 +192,18 @@ class VAEformer(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
         c, d = cfg, dict(dtype=dtype, device=self.device)
+        if not c.use_conv_transpose:
+            raise NotImplementedError("use_conv_transpose=False (the linear un-patchify) is "
+                                      "not ported")
         self.g_a = ViTEncoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
                               c.depth, c.num_heads, c.window_sizes, c.interval,
                               remat=c.remat, **d)
         self.g_s = ViTDecoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
                               c.depth, c.num_heads, c.window_sizes, c.interval,
                               remat=c.remat, **d)
-        self.quant_conv = Conv1x1(2 * c.y_channels, 2 * c.embed_dim, **d)
-        self.post_quant_conv = Conv1x1(c.embed_dim, c.y_channels, **d)
+        if c.lower_dim:
+            self.quant_conv = Conv1x1(2 * c.y_channels, 2 * c.embed_dim, **d)
+            self.post_quant_conv = Conv1x1(c.embed_dim, c.y_channels, **d)
         self.h_a = HyperEncoder(c.latent_grid, c.hyper_patch, c.hyper_patch, c.embed_dim,
                                 c.z_channels, c.hyper_embed_dim, c.hyper_depth,
                                 c.hyper_num_heads, **d)
@@ -179,21 +212,14 @@ class VAEformer(nn.Module):
         self.entropy_bottleneck = EntropyBottleneck(c.z_channels, device=self.device)
         self.gaussian_conditional = GaussianConditional()
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> "VAEformer":
-        """Seeded init mirroring the flax initializers: trunc_normal(0.02)
-        Dense kernels (attention proj and fc2 scaled by
-        1/sqrt(2 (layer_id + 1))), lecun_normal conv kernels, zero biases,
-        unit LayerNorm scales, sin-cos positional embeddings, the EB init."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters") and not isinstance(m, nn.Linear):
-                m.reset_parameters(gen)
-        return self
+        """Seeded init mirroring the flax initializers (``reset_seeded_``)."""
+        return reset_seeded_(self, seed)
 
     # -- building blocks ---------------------------------------------------
     def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
-        return self.quant_conv(self.g_a(x))
+        moments = self.g_a(x)
+        return self.quant_conv(moments) if self.cfg.lower_dim else moments
 
     def posterior_latent(self, moments: torch.Tensor,
                          generator: Optional[torch.Generator] = None):
@@ -217,7 +243,7 @@ class VAEformer(nn.Module):
         return scales, means
 
     def decode_y(self, y_hat: torch.Tensor) -> torch.Tensor:
-        return self.g_s(self.post_quant_conv(y_hat))
+        return self.g_s(self.post_quant_conv(y_hat) if self.cfg.lower_dim else y_hat)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:

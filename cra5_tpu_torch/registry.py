@@ -15,7 +15,6 @@ from .utils.registry import CRITERIONS, DATASETS, MODELS, OPTIMIZERS, SCHEDULERS
 NOT_PORTED = {
     "models": (
         "ELIC2022", "SymmetricalTransFormer2022", "TCM2023", "InvCompress", "ScaleSpaceFlow",
-        "VITAutoencoderKL", "VariationCNNPrior",
     ),
     "datasets": ("ImageFolder", "PreGeneratedMemmapDataset", "VideoFolder", "Vimeo90kDataset"),
 }
@@ -32,7 +31,8 @@ def _register_all() -> None:
         (MODELS, {name: getattr(models, name) for name in (
             "VAEformer", "FactorizedPrior", "FactorizedPriorReLU", "ScaleHyperprior",
             "MeanScaleHyperprior", "JointAutoregressiveHierarchicalPriors",
-            "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention")}),
+            "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention",
+            "VITAutoencoderKL", "VariationCNNPrior")}),
         (DATASETS, {"ERA5NpyDataset": ERA5NpyDataset, "ERA5NcDataset": ERA5NcDataset}),
         (CRITERIONS, {"RateDistortionLoss": RateDistortionLoss}),
         (OPTIMIZERS, {"net_aux": make_net_aux_optimizers}),

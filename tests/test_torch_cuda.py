@@ -14,6 +14,8 @@ must equal their plain versions exactly; K4-K6 must agree within the bf16
 and float32 tolerances stated below.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -966,3 +968,65 @@ def test_rdoq_on_the_card_equals_the_cpu_but_for_ties(card):
         a, b = pick(got).numpy(), pick(want).numpy()
         assert np.all(np.abs(a - b) <= np.spacing(np.maximum(np.abs(a), np.abs(b)))), lmbda
         print(f"rdoq lambda {lmbda}: {diff.numel()} ties of {n} broken the other way")
+
+
+def test_variation_cnn_prior_on_the_card_gives_the_cpu_symbols_and_bytes(card):
+    """VariationCNNPrior (vaeformer_tiny, float32) with the CPU's seeded
+    weights, through VAEformerCodec v2 on the card and on the CPU: the same
+    symbols and bytes (K1 on each stream), the card decodes them (K2 on z
+    and on the tiny, unsorted y) to x_hat equal to reconstruct of the
+    encoded symbols bitwise, and within ZOO_XHAT_RTOL of the CPU's (the
+    conv hyperprior runs cuDNN off on the card)."""
+    from cra5_tpu_torch.models import VAEformerCodec, VariationCNNPrior, vaeformer_tiny
+
+    cpu = VariationCNNPrior(vaeformer_tiny(), device="cpu").reset_parameters(0)
+    gpu = VariationCNNPrior(vaeformer_tiny(), device=card)
+    gpu.load_state_dict({k: v.to(card) for k, v in cpu.state_dict().items()})
+    x = np.random.default_rng(0).standard_normal((2, 8, 41, 40)).astype(np.float32) * 0.5
+    with torch.inference_mode():
+        eg = gpu.encode_symbols(torch.from_numpy(x).to(card))
+        ec = cpu.encode_symbols(torch.from_numpy(x))
+    for k in ("y_sym", "z_sym"):
+        assert torch.equal(eg[k].cpu(), ec[k]), k
+    a, b = VAEformerCodec(gpu), VAEformerCodec(cpu)
+    kernels.reset_launch_counts()
+    out = a.compress(x)
+    assert kernels.launch_counts()["rans_encode"] == 4
+    assert out["strings"] == b.compress(x)["strings"]
+    kernels.reset_launch_counts()
+    x_gpu = a.decompress(out["strings"], out["z_shape"])["x_hat"]
+    assert kernels.launch_counts()["rans_decode_generic"] == 4
+    with torch.inference_mode():
+        assert torch.equal(x_gpu, gpu.reconstruct_from_y_symbols(eg["y_sym"], eg["means"]))
+    x_cpu = b.decompress(out["strings"], out["z_shape"])["x_hat"]
+    assert (x_gpu.cpu() - x_cpu).abs().max().item() <= ZOO_XHAT_RTOL * x_cpu.abs().max().item()
+
+
+def test_general_patch_paths_on_the_card_match_the_cpu(card):
+    """PatchEmbed / PatchUnembed off the fast geometry (F.unfold, F.fold
+    and a matmul on the card), alone and ending a ViTDecoder, float32 with
+    TF32 off, against the CPU within 1e-5 x max |ref| (summation order
+    only)."""
+    from cra5_tpu_torch.device import resolve_device
+    from cra5_tpu_torch.nn.patch_embed import PatchEmbed, PatchUnembed
+    from cra5_tpu_torch.nn.vit import ViTDecoder
+
+    resolve_device(card)  # TF32 off
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 13, 17, generator=gen)
+    tok = torch.randn(2, 30, 6, generator=gen)
+    feat = torch.randn(1, 16, 6, 5, generator=gen)
+    for cpu, args in (
+            (PatchEmbed(3, 6, (3, 5), (2, 3)), (x,)),
+            (PatchUnembed(6, 3, (3, 5), (2, 3)), (tok, (6, 5))),
+            (ViTDecoder((13, 17), (3, 5), (2, 3), 3, 16, 4, 2, ((2, 2), (1, 4), (4, 1)), 2),
+             (feat,))):
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+            gpu = copy.deepcopy(cpu).to(card)
+            want = cpu(*args)
+            got = gpu(*(a.to(card) if isinstance(a, torch.Tensor) else a for a in args))
+        want, got = (want[0], got[0]) if isinstance(want, tuple) else (want, got)
+        assert got.shape == want.shape
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -51,7 +51,8 @@ def test_every_module_imports_with_jax_blocked():
         "models.google", "models.waseda", "models.latent_codecs", "models.codec", "models.zoo",
         "tools.eval_model", "tools.convert_torch", "tools.serve", "tools.decode_profile",
         "tools.era5_eval", "tools.forecast_eval", "tools.update_model", "utils.profiling",
-        "ops.rdoq")} <= mods
+        "ops.rdoq", "models.baseline", "models.vit_vae", "tools.plot", "tools.vivt69_experiment",
+        "tools.finalize_scaling")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -130,6 +131,30 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         update_model.main([str(tmp_path / "x.pt"), "-a", "bmshj2018-factorized"])
     assert era5_eval.evaluate_fields(f, f, device="cpu")["mse"] == 0.0
+
+
+def test_variant_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The VAEformer variants, the vivt69 experiment and finalize_scaling's
+    record resolve their device as every entry point does."""
+    from cra5_tpu_torch.models import (VariationCNNPrior, VITAutoencoderKL,
+                                       vaeformer_former_baseline_tiny)
+    from cra5_tpu_torch.tools import finalize_scaling, vivt69_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **k: VariationCNNPrior(vaeformer_tiny(), **k),
+                  lambda **k: VariationCNNPrior(vaeformer_tiny(), variational=False, **k),
+                  lambda **k: VAEformer(vaeformer_former_baseline_tiny(), **k),
+                  lambda **k: VITAutoencoderKL(vaeformer_tiny(), **k)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert build(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vivt69_experiment.main(["--pilot", "--steps", "1", "--geometry", "41", "40",
+                                "-o", str(tmp_path / "rd.json")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vivt69_experiment.make_device_sampler(np.ones((2, 1), np.float32), 8, 8, 0.1, 3.0, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finalize_scaling.main(["record", "-o", str(tmp_path / "f.npz"), "--model", "tiny"])
 
 
 def test_kernel_wrappers_take_no_other_route():
