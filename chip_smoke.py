@@ -184,6 +184,35 @@ result line is printed then:
      The counters are zeroed just before each path and read just after;
      its bf16 paths' launches join the bf16 rows of the kernels line, and
      every path's K1-K3 launches the coder rows.
+  14. context phase (each line carries the card's name and power limit):
+     the context-model image codecs in float32 with TF32 off. ELIC, STF
+     and TCM at the JAX tests' tiny widths (CONTEXT_TINY) with the same
+     seeded weights on the card and on the CPU, one roundtrip of a seeded
+     3 x 128 x 192 image each: every stream byte-identical (a symbol or
+     index flipped on a rounding boundary would be printed pass by pass,
+     and the card's coder held to the CPU's streams on the CPU's symbols
+     and indexes), x_hat within ZOO_XHAT_RTOL; then
+     cra5_tpu_torch.tools.eval_model.main --device cuda at the published
+     widths with seeded weights on seeded Kodak-size .npy images:
+     elic2022, stf and tcm2023 q4 (v2: ElicCodec / CharmCodec, one stream
+     a checkerboard pass or slice), invcompress q4 through
+     AutoregressiveCodec, elic2022 q4 --entropy-estimation, and one
+     CLIC-size image through elic2022 q4, whose 192-channel group codes on
+     2048 lanes, sorted and kernel-safe, and must decode on K3. After each
+     coded run one synchronised roundtrip of its first image (host ms a
+     stage, the decode kernel of each stream, the coder kernels' share of
+     the roundtrip). Gates: the decoder's GC indexes of every pass equal
+     the encoder's, every decoded symbol equals the encoded one,
+     decompress's x_hat equals synthesis of the encoder's y_hat bitwise;
+     on every v2 stream of the first sample K1 is held exactly against its
+     plain version and the container and the decode kernel (K2 or K3)
+     against its plain version on the uploaded stream ([context kernels]
+     lines with device us); the counters zeroed just before each
+     eval_model run and each roundtrip and read just after show K1 and K2
+     (and K3 at CLIC size) on the v2 runs, no coder kernel on InvCompress
+     and the entropy estimation, and no other kernel anywhere (no flash
+     kernel: Swin windows hold 16 tokens). Its launches join the coder
+     rows of the kernels line.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -220,13 +249,14 @@ one card and no network.
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --variants
+    python3 chip_smoke.py --context
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the zoo phase
-(11), only the serve phase (12), or only the variants phase (13), and
-print no result line. They import
+(11), only the serve phase (12), only the variants phase (13), or only
+the context phase (14), and print no result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -2497,70 +2527,81 @@ def kernel_us(fn, match: str, iters: int = 10) -> float:
     return float("nan")
 
 
-def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
-                        where: str = "zoo kernels") -> None:
-    """Each v2 stream of a written sample (out["strings"], the first
-    sample) at its own geometry and with the codec's own tables: K1 on the
-    (M, K) grids of the encoded symbols and indexes against
-    rans_encode_plain (states, emit, emitted words) and against the
-    container's states and words; the decode kernel the stream takes (K2
-    or K3) on it as uploaded against lane_decode_plain or
+def hold_streams(streams, tag: str, card: str, where: str = "zoo kernels",
+                 iters: int = 10) -> dict:
+    """Each v2 stream of ``streams``, a list of (name, coder, symbols,
+    indexes, stream bytes) of one sample, at its own geometry and with the
+    coder's own tables: K1 on the (M, K) grids of the encoded symbols and
+    indexes against rans_encode_plain (states, emit, emitted words) and
+    against the container's states and words; the decode kernel the stream
+    takes (K2 or K3) on it as uploaded against lane_decode_plain or
     rans_decode_sorted_plain (values, sentinels); the stream's decode
     (escapes applied, the sort undone) against the encoder's symbols.
     Every comparison is exact and raises on a difference; each kernel's
-    device time and byte bound beside (the formulas of phase_rans).
-    Used by the zoo's roundtrips, by serve's bins and by the variants;
-    ``where`` heads the lines. Returns, by group, the stream's lanes and
-    steps and each kernel's device us and bound ms."""
+    device time (``iters`` launches traced) and byte bound beside (the
+    formulas of phase_rans). ``where`` heads the lines. Returns, by name,
+    the stream's lanes and steps and each kernel's device us and bound
+    ms."""
     from cra5_tpu_torch.coder import rans_kernels as rk
     from cra5_tpu_torch.coder.lane_coder import parse_v2_header
 
-    if codec.kind == "factorized":
-        streams = {"y": (codec._eb_coder, enc["y_sym"], codec._channel_indexes(enc["y_sym"].shape))}
-    else:
-        streams = {"y": (codec._gc_coder, enc["y_sym"], codec._gc_indexes(enc["scales"])),
-                   "z": (codec._eb_coder, enc["z_sym"], codec._channel_indexes(enc["z_sym"].shape))}
     same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
     held = {}
-    for group, strings in zip(("y", "z"), out["strings"]):
-        coder, sym, idx = streams[group]
-        n, K, _, n_words, srt, safe, _ = parse_v2_header(strings[0])
+    for name, coder, sym, idx, string in streams:
+        n, K, _, n_words, srt, safe, _ = parse_v2_header(string)
         dec_name = "K3" if srt and safe else "K2"
-        up = coder.upload_batch([strings[0]])[0]
+        up = coder.upload_batch([string])[0]
         with torch.inference_mode():
-            starts, freqs = coder.encode_grids(sym[0], idx[0])[3:5]
+            starts, freqs = coder.encode_grids(sym, idx)[3:5]
             got, want = rk.rans_encode(starts, freqs), rk.rans_encode_plain(starts, freqs)
             if not (same(got[:2], want[:2]) and torch.equal(got[2][got[1]], want[2][want[1]])):
-                raise RuntimeError(f"[{where}] {tag} {group}: K1 rans_encode differs from "
+                raise RuntimeError(f"[{where}] {tag} {name}: K1 rans_encode differs from "
                                    f"rans_encode_plain on the stream's grids")
             if not (torch.equal(got[0], up[1]) and torch.equal(got[2][got[1]], up[2])):
-                raise RuntimeError(f"[{where}] {tag} {group}: K1's states and words differ "
+                raise RuntimeError(f"[{where}] {tag} {name}: K1's states and words differ "
                                    f"from the container's")
-            kernel, plain, args, _ = coder.decode_call(up, idx[0])
+            kernel, plain, args, _ = coder.decode_call(up, idx)
             if not same(kernel(*args, coder._slots), plain(*args)):
-                raise RuntimeError(f"[{where}] {tag} {group}: {dec_name} differs from "
+                raise RuntimeError(f"[{where}] {tag} {name}: {dec_name} differs from "
                                    f"{plain.__name__} on the uploaded stream")
-            decoded, n_sent = coder._decode(up, idx[0])
-            if not torch.equal(decoded, sym[0].to(decoded)) or int(n_sent) != up[0][2]:
-                raise RuntimeError(f"[{where}] {tag} {group}: the decoded symbols differ "
+            decoded, n_sent = coder._decode(up, idx)
+            if not torch.equal(decoded, sym.to(decoded)) or int(n_sent) != up[0][2]:
+                raise RuntimeError(f"[{where}] {tag} {name}: the decoded symbols differ "
                                    f"from the encoder's ({int(n_sent)} escapes decoded, "
                                    f"{up[0][2]} in the stream)")
-            k1 = kernel_us(lambda: rk.rans_encode(starts, freqs), "rans_encode")
-            dec = kernel_us(lambda: kernel(*args, coder._slots), "rans_decode")
+            k1 = kernel_us(lambda: rk.rans_encode(starts, freqs), "rans_encode", iters)
+            dec = kernel_us(lambda: kernel(*args, coder._slots), "rans_decode", iters)
         steps = -(-n // K)
         ncd, L = coder._cdf.shape
         k1_bound = bytes_bound_ms(steps * K * 11 + K * 4)
         dec_bound = bytes_bound_ms((steps * 12 if dec_name == "K3" else steps * K * 4) + K * 4
                                    + n_words * 2 + ncd * (L + 2) * 4 + steps * K * 5)
-        log(f"[{where}] {tag} {group}: {n} symbols, {K} lanes x {steps} steps, "
-            f"{up[0][2]} escapes, {ncd} table rows; K1 and {dec_name} exact "
-            f"against their plain versions, the decode equal to the encoder's symbols; "
-            f"K1 device {k1:.2f} us "
-            f"({k1 * 1e3 / steps:.1f} ns a step, bound {k1_bound:.4f} ms), {dec_name} device "
-            f"{dec:.2f} us ({dec / steps:.3f} us a step, bound {dec_bound:.4f} ms)  ({card})")
-        held[group] = dict(K=K, steps=steps, k1_us=k1, k1_bound_ms=k1_bound, dec=dec_name,
-                           dec_us=dec, dec_bound_ms=dec_bound)
+        log(f"[{where}] {tag} {name}: {n} symbols, {K} lanes x {steps} steps, sorted {srt}, "
+            f"kernel-safe {safe}, {len(string)} B, {up[0][2]} escapes, {ncd} table rows; K1 "
+            f"and {dec_name} exact against their plain versions, the decode equal to the "
+            f"encoder's symbols; K1 device {k1:.2f} us ({k1 * 1e3 / steps:.1f} ns a step, bound "
+            f"{k1_bound:.4f} ms), {dec_name} device {dec:.2f} us ({dec / steps:.3f} us a step, "
+            f"bound {dec_bound:.4f} ms)  ({card})")
+        held[name] = dict(K=K, steps=steps, k1_us=k1, k1_bound_ms=k1_bound, dec=dec_name,
+                          dec_us=dec, dec_bound_ms=dec_bound)
     return held
+
+
+def hold_stream_kernels(codec, out: dict, enc: dict, tag: str, card: str,
+                        where: str = "zoo kernels") -> dict:
+    """hold_streams on the y and z streams of a written sample
+    (out["strings"], the first sample) of a one-y-stream codec, with the
+    symbols and indexes the encoder's device methods give (enc). Used by
+    the zoo's roundtrips, by serve's bins and by the variants."""
+    if codec.kind == "factorized":
+        streams = [("y", codec._eb_coder, enc["y_sym"][0],
+                    codec._channel_indexes(enc["y_sym"].shape)[0], out["strings"][0][0])]
+    else:
+        streams = [("y", codec._gc_coder, enc["y_sym"][0], codec._gc_indexes(enc["scales"])[0],
+                    out["strings"][0][0]),
+                   ("z", codec._eb_coder, enc["z_sym"][0],
+                    codec._channel_indexes(enc["z_sym"].shape)[0], out["strings"][1][0])]
+    return hold_streams(streams, tag, card, where)
 
 
 def zoo_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
@@ -3284,11 +3325,258 @@ def phase_variants(dev, card: str) -> dict:
     return paths
 
 
+# -------------------------------------------------------------- context phase
+# eval_model.main at the published widths: (arch, quality, options, images)
+CONTEXT_RUNS = (
+    ("elic2022", 4, [], 2),
+    ("stf", 4, [], 2),
+    ("tcm2023", 4, [], 2),
+    ("invcompress", 4, [], 1),
+    ("elic2022", 4, ["--entropy-estimation"], 2),
+)
+# card against CPU: the JAX tests' tiny widths, on a 3 x 128 x 192 image
+CONTEXT_TINY = (
+    ("ELIC2022", dict(N=32, M=64, num_slices=3)),
+    ("SymmetricalTransFormer2022", dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 2),
+                                        num_slices=4)),
+    ("TCM2023", dict(config=(1,) * 6, head_dim=(4,) * 6, N=8, M=20, num_slices=4,
+                     max_support_slices=2)),
+)
+
+
+def _outs(seen: dict, name: str) -> list:
+    return [out for _, out in seen.get(name, [])]
+
+
+def context_card_vs_cpu(dev, card: str) -> dict:
+    """ELIC, STF and TCM at the tiny widths of CONTEXT_TINY, the same seeded
+    weights on the card and on the CPU, one roundtrip of a seeded 3 x 128 x
+    192 image on each: every stream byte-identical, x_hat within
+    ZOO_XHAT_RTOL x max|ref|. Should a symbol or index flip on a rounding
+    boundary, the flips are printed pass by pass and the card's coder is
+    held to the CPU's streams on the CPU's symbols and indexes; the x_hat
+    bound stays."""
+    from cra5_tpu_torch import kernels, models
+    from cra5_tpu_torch.models import make_codec
+
+    x = np.random.default_rng(SEED).random((1, 3, 128, 192), np.float32)
+    launches = []
+    for name, kw in CONTEXT_TINY:
+        gpu = getattr(models, name)(**kw, device=dev).reset_parameters(SEED)
+        cpu = getattr(models, name)(**kw, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        a, b = make_codec(gpu), make_codec(cpu)
+        a.compress(x)  # warm-up
+        seen_a, seen_b = {}, {}
+        for codec, seen in ((a, seen_a), (b, seen_b)):
+            for m in ("_symbols", "_indexes"):
+                _record(codec, m, seen)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = a.compress(x)
+        x_gpu = a.decompress(out["strings"], out["shape"])["x_hat"]
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        ref = b.compress(x)
+        x_cpu = b.decompress(ref["strings"], ref["shape"])["x_hat"]
+        err = (x_gpu.cpu() - x_cpu).abs().max().item()
+        bound = ZOO_XHAT_RTOL * x_cpu.abs().max().item()
+        n = len(ref["strings"][0])
+        if out["strings"] != ref["strings"]:
+            sa, sb = _outs(seen_a, "_symbols"), _outs(seen_b, "_symbols")
+            ia, ib = _outs(seen_a, "_indexes")[:n], _outs(seen_b, "_indexes")[:n]
+            flips = [(p, int((u.cpu() != v).sum()), int((i.cpu() != j).sum()))
+                     for p, (u, v, i, j) in enumerate(zip(sa, sb, ia, ib))]
+            log(f"[context] card vs CPU, {name}: streams differ; (pass, symbols differing, "
+                f"indexes differing): {flips}; z streams equal "
+                f"{out['strings'][1] == ref['strings'][1]}  ({card})")
+            coded = [a._gc_coder.encode_from_device(u[0].to(dev), i[0].to(dev))
+                     for u, i in zip(sb, ib)]
+            if coded != ref["strings"][0] or out["strings"][1] != ref["strings"][1]:
+                raise RuntimeError(f"[context] card vs CPU, {name}: the card's coder on the "
+                                   f"CPU's symbols and indexes does not write the CPU's streams")
+        if not err <= bound:
+            raise RuntimeError(f"[context] card vs CPU, {name}: x_hat err {err} > {bound}")
+        _require(got, ("rans_encode", "rans_decode_generic"), f"context card vs CPU {name}")
+        launches.append(got)
+        log(f"[context] card vs CPU, {name} {kw} on (1, 3, 128, 192): {n} y streams and the z "
+            f"stream byte-identical {out['strings'] == ref['strings']} "
+            f"({sum(map(len, out['strings'][0]))} + {len(out['strings'][1][0])} B), x_hat err "
+            f"{err:.3g} (bound {ZOO_XHAT_RTOL} x max|ref| = {bound:.3g}); launches {got}  "
+            f"({card})")
+    return _sum_launches(*launches)
+
+
+def context_roundtrip(codec, x: np.ndarray, dev, tag: str, card: str) -> dict:
+    """One ElicCodec / CharmCodec roundtrip with every stage synchronised
+    (host ms a stage), the counters zeroed just before and read just after.
+    Gates: the decoder's GC indexes of every pass (ELIC: anchors and
+    non-anchors of each group; charm: each slice) equal the encoder's, the
+    decoded symbols equal the encoded ones, decompress's y_hat equals the
+    encoder's and its x_hat equals synthesis of the encoder's y_hat
+    bitwise, and the launches are the streams' (K1 each, the decode kernel
+    its header names, nothing else). Then hold_streams on the z stream and
+    every y stream of the first sample, and the coder's share of the
+    roundtrip (the streams' K1 and decode device time)."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import ElicCodec
+
+    model, elic = codec.model, isinstance(codec, ElicCodec)
+    hat = "_hat" if elic else "_slice_hat"
+    codec.update()  # the CDF tables, built on the host at first use: not timed
+    seen = {}
+    spies = ((model, "analysis"), (model, "synthesis"), (codec, "_symbols"),
+             (codec, "_indexes"), (codec, "_decode"), (codec, hat))
+    for obj, name in spies:
+        _record(obj, name, seen)
+    codec.stage_times = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = codec.compress(x)
+    t1 = time.perf_counter()
+    x_hat = codec.decompress(out["strings"], out["shape"])["x_hat"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    stages, codec.stage_times = codec.stage_times, None
+    for obj, name in spies:
+        delattr(obj, name)
+
+    syms, idx, decs, hats = (_outs(seen, k) for k in ("_symbols", "_indexes", "_decode", hat))
+    n = len(syms)
+    enc_idx, dec_idx = idx[:n], idx[n:]
+    bad = [p for p in range(n) if p >= len(dec_idx) or not torch.equal(enc_idx[p], dec_idx[p])]
+    if len(dec_idx) != n or bad:
+        raise RuntimeError(f"[context] {tag}: the decoder's GC indexes differ from the "
+                           f"encoder's in passes {bad} of {n}")
+    if len(decs) != n or not all(torch.equal(u, v) for u, v in zip(syms, decs)):
+        raise RuntimeError(f"[context] {tag}: decoded symbols differ from the encoded ones")
+    if elic:  # each group's y_hat: its anchor pass's plus its non-anchor pass's
+        y_enc = torch.cat([hats[p] + hats[p + 1] for p in range(0, n, 2)], dim=1)
+    else:
+        y_enc = torch.cat(hats[:n], dim=1)
+    (y_dec,), _ = seen["synthesis"][0]
+    with torch.inference_mode():
+        ref = model.synthesis(y_enc)
+    if not torch.equal(y_dec, y_enc) or not torch.equal(x_hat, ref):
+        raise RuntimeError(f"[context] {tag}: decompress's y_hat equal {torch.equal(y_dec, y_enc)}"
+                           f", x_hat equal to synthesis of the encoder's y_hat "
+                           f"{torch.equal(x_hat, ref)}")
+    rows, want = _stream_kernels(out)
+    got = {k: launches.get(k, 0) for k in RANS}
+    if got != want or any(v for k, v in launches.items() if k not in RANS):
+        raise RuntimeError(f"[context] {tag}: launches {launches}, expected {want}")
+
+    z_sym = _outs(seen, "analysis")[0]["z_sym"]
+    B = z_sym.shape[0]
+    streams = [("z", codec._eb_coder, z_sym[0], codec._channel_indexes(z_sym.shape)[0],
+                out["strings"][1][0])]
+    for p in range(n):
+        label = f"y{p // 2}{'a' if p % 2 == 0 else 'n'}" if elic else f"y{p}"
+        streams.append((label, codec._gc_coder, syms[p][0], enc_idx[p][0],
+                        out["strings"][0][p * B]))
+    held = hold_streams(streams, tag, card, "context kernels")
+    times = [t for h in held.values() for t in (h["k1_us"], h["dec_us"]) if t == t]
+    coder_us = sum(times)
+    ms = {k: round(v * 1e3, 3) for k, v in stages.items()}
+    kinds = {k: sum(r[-1] == k for r in rows) for k in ("K2", "K3")}
+    log(f"[context] {tag}: synchronised roundtrip compress {t1 - t0:.4f} s, decompress "
+        f"{t2 - t1:.4f} s; host ms a stage {ms}; {len(streams)} streams a sample (decode "
+        f"kernels {kinds}), the first sample's coder kernels' device time "
+        f"{coder_us / 1e3:.4f} ms ({len(times)} of {2 * len(streams)} kernels traced) = "
+        f"{coder_us / 1e4 / (t2 - t0):.3f}% of the roundtrip; "
+        f"launches {got}; indexes, symbols, y_hat and x_hat exact  ({card})")
+    return dict(launches=launches, out=out, held=held, roundtrip_s=t2 - t0)
+
+
+def phase_context(dev, card: str) -> dict:
+    """The context-model image codecs on the card: card against CPU; then
+    tools/eval_model.main (--device cuda) at their published widths on
+    Kodak-size .npy images for each of CONTEXT_RUNS, each coded run
+    followed by one synchronised roundtrip of its first image
+    (context_roundtrip; InvCompress's AR codec: zoo_roundtrip); then one
+    CLIC-size image through elic2022 q4, whose 192-channel group must code
+    on 2048 lanes, sorted and kernel-safe, and decode on K3. The counters
+    are zeroed just before each eval_model run and each roundtrip and read
+    just after; the v2 runs must launch K1 and K2 (and K3 at CLIC size),
+    InvCompress and the entropy estimation no coder kernel, and no run any
+    other kernel (no flash kernel: Swin windows hold 16 tokens). Every
+    run's launches join the kernels line's coder rows."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.models import load_model
+    from cra5_tpu_torch.tools import eval_model
+
+    t_phase = time.time()
+    launches = [context_card_vs_cpu(dev, card)]
+    with tempfile.TemporaryDirectory() as root:
+        kodak = {n: _zoo_folder(root, f"kodak{n}", n, KODAK, SEED) for n in (1, 2)}
+        clic = _zoo_folder(root, "clic", 1, CLIC, SEED + 1)
+        runs = [(a, q, o, kodak[n]) for a, q, o, n in CONTEXT_RUNS]
+        runs.append(("elic2022", 4, [], clic))
+        for arch, q, opts, folder in runs:
+            ar = arch == "invcompress"
+            tag = f"{arch} q{q} {' '.join(opts) or ('v1 (autoregressive)' if ar else 'v2')}" + (
+                " CLIC" if folder == clic else "")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = eval_model.main([folder, "-a", arch, "-q", str(q), "--device", "cuda", *opts])
+            wall = time.perf_counter() - t0
+            got = kernels.launch_counts()
+            if rc != 0:
+                raise RuntimeError(f"[context] {tag}: eval_model exited {rc}")
+            res = json.loads(buf.getvalue())["results"]
+            if not all(np.isfinite(v[0]) for v in res.values()):
+                raise RuntimeError(f"[context] {tag}: eval_model results not finite: {res}")
+            coded = not ar and "--entropy-estimation" not in opts
+            if coded:
+                _require(got, ("rans_encode", "rans_decode_generic")
+                         + (("rans_decode_sorted",) if folder == clic else ()), tag)
+            if any(v for k, v in got.items() if not (coded and k in RANS)):
+                raise RuntimeError(f"[context] {tag}: the path launched {got}")
+            launches.append(got)
+            log(f"[context] {tag}: eval_model.main {wall:.2f} s with the model build; bpp "
+                f"{res['bpp'][0]:.6f}, encode {res['encoding_time'][0]:.4f} s, decode "
+                f"{res['decoding_time'][0]:.4f} s (means over {len(os.listdir(folder))} "
+                f"image(s)), mse {res['mse'][0]:.6g}, psnr {res['psnr'][0]:.4f}; launches "
+                f"{got}  ({card})")
+            if "--entropy-estimation" in opts:
+                continue
+            _, codec = load_model(arch, q, device=dev)
+            x, _ = eval_model._pad(eval_model.read_input(Path(folder, "img0.npy"))[None], 64)
+            rt = (zoo_roundtrip if ar else context_roundtrip)(codec, x, dev, tag, card)
+            launches.append(rt["launches"])
+            if folder == clic:  # the 192-channel group: passes 8 and 9
+                for p in (8, 9):
+                    s = rt["out"]["strings"][0][p]
+                    n, K, esc, _, srt, safe, _ = parse_v2_header(s)
+                    if not (K == 2048 and srt and safe):
+                        raise RuntimeError(f"[context] CLIC ELIC pass {p}: K {K}, sorted {srt}, "
+                                           f"safe {safe}; expected 2048 lanes sorted and "
+                                           f"kernel-safe (K3)")
+                    log(f"[context] CLIC ELIC pass {p} (192 channels, "
+                        f"{'anchors' if p == 8 else 'non-anchors'}): {n} symbols of y padded to "
+                        f"{x.shape[-2:]} on {K} lanes, sorted, kernel-safe, {esc} escapes, "
+                        f"{len(s)} B: K3  ({card})")
+            del codec
+            torch.cuda.empty_cache()
+    log(f"[context] phase {time.time() - t_phase:.1f} s  ({card})")
+    return _sum_launches(*launches)
+
+
 def main(args) -> int:
     if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"],
-                    ["--variants"]):
+                    ["--variants"], ["--context"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo | "
-                         f"--serve | --variants]; got {args}")
+                         f"--serve | --variants | --context]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3310,6 +3598,8 @@ def main(args) -> int:
             phase_serve(dev, CARD)
         elif args == ["--variants"]:
             phase_variants(dev, CARD)
+        elif args == ["--context"]:
+            phase_context(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -3337,6 +3627,8 @@ def main(args) -> int:
     serve_launches = phase_serve(dev, CARD)
     torch.cuda.empty_cache()
     variants_launches = phase_variants(dev, CARD)
+    torch.cuda.empty_cache()
+    context_launches = phase_context(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -3349,7 +3641,7 @@ def main(args) -> int:
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
              "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches,
-             **serve_launches, **variants_launches}
+             **serve_launches, **variants_launches, "context": context_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),

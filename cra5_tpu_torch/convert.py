@@ -7,7 +7,8 @@ without JAX) and fills every parameter of the port's model: the
 ``VariationCNNPrior`` with its ``_ConvStack`` hyperprior, the former
 baseline without quant convs, ``models/vit_vae.py``'s
 ``VITAutoencoderKL`` with its ``encoder`` / ``decoder``), the image-codec
-zoo (``models/google.py``, ``waseda.py``) and the latent codecs. Module
+zoo (``models/google.py``, ``waseda.py``, ``elic2022.py``, ``stf2022.py``
+with ``nn/swin.py``, ``tcm2023.py``, ``inv2021.py``) and the latent codecs. Module
 names are the flax names, so a torch name is its flax path with dots for
 slashes:
 
@@ -21,8 +22,10 @@ slashes:
     ConvTranspose kernel flipped: ``g_s/final/final`` of the VAEformer and
     each ``deconv2d`` (``.../l{i}/conv`` in a ``_ConvStack``);
   - LayerNorm ``scale``/``bias``, ``pos_embed``, GDN's re-parameterised
-    ``beta``/``gamma``, the gain vectors, and the entropy bottleneck's
-    ``matrix{i}``/``bias{i}``/``factor{i}``/``quantiles`` as they are.
+    ``beta``/``gamma``, the gain vectors, the entropy bottleneck's
+    ``matrix{i}``/``bias{i}``/``factor{i}``/``quantiles``, the Swin
+    attention's ``relative_position_bias_table`` and the invertible 1x1's
+    ``weight`` (an "oc" matrix in an einsum on both sides) as they are.
 
 It is strict: every flax leaf must be consumed and every torch parameter
 filled, with matching shapes, or it raises ValueError. ``flax_layout``
@@ -41,12 +44,14 @@ import torch
 from torch import nn
 
 from .entropy import EntropyBottleneck
+from .models.inv2021 import InvertibleConv1x1
 from .models.latent_codecs import GainHyperLatentCodec, GainHyperpriorLatentCodec
 from .models.vaeformer import Conv1x1
 from .nn.blocks import LayerNorm
 from .nn.conv import _MaskedConv
 from .nn.gdn import GDN
 from .nn.patch_embed import PatchEmbed, PatchUnembed
+from .nn.swin import SwinWindowAttention
 from .nn.vit import _PosEmbed
 
 
@@ -104,7 +109,8 @@ def flax_layout(model: nn.Module) -> Dict[str, Tuple[str, str]]:
             add(f"{pre}weight", f"{p}/kernel", kind)
             add(f"{pre}bias", f"{p}/bias", "as_is")
         elif isinstance(mod, (EntropyBottleneck, GDN, GainHyperLatentCodec,
-                              GainHyperpriorLatentCodec)):
+                              GainHyperpriorLatentCodec, SwinWindowAttention,
+                              InvertibleConv1x1)):
             for pname, _ in mod.named_parameters(recurse=False):
                 add(f"{pre}{pname}", f"{p}/{pname}", "as_is")
         if isinstance(mod, _PosEmbed):

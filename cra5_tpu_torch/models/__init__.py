@@ -1,5 +1,6 @@
 from .baseline import VariationCNNPrior, vaeformer_former_baseline, vaeformer_former_baseline_tiny
 from .codec import AutoregressiveCodec, ImageCodec, make_codec
+from .elic2022 import ELIC2022, ElicCodec
 from .google import (
     FactorizedPrior,
     FactorizedPriorReLU,
@@ -8,6 +9,9 @@ from .google import (
     SampledYInBmshj2018,
     ScaleHyperprior,
 )
+from .inv2021 import InvCompress
+from .stf2022 import CharmCodec, SymmetricalTransFormer2022
+from .tcm2023 import TCM2023
 from .vaeformer import (
     VAEformer,
     VAEformerCodec,
@@ -39,8 +43,14 @@ __all__ = [
     "SampledYInBmshj2018",
     "Cheng2020Anchor",
     "Cheng2020Attention",
+    "ELIC2022",
+    "SymmetricalTransFormer2022",
+    "TCM2023",
+    "InvCompress",
     "ImageCodec",
     "AutoregressiveCodec",
+    "ElicCodec",
+    "CharmCodec",
     "make_codec",
     "create_model",
     "init_model",

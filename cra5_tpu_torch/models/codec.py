@@ -337,6 +337,67 @@ class AutoregressiveCodec(_CodecBase):
         return y_hat[:, pad:pad + H, pad:pad + W]
 
 
+class _SliceCodec(_CodecBase):
+    """The skeleton of the codecs that code y as many v2 streams a sample,
+    each slice's entropy parameters computed from the slices before it
+    (``elic2022.ElicCodec``, ``stf2022.CharmCodec``): the z stream, then
+    the subclass's ``_encode_slices`` / ``_decode_slices``. Strings nest as
+    [[y...], [z...]], y slice by slice and sample by sample within each.
+    The v2 coder always: ``make_codec`` passes no ``coder``, as the JAX
+    package's does. K1 is dispatched for every stream as its symbols exist
+    and all streams are finalized at the end; on decode every y stream is
+    uploaded first."""
+
+    def __init__(self, model, scale_table=None):
+        super().__init__(model, coder="v2", scale_table=scale_table)
+
+    def _decode(self, uploaded, idx: torch.Tensor) -> torch.Tensor:
+        return self._gc_coder.decode_uploaded_batch(uploaded, idx)
+
+    @torch.inference_mode()
+    def compress(self, x) -> Dict[str, Any]:
+        self._require_tables()
+        x = self._input(x)
+        with self._stage("compress/analysis"):
+            out = self.model.analysis(x)
+        z_sym, y = out["z_sym"], out["y"]
+        with self._stage("compress/encode_z"):  # K1
+            handles = self._eb_coder.encode_dispatch_batch(z_sym,
+                                                           self._channel_indexes(z_sym.shape))
+        with self._stage("compress/hyper"):
+            hyper = self.model.hyper_params_from_z(z_sym)
+        with self._stage("compress/encode_y"):  # per slice: towers, indexes, K1
+            handles += self._encode_slices(y, hyper)
+        with self._stage("compress/finalize"):
+            streams = LaneCoder.encode_finalize_many(handles)
+        B = z_sym.shape[0]
+        return {"strings": [streams[B:], streams[:B]],
+                "shape": tuple(int(s) for s in z_sym.shape[-2:]),
+                "y_shape": tuple(int(s) for s in y.shape[-2:])}
+
+    @torch.inference_mode()
+    def decompress(self, strings: Sequence, shape, y_shape=None) -> Dict[str, Any]:
+        """``y_shape`` defaults to 4 x z's ``shape``."""
+        self._require_tables()
+        m = self.model
+        y_strings, z_strings = strings[0], strings[1]
+        B = len(z_strings)
+        C = getattr(m, "hyper_channels", m.N)
+        with self._stage("decompress/upload_y"):
+            ups = self._gc_coder.upload_batch(list(y_strings))
+        with self._stage("decompress/decode_z"):  # K2
+            z_sym = self._eb_coder.decode_batch_to_device(
+                list(z_strings), self._channel_indexes((B, C, int(shape[0]), int(shape[1]))))
+        with self._stage("decompress/hyper"):
+            hyper = m.hyper_params_from_z(z_sym)
+        W = int(shape[1]) * 4 if y_shape is None else int(y_shape[1])
+        with self._stage("decompress/decode_y"):  # per slice: towers, indexes, K2/K3
+            y_hat = self._decode_slices(ups, B, hyper, W)
+        with self._stage("decompress/synthesis"):
+            x_hat = m.synthesis(y_hat)
+        return {"x_hat": x_hat}
+
+
 def make_codec(model, coder: str = "v2", scale_table=None):
     """The codec of a zoo model, by its ``CODEC_KIND``."""
     kind = getattr(model, "CODEC_KIND", "hyper")
@@ -346,6 +407,12 @@ def make_codec(model, coder: str = "v2", scale_table=None):
         return VAEformerCodec(model, coder=coder, scale_table=scale_table)
     if kind == "autoregressive":
         return AutoregressiveCodec(model, scale_table=scale_table)
-    if kind in ("elic", "charm"):
-        raise NotImplementedError(f"the {kind!r} codec is not ported yet (ROADMAP.md queue A5)")
+    if kind == "elic":  # the v2 coder always: no coder passed, as in the JAX package
+        from .elic2022 import ElicCodec
+
+        return ElicCodec(model, scale_table=scale_table)
+    if kind == "charm":
+        from .stf2022 import CharmCodec
+
+        return CharmCodec(model, scale_table=scale_table)
     return ImageCodec(model, coder=coder, scale_table=scale_table)

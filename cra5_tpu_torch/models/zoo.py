@@ -7,8 +7,9 @@ seeded flax init, and ``load_model`` returns (model, codec); with
 ``pretrained=True`` the weights come from a checkpoint file (the JAX
 package's ``.msgpack`` variables, read by ``train/checkpoints.py`` through
 ``convert.flax_layout``, or the port's own ``.pt``). Nothing is
-downloaded. The architectures not ported yet keep their keys and raise
-``NotImplementedError`` naming ROADMAP.md queue A5 when built.
+downloaded. Every image architecture of the JAX zoo builds; ``ssf2020``
+(ScaleSpaceFlow, the video zoo) checks its arguments and raises
+``NotImplementedError`` naming ROADMAP.md queue A1, the video slice.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .codec import make_codec
+from .elic2022 import ELIC2022
 from .google import (
     FactorizedPrior,
     FactorizedPriorReLU,
@@ -27,16 +29,11 @@ from .google import (
     SampledYInBmshj2018,
     ScaleHyperprior,
 )
+from .inv2021 import InvCompress
+from .stf2022 import SymmetricalTransFormer2022
+from .tcm2023 import TCM2023
 from .vaeformer import VAEformer, vaeformer_268
 from .waseda import Cheng2020Anchor, Cheng2020Attention
-
-
-def _not_ported(name: str) -> Callable:
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md queue A5)")
-
-    build.__name__ = name
-    return build
 
 
 model_architectures: Dict[str, Any] = {
@@ -47,10 +44,10 @@ model_architectures: Dict[str, Any] = {
     "mbt2018": JointAutoregressiveHierarchicalPriors,
     "cheng2020-anchor": Cheng2020Anchor,
     "cheng2020-attn": Cheng2020Attention,
-    "elic2022": _not_ported("ELIC2022"),
-    "stf": _not_ported("SymmetricalTransFormer2022"),
-    "tcm2023": _not_ported("TCM2023"),
-    "invcompress": _not_ported("InvCompress"),
+    "elic2022": ELIC2022,
+    "stf": SymmetricalTransFormer2022,
+    "tcm2023": TCM2023,
+    "invcompress": InvCompress,
     "sampled-y-bmshj2018": SampledYInBmshj2018,
 }
 
@@ -156,4 +153,5 @@ def ssf2020(quality: int, metric: str = "mse", **kwargs):
         raise ValueError(f'Invalid metric "{metric}"')
     if quality < 1 or quality > 9:
         raise ValueError(f'Invalid quality "{quality}", should be between (1, 9)')
-    raise NotImplementedError("ssf2020 (ScaleSpaceFlow) is not ported yet (ROADMAP.md queue A5)")
+    raise NotImplementedError("ssf2020 (ScaleSpaceFlow) is not ported yet: the video slice, "
+                              "ROADMAP.md queue A1")

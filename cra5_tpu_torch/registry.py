@@ -3,26 +3,20 @@
 Counterpart of ``cra5_tpu/registry.py``: one import wires every built-in
 of the port into the registries of ``utils/registry.py`` so config-driven
 builds (``tools/train.py``) work. The names of the JAX package's
-registries that the port does not have yet are listed in ``NOT_PORTED``;
-they are registered when their modules land (ROADMAP.md queue A5).
+registries that the port does not have yet are listed in ``NOT_PORTED``:
+the video model, which lands with the video slice (ROADMAP.md queue A1).
 """
 
 from __future__ import annotations
 
 from .utils.registry import CRITERIONS, DATASETS, MODELS, OPTIMIZERS, SCHEDULERS
 
-# registered in the JAX package, not yet in the port (ROADMAP.md queue A5)
-NOT_PORTED = {
-    "models": (
-        "ELIC2022", "SymmetricalTransFormer2022", "TCM2023", "InvCompress", "ScaleSpaceFlow",
-    ),
-    "datasets": ("ImageFolder", "PreGeneratedMemmapDataset", "VideoFolder", "Vimeo90kDataset"),
-}
+# registered in the JAX package, not yet in the port (ROADMAP.md queue A1)
+NOT_PORTED = {"models": ("ScaleSpaceFlow",), "datasets": ()}
 
 
 def _register_all() -> None:
-    from .data import ERA5NcDataset, ERA5NpyDataset
-    from . import models
+    from . import data, models
     from .train.loss import RateDistortionLoss
     from .train.optim import make_net_aux_optimizers
     from .train.schedulers import SCHEDULERS as schedules
@@ -31,9 +25,12 @@ def _register_all() -> None:
         (MODELS, {name: getattr(models, name) for name in (
             "VAEformer", "FactorizedPrior", "FactorizedPriorReLU", "ScaleHyperprior",
             "MeanScaleHyperprior", "JointAutoregressiveHierarchicalPriors",
-            "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention",
-            "VITAutoencoderKL", "VariationCNNPrior")}),
-        (DATASETS, {"ERA5NpyDataset": ERA5NpyDataset, "ERA5NcDataset": ERA5NcDataset}),
+            "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention", "ELIC2022",
+            "SymmetricalTransFormer2022", "TCM2023", "InvCompress", "VITAutoencoderKL",
+            "VariationCNNPrior")}),
+        (DATASETS, {name: getattr(data, name) for name in (
+            "ERA5NpyDataset", "ERA5NcDataset", "ImageFolder", "PreGeneratedMemmapDataset",
+            "VideoFolder", "Vimeo90kDataset")}),
         (CRITERIONS, {"RateDistortionLoss": RateDistortionLoss}),
         (OPTIMIZERS, {"net_aux": make_net_aux_optimizers}),
         (SCHEDULERS, schedules),

@@ -1030,3 +1030,61 @@ def test_general_patch_paths_on_the_card_match_the_cpu(card):
         want, got = (want[0], got[0]) if isinstance(want, tuple) else (want, got)
         assert got.shape == want.shape
         assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+CONTEXT_TINY = {
+    "ELIC2022": dict(N=32, M=64, num_slices=3),
+    "SymmetricalTransFormer2022": dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 2),
+                                       num_slices=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONTEXT_TINY))
+def test_context_codec_on_the_card_writes_the_cpu_bytes(card, name):
+    """ELIC and STF at the JAX tests' tiny widths, the same seeded weights
+    on the card and on the CPU: one roundtrip of a seeded 3 x 128 x 192
+    image writes the same streams (K1 for each), the card decodes them
+    (K2 for each) and x_hat agrees within ZOO_XHAT_RTOL x max|ref|."""
+    from cra5_tpu_torch import models
+    from cra5_tpu_torch.models import make_codec
+
+    cls, kw = getattr(models, name), CONTEXT_TINY[name]
+    gpu = cls(**kw, device=card).reset_parameters(0)
+    cpu = cls(**kw, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = np.random.default_rng(0).random((1, 3, 128, 192), np.float32)
+    a, b = make_codec(gpu), make_codec(cpu)
+    kernels.reset_launch_counts()
+    out = a.compress(x)
+    n = len(out["strings"][0]) + 1
+    assert kernels.launch_counts()["rans_encode"] == n
+    assert out["strings"] == b.compress(x)["strings"]
+    kernels.reset_launch_counts()
+    x_gpu = a.decompress(out["strings"], out["shape"])["x_hat"]
+    assert kernels.launch_counts()["rans_decode_generic"] == n
+    x_cpu = b.decompress(out["strings"], out["shape"])["x_hat"]
+    assert (x_gpu.cpu() - x_cpu).abs().max().item() <= ZOO_XHAT_RTOL * x_cpu.abs().max().item()
+
+
+def test_elic_decoder_indexes_equal_the_encoders_on_the_card(card):
+    """One ElicCodec roundtrip on the card: every pass's GC indexes and
+    symbols on the decode side equal the encode side's, and x_hat equals
+    synthesis of the encoder's y_hat bitwise."""
+    from cra5_tpu_torch.models import ELIC2022, make_codec
+
+    codec = make_codec(ELIC2022(**CONTEXT_TINY["ELIC2022"], device=card).reset_parameters(1))
+    seen = {}
+    for name in ("_indexes", "_symbols", "_decode", "_hat"):
+        fn = getattr(codec, name)
+        setattr(codec, name, lambda *a, _f=fn, _n=name: seen.setdefault(_n, []).append(_f(*a))
+                or seen[_n][-1])
+    x = np.random.default_rng(1).random((1, 3, 128, 192), np.float32)
+    out = codec.compress(x)
+    x_hat = codec.decompress(out["strings"], out["shape"])["x_hat"]
+    n = 2 * 3
+    idx, hats = seen["_indexes"], seen["_hat"]
+    assert len(idx) == 2 * n and all(torch.equal(a, b) for a, b in zip(idx[:n], idx[n:]))
+    assert all(torch.equal(a, b) for a, b in zip(seen["_symbols"], seen["_decode"]))
+    y_hat = torch.cat([hats[p] + hats[p + 1] for p in range(0, n, 2)], dim=1)
+    with torch.inference_mode():
+        assert torch.equal(x_hat, codec.model.synthesis(y_hat))

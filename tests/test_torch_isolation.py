@@ -52,7 +52,8 @@ def test_every_module_imports_with_jax_blocked():
         "tools.eval_model", "tools.convert_torch", "tools.serve", "tools.decode_profile",
         "tools.era5_eval", "tools.forecast_eval", "tools.update_model", "utils.profiling",
         "ops.rdoq", "models.baseline", "models.vit_vae", "tools.plot", "tools.vivt69_experiment",
-        "tools.finalize_scaling")} <= mods
+        "tools.finalize_scaling", "data.image", "data.transforms", "nn.swin", "models.elic2022",
+        "models.stf2022", "models.tcm2023", "models.inv2021")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -31,7 +31,7 @@ AR_MODELS = ["JointAutoregressiveHierarchicalPriors", "Cheng2020Anchor", "Cheng2
 ALL = IMAGE_MODELS + AR_MODELS
 PORTED_ARCHS = ["bmshj2018-factorized", "bmshj2018-factorized-relu", "bmshj2018-hyperprior",
                 "mbt2018-mean", "mbt2018", "cheng2020-anchor", "cheng2020-attn",
-                "sampled-y-bmshj2018"]
+                "sampled-y-bmshj2018", "elic2022", "stf", "tcm2023", "invcompress"]
 
 
 def _nm(name):
@@ -231,7 +231,7 @@ def test_zoo_tables_keep_every_key_and_build_the_ported():
     assert P.cfgs == J.cfgs
     assert set(P.model_architectures) == set(J.model_architectures)
     for arch in PORTED_ARCHS:
-        q = min(P.cfgs[arch])
+        q = 4 if arch == "invcompress" else min(P.cfgs[arch])  # q1-3 cannot build (C11)
         model = P.create_model(arch, q, device="cpu")
         jm = J.create_model(arch, q)
         assert type(model).__name__ == type(jm).__name__
@@ -242,9 +242,22 @@ def test_zoo_tables_keep_every_key_and_build_the_ported():
 
 
 @pytest.mark.parametrize("arch", ["elic2022", "stf", "tcm2023", "invcompress"])
-def test_unported_architectures_raise_naming_a5(arch):
-    with pytest.raises(NotImplementedError, match="A5"):
-        P.create_model(arch, min(P.cfgs[arch]), device="cpu")
+def test_context_model_architectures_build_at_the_jax_widths(arch):
+    """q4 of each: every parameter of the port's model at the shape of the
+    JAX model's leaf (jax.eval_shape of its init; TCM at 128x128, where its
+    hyper stages' windows are the full 4 x 4, ROADMAP C13), and load_model
+    gives the codec its CODEC_KIND names."""
+    from cra5_tpu_torch.convert import to_flax_params
+
+    model, codec = P.load_model(arch, 4, device="cpu")
+    hw = 128 if arch == "tcm2023" else 64
+    want = jax.eval_shape(J.create_model(arch, 4).init, jax.random.PRNGKey(0),
+                          jax.ShapeDtypeStruct((1, 3, hw, hw), jnp.float32))
+    flat = lambda t, p="": {k2: v2 for k, v in t.items() for k2, v2 in (  # noqa: E731
+        flat(v, f"{p}/{k}").items() if isinstance(v, dict) else [(f"{p}/{k}", tuple(v.shape))])}
+    assert flat(to_flax_params(model, dict(model.named_parameters()))) == flat(want["params"])
+    kind = {"elic": "ElicCodec", "charm": "CharmCodec", "autoregressive": "AutoregressiveCodec"}
+    assert type(codec).__name__ == kind[model.CODEC_KIND]
 
 
 def test_zoo_refuses_what_jax_refuses_and_what_is_not_ported():
@@ -254,12 +267,11 @@ def test_zoo_refuses_what_jax_refuses_and_what_is_not_ported():
         P.create_model("mbt2018", 99, device="cpu")
     with pytest.raises(ValueError, match="metric"):
         P.ssf2020(1, metric="psnr")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A1"):
         P.ssf2020(3)
-    for kind in ("elic", "charm"):
+    for kind, codec_cls in (("elic", P.ElicCodec), ("charm", P.CharmCodec)):
         stub = type("Stub", (), {"CODEC_KIND": kind, "device": torch.device("cpu")})()
-        with pytest.raises(NotImplementedError, match="A5"):
-            make_codec(stub)
+        assert type(make_codec(stub)) is codec_cls and make_codec(stub, coder="v1").coder == "v2"
     with pytest.raises(ValueError, match="coder"):
         ImageCodec(_pair("ScaleHyperprior")[2], coder="v3")
 
