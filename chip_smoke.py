@@ -213,6 +213,29 @@ result line is printed then:
      and the entropy estimation, and no other kernel anywhere (no flash
      kernel: Swin windows hold 16 tokens). Its launches join the coder
      rows of the kernels line.
+  15. video phase (each line carries the card's name and power limit):
+     ScaleSpaceFlow in float32 with TF32 off. At the tiny test widths
+     (VIDEO_TINY) the same seeded weights on the card and on the CPU code a
+     seeded 3-frame 128 x 128 clip: every stream byte-identical, each
+     side's streams decoding on the other, the frames within ZOO_XHAT_RTOL
+     x max|ref|. Then zoo.ssf2020(1, "mse") at the published widths
+     (planes 192, mid 128, 5 levels, sigma0 1.5), seeded, through
+     tools/video_eval.eval_clip on a seeded UVG-size clip (3 x 3 x 1080 x
+     1920, padded to 1152 x 1920) and a seeded Vimeo-90k-size septuplet
+     (7 x 3 x 256 x 448, padded to 256 x 512): one warm-up and VIDEO_TIMED
+     timed runs each (bpp, PSNR, MS-SSIM, encode and decode s), then one
+     roundtrip of each clip with every stage synchronised (host ms for
+     analysis, hyperprior, coder, motion and synthesis). Gates: the
+     decoder's GC indexes of every latent equal the encoder's, every
+     decoded symbol the encoder's, every decoded frame bitwise the
+     encoder's reference frame, the metrics finite, and the launches the
+     streams' (K1 each, K2 or K3 as each header names, nothing else); the
+     1080p y streams (2048 lanes, sorted) decode on K3, or the phase prints
+     why each went to K2. On every stream of those roundtrips K1 and its
+     decode kernel are held against their plain versions ([video kernels]
+     lines: device us a stream and a step, and the coder kernels' share of
+     the roundtrip). The counters are zeroed just before each run and read
+     just after; the launches join the coder rows of the kernels line.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -250,13 +273,15 @@ one card and no network.
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --context
+    python3 chip_smoke.py --video
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the zoo phase
-(11), only the serve phase (12), only the variants phase (13), or only
-the context phase (14), and print no result line. They import
+(11), only the serve phase (12), only the variants phase (13), only the
+context phase (14), or only the video phase (15), and print no result
+line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -3572,11 +3597,247 @@ def phase_context(dev, card: str) -> dict:
     return _sum_launches(*launches)
 
 
+# --video: ScaleSpaceFlow at the tiny test widths card against CPU, then at
+# the published widths through tools/video_eval.eval_clip on seeded clips
+VIDEO_TINY = dict(num_levels=2, mid_planes=8, planes=8)
+UVG = (3, 3, 1080, 1920)  # UVG's 1080p, 3 frames (T, C, H, W), padded to 1152 x 1920
+VIMEO = (7, 3, 256, 448)  # a Vimeo-90k septuplet, padded to 256 x 512
+VIDEO_TIMED = 2  # timed eval_clip runs a clip, after one warm-up
+
+
+def _video_tweak(model, seed: int) -> None:
+    """Latents of a few units and scales over the GC table on tiny seeded
+    towers (as tests/test_torch_video_codec.py does), so the tiny codec
+    codes more than zeros."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for enc in (model.img_encoder, model.res_encoder, model.motion_encoder):
+            enc.l6.conv.weight.mul_(6.0)
+        for hp in (model.img_hyperprior, model.res_hyperprior, model.motion_hyperprior):
+            b = hp.hyper_decoder_scale.d3.conv.bias
+            b.copy_(torch.rand(b.shape, generator=g).to(b) * 6.0)
+
+
+def _video_streams(strings) -> list:
+    """(label, which, y string, z string) of every coded latent of a clip,
+    in coding order: the keyframe, then each inter frame's motion and
+    residual."""
+    out = [("f0 keyframe", "keyframe", strings[0][0], strings[0][1])]
+    for t, s in enumerate(strings[1:], 1):
+        out += [(f"f{t} {w}", w, s[w][0], s[w][1]) for w in ("motion", "residual")]
+    return out
+
+
+def video_card_vs_cpu(dev, card: str) -> dict:
+    """ScaleSpaceFlow at the tiny widths of VIDEO_TINY (tweaked as the CPU
+    tests tweak them), the same weights on the card and on the CPU, one
+    3-frame 128 x 128 clip: every stream byte-identical, each side's
+    streams decoding on the other, the frames within ZOO_XHAT_RTOL x
+    max|ref|, K1 and K2 launched on the card."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models.video import ScaleSpaceFlow, ScaleSpaceFlowCodec
+
+    cpu = ScaleSpaceFlow(**VIDEO_TINY, device="cpu").reset_parameters(SEED)
+    _video_tweak(cpu, SEED)
+    gpu = ScaleSpaceFlow(**VIDEO_TINY, device=dev)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    a, b = ScaleSpaceFlowCodec(gpu), ScaleSpaceFlowCodec(cpu)
+    clip = np.random.default_rng(SEED).random((3, 1, 3, 128, 128), np.float32)
+    frames = [clip[i] for i in range(3)]
+    a.compress(frames)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out, shapes = a.compress(frames)
+    dec_gpu = a.decompress(out, shapes)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ref, ref_shapes = b.compress(frames)
+    if out != ref or shapes != ref_shapes:
+        flips = [(label, u == v, zu == zv) for (label, _, u, zu), (_, _, v, zv)
+                 in zip(_video_streams(out), _video_streams(ref))]
+        raise RuntimeError(f"[video] card vs CPU: streams differ, (latent, y equal, z equal): "
+                           f"{flips}")
+    dec_cpu = b.decompress(out, shapes)  # the card's streams on the CPU
+    dec_x = a.decompress(ref, ref_shapes)  # the CPU's streams on the card
+    torch.cuda.synchronize()
+    err = max((g.cpu() - c).abs().max().item() for g, c in zip(dec_gpu, dec_cpu))
+    bound = ZOO_XHAT_RTOL * max(c.abs().max().item() for c in dec_cpu)
+    if not err <= bound or not all(torch.equal(u, v) for u, v in zip(dec_gpu, dec_x)):
+        raise RuntimeError(f"[video] card vs CPU: frames err {err} > {bound}, or the card's "
+                           f"decode of the CPU's streams differs from its own")
+    _require(launches, ("rans_encode", "rans_decode_generic"), "video card vs CPU")
+    nbytes = [len(s) for _, _, y, z in _video_streams(out) for s in (y[0], z[0])]
+    log(f"[video] card vs CPU, ScaleSpaceFlow {VIDEO_TINY} on (3, 1, 3, 128, 128): "
+        f"{len(nbytes)} streams byte-identical ({sum(nbytes)} B), each side's streams decode on "
+        f"the other, frames err {err:.3g} (bound {ZOO_XHAT_RTOL} x max|ref| = {bound:.3g}); "
+        f"launches {launches}  ({card})")
+    return launches
+
+
+def video_roundtrip(codec, clip: np.ndarray, tag: str, card: str) -> dict:
+    """One compress / decompress of a (T, C, H, W) clip (padded as
+    video_eval pads it) with every stage synchronised (host ms a stage),
+    the counters zeroed just before and read just after. Gates: the
+    decoder's GC indexes equal the encoder's for every latent, every
+    decoded symbol the encoder's, every decoded frame bitwise the encoder's
+    reference frame, and the launches the streams' (K1 each, the decode
+    kernel its header names, nothing else). Then hold_streams on every
+    stream ([video kernels] lines) and the coder kernels' share of the
+    roundtrip."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.tools import video_eval
+
+    model = codec.model
+    padded, _ = video_eval._pad_frames(clip)
+    frames = [padded[i:i + 1] for i in range(padded.shape[0])]
+    seen = {}
+    spies = ((codec, "_indexes"), (codec, "_decode"), (codec, "_reference"),
+             (model, "hp_symbols"), (model, "synthesize_keyframe"))
+    for obj, name in spies:
+        _record(obj, name, seen)
+    codec.stage_times = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    strings, shapes = codec.compress(frames)
+    t1 = time.perf_counter()
+    dec = codec.decompress(strings, shapes)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    stages, codec.stage_times = codec.stage_times, None
+    for obj, name in spies:
+        delattr(obj, name)
+
+    outs = lambda name: [out for _, out in seen[name]]  # noqa: E731
+    n = len(seen["hp_symbols"])
+    idx = outs("_indexes")
+    bad = [k for k in range(n) if not torch.equal(idx[k], idx[n + k])]
+    if len(idx) != 2 * n or bad:
+        raise RuntimeError(f"[video] {tag}: the decoder's GC indexes differ from the encoder's "
+                           f"for latents {bad} of {n}")
+    enc = [sym[k] for sym in outs("hp_symbols") for k in ("z_sym", "y_sym")]
+    decs = outs("_decode")
+    if len(decs) != len(enc) or not all(torch.equal(u, v) for u, v in zip(enc, decs)):
+        raise RuntimeError(f"[video] {tag}: decoded symbols differ from the encoded ones")
+    kf, refs = outs("synthesize_keyframe"), outs("_reference")
+    T = len(frames)
+    chain_enc, chain_dec = [kf[0], *refs[:T - 1]], [kf[1], *refs[T - 1:]]
+    bad = [t for t in range(T) if not (torch.equal(chain_enc[t], chain_dec[t])
+                                       and torch.equal(chain_dec[t], dec[t]))]
+    if bad:
+        raise RuntimeError(f"[video] {tag}: decoded frames {bad} differ from the encoder's "
+                           f"reference frames")
+    want = dict.fromkeys(RANS, 0)
+    routes = []
+    for label, which, ys, zs in _video_streams(strings):
+        for part, s in (("y", ys[0]), ("z", zs[0])):
+            _, K, esc, _, srt, safe, _ = parse_v2_header(s)
+            k = "rans_decode_sorted" if srt and safe else "rans_decode_generic"
+            want["rans_encode"] += 1
+            want[k] += 1
+            routes.append((f"{label} {part}", K, srt, safe, len(s), esc,
+                           "K3" if k.endswith("sorted") else "K2"))
+    got = {k: launches.get(k, 0) for k in RANS}
+    if got != want or any(v for k, v in launches.items() if k not in RANS):
+        raise RuntimeError(f"[video] {tag}: launches {launches}, expected {want}")
+
+    streams = []
+    for k, (label, which, ys, zs) in enumerate(_video_streams(strings)):
+        sym = outs("hp_symbols")[k]
+        coders = codec._coders[which]
+        streams.append((f"{label} y", coders["gc"], sym["y_sym"][0], idx[k][0], ys[0]))
+        streams.append((f"{label} z", coders["eb"], sym["z_sym"][0],
+                        codec._channel_indexes(sym["z_sym"].shape)[0], zs[0]))
+    held = hold_streams(streams, tag, card, "video kernels", iters=5)
+    ms = {k: round(v * 1e3, 3) for k, v in stages.items()}
+    kinds = {r: sum(x[-1] == r for x in routes) for r in ("K2", "K3")}
+    log(f"[video] {tag}: synchronised roundtrip compress {t1 - t0:.4f} s, decompress "
+        f"{t2 - t1:.4f} s; host ms a stage {ms}; {len(routes)} streams (decode kernels {kinds}); "
+        f"launches {got}; indexes, symbols and the reference chain exact  ({card})")
+    for name, K, srt, safe, nbytes, esc, kern in routes:
+        if name.endswith(" y") and K >= 2048 and kern == "K2":
+            log(f"[video] {tag}: {name} on {K} lanes, sorted {srt}, kernel-safe {safe}: "
+                f"decodes on K2 because its sorted steps span more than two cdf rows  ({card})")
+    summary = {}
+    for kern in ("K1", "K2", "K3"):
+        rows = ([(h["k1_us"], h["steps"]) for h in held.values()] if kern == "K1" else
+                [(h["dec_us"], h["steps"]) for h in held.values() if h["dec"] == kern])
+        rows = [(us, st) for us, st in rows if us == us]
+        if rows:
+            summary[kern] = (len(rows), sum(u for u, _ in rows), sum(u for u, _ in rows)
+                             / sum(st for _, st in rows))
+    coder_ms = sum(v[1] for v in summary.values()) / 1e3
+    log(f"[video kernels] {tag}: " + "; ".join(
+        f"{kern} {c} streams, {tot / c:.2f} us a stream, {per * 1e3:.1f} ns a step"
+        for kern, (c, tot, per) in summary.items())
+        + f"; the coder kernels {coder_ms:.4f} ms = {coder_ms / 10 / (t2 - t0):.3f}% of the "
+        f"roundtrip ({t2 - t0:.4f} s)  ({card})")
+    return dict(launches=launches, routes=routes, held=held, roundtrip_s=t2 - t0)
+
+
+def phase_video(dev, card: str) -> dict:
+    """ScaleSpaceFlow on the card: card against CPU at tiny widths; then
+    zoo.ssf2020(1, "mse") at its published widths (planes 192, mid 128, 5
+    levels, sigma0 1.5), seeded, float32 with TF32 off, through
+    tools/video_eval.eval_clip on a seeded UVG-size 3-frame clip and a
+    seeded Vimeo-90k-size 7-frame clip: one warm-up and VIDEO_TIMED timed
+    runs each (bpp, PSNR, MS-SSIM, encode and decode s), the counters
+    zeroed just before and read just after; then video_roundtrip on each
+    clip, whose 1080p y streams (2048 lanes, sorted) must decode on K3 or
+    print why not. Every run's launches join the kernels line's coder
+    rows."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models import ssf2020
+    from cra5_tpu_torch.tools import video_eval
+
+    t_phase = time.time()
+    launches = [video_card_vs_cpu(dev, card)]
+    model, _, codec = ssf2020(1, "mse", device=dev, seed=SEED)
+    log(f"[video] ssf2020(1, 'mse'): planes {model.planes}, mid {model.mid_planes}, "
+        f"{model.num_levels} levels, sigma0 {model.sigma0}, "
+        f"{sum(p.numel() for p in model.parameters())} params, float32  ({card})")
+    rng = np.random.default_rng(SEED)
+    for name, shape in (("UVG 1080p", UVG), ("Vimeo-90k", VIMEO)):
+        clip = rng.random(shape, np.float32)
+        video_eval.eval_clip(codec, clip)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        runs = [video_eval.eval_clip(codec, clip) for _ in range(VIDEO_TIMED)]
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        _require(got, ("rans_encode", "rans_decode_generic"), f"video {name}")
+        launches.append(got)
+        for r in runs:
+            if not all(np.isfinite(v) for v in r.values()):
+                raise RuntimeError(f"[video] {name}: eval_clip results not finite: {r}")
+        pick = lambda k: ", ".join(f"{r[k]:.4f}" for r in runs)  # noqa: E731
+        log(f"[video] {name} {shape}: eval_clip bpp {runs[0]['bpp']:.6f}, psnr-rgb "
+            f"{runs[0]['psnr-rgb']:.4f}, ms-ssim-rgb {runs[0]['ms-ssim-rgb']:.6f}; encode s "
+            f"{pick('encoding_time')}, decode s {pick('decoding_time')} ({VIDEO_TIMED} runs "
+            f"after a warm-up); launches {got}  ({card})")
+        rt = video_roundtrip(codec, clip, name, card)
+        launches.append(rt["launches"])
+        if name.startswith("UVG"):
+            ys = [r for r in rt["routes"] if r[0].endswith(" y")]
+            if not any(r[-1] == "K3" for r in ys):
+                log(f"[video] UVG 1080p: no y stream decoded on K3: "
+                    f"{[(r[0], r[1], r[2], r[3]) for r in ys]}  ({card})")
+            else:
+                _require(rt["launches"], ("rans_decode_sorted",), "video UVG 1080p")
+        torch.cuda.empty_cache()
+    del model, codec
+    torch.cuda.empty_cache()
+    log(f"[video] phase {time.time() - t_phase:.1f} s  ({card})")
+    return _sum_launches(*launches)
+
+
 def main(args) -> int:
     if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"],
-                    ["--variants"], ["--context"]):
+                    ["--variants"], ["--context"], ["--video"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo | "
-                         f"--serve | --variants | --context]; got {args}")
+                         f"--serve | --variants | --context | --video]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3600,6 +3861,8 @@ def main(args) -> int:
             phase_variants(dev, CARD)
         elif args == ["--context"]:
             phase_context(dev, CARD)
+        elif args == ["--video"]:
+            phase_video(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -3629,6 +3892,8 @@ def main(args) -> int:
     variants_launches = phase_variants(dev, CARD)
     torch.cuda.empty_cache()
     context_launches = phase_context(dev, CARD)
+    torch.cuda.empty_cache()
+    video_launches = phase_video(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -3641,7 +3906,8 @@ def main(args) -> int:
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
              "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches,
-             **serve_launches, **variants_launches, "context": context_launches}
+             **serve_launches, **variants_launches, "context": context_launches,
+             "video": video_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),

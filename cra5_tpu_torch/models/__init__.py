@@ -20,6 +20,7 @@ from .vaeformer import (
     vaeformer_268,
     vaeformer_tiny,
 )
+from .video import ScaleSpaceFlow, ScaleSpaceFlowCodec
 from .vit_vae import VITAutoencoderKL
 from .waseda import Cheng2020Anchor, Cheng2020Attention
 from .zoo import cfgs, create_model, init_model, load_model, model_architectures, ssf2020
@@ -47,6 +48,8 @@ __all__ = [
     "SymmetricalTransFormer2022",
     "TCM2023",
     "InvCompress",
+    "ScaleSpaceFlow",
+    "ScaleSpaceFlowCodec",
     "ImageCodec",
     "AutoregressiveCodec",
     "ElicCodec",

@@ -7,9 +7,9 @@ seeded flax init, and ``load_model`` returns (model, codec); with
 ``pretrained=True`` the weights come from a checkpoint file (the JAX
 package's ``.msgpack`` variables, read by ``train/checkpoints.py`` through
 ``convert.flax_layout``, or the port's own ``.pt``). Nothing is
-downloaded. Every image architecture of the JAX zoo builds; ``ssf2020``
-(ScaleSpaceFlow, the video zoo) checks its arguments and raises
-``NotImplementedError`` naming ROADMAP.md queue A1, the video slice.
+downloaded. Every architecture of the JAX zoo builds; ``ssf2020``
+(ScaleSpaceFlow, the video zoo) returns (model, state_dict, codec), as the
+JAX package's returns (model, variables, codec).
 """
 
 from __future__ import annotations
@@ -97,6 +97,17 @@ def init_model(model, seed: int = 0):
     return model.reset_parameters(seed)
 
 
+def _load_checkpoint(model, path: str) -> None:
+    """Copy a checkpoint file's params (``train/checkpoints.load_variables``)
+    into ``model``."""
+    from ..train.checkpoints import load_variables
+
+    params = load_variables(path, model=model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+
+
 def load_model(
     architecture: str,
     quality: int,
@@ -114,14 +125,8 @@ def load_model(
     seeded init."""
     model = create_model(architecture, quality, in_channel=in_channel, device=device)
     if pretrained:
-        from ..train.checkpoints import load_variables
-
-        path = checkpoint_path or os.path.join(
-            os.environ.get("CRA5_TPU_CKPT_DIR", "checkpoints"), f"{architecture}-{quality}.msgpack")
-        params = load_variables(path, model=model)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(params[name])
+        _load_checkpoint(model, checkpoint_path or os.path.join(
+            os.environ.get("CRA5_TPU_CKPT_DIR", "checkpoints"), f"{architecture}-{quality}.msgpack"))
     else:
         init_model(model, seed)
     return model, make_codec(model, coder=coder)
@@ -145,13 +150,35 @@ cheng2020_anchor = _named("cheng2020-anchor")
 cheng2020_attn = _named("cheng2020-attn")
 
 
-def ssf2020(quality: int, metric: str = "mse", **kwargs):
-    """The ScaleSpaceFlow video-zoo builder: its arguments are checked as
-    the JAX package checks them, then it raises, as the video model is not
-    ported yet."""
+def ssf2020(
+    quality: int,
+    metric: str = "mse",
+    *,
+    pretrained: bool = False,
+    checkpoint_path: Optional[str] = None,
+    seed: int = 0,
+    device=None,
+    **kwargs,
+):
+    """The ScaleSpaceFlow video-zoo builder: (model, its state_dict, codec),
+    as the JAX package's returns (model, variables, codec).
+
+    Quality 1-9 and metric mse / ms-ssim name a checkpoint; the
+    architecture is the same at every quality (``kwargs`` reach
+    ``ScaleSpaceFlow``). ``pretrained=True`` loads ``checkpoint_path`` or
+    ``$CRA5_TPU_CKPT_DIR/ssf2020-<metric>-<quality>.msgpack`` (the JAX
+    package's variables, or the port's ``.pt``); else the seeded flax init,
+    which needs no dummy clip (JAX's ``input_shape``)."""
     if metric not in ("mse", "ms-ssim"):
         raise ValueError(f'Invalid metric "{metric}"')
     if quality < 1 or quality > 9:
         raise ValueError(f'Invalid quality "{quality}", should be between (1, 9)')
-    raise NotImplementedError("ssf2020 (ScaleSpaceFlow) is not ported yet: the video slice, "
-                              "ROADMAP.md queue A1")
+    from .video import ScaleSpaceFlow, ScaleSpaceFlowCodec
+
+    model = ScaleSpaceFlow(device=device, **kwargs)
+    if pretrained:
+        _load_checkpoint(model, checkpoint_path or os.path.join(
+            os.environ.get("CRA5_TPU_CKPT_DIR", "checkpoints"), f"ssf2020-{metric}-{quality}.msgpack"))
+    else:
+        init_model(model, seed)
+    return model, model.state_dict(), ScaleSpaceFlowCodec(model)

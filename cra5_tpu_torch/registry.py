@@ -2,17 +2,17 @@
 
 Counterpart of ``cra5_tpu/registry.py``: one import wires every built-in
 of the port into the registries of ``utils/registry.py`` so config-driven
-builds (``tools/train.py``) work. The names of the JAX package's
-registries that the port does not have yet are listed in ``NOT_PORTED``:
-the video model, which lands with the video slice (ROADMAP.md queue A1).
+builds (``tools/train.py``) work. Every name of the JAX package's
+registries is registered: ``NOT_PORTED``, the names the port would lack,
+is empty.
 """
 
 from __future__ import annotations
 
 from .utils.registry import CRITERIONS, DATASETS, MODELS, OPTIMIZERS, SCHEDULERS
 
-# registered in the JAX package, not yet in the port (ROADMAP.md queue A1)
-NOT_PORTED = {"models": ("ScaleSpaceFlow",), "datasets": ()}
+# registered in the JAX package, not in the port: none
+NOT_PORTED = {"models": (), "datasets": ()}
 
 
 def _register_all() -> None:
@@ -27,7 +27,7 @@ def _register_all() -> None:
             "MeanScaleHyperprior", "JointAutoregressiveHierarchicalPriors",
             "SampledYInBmshj2018", "Cheng2020Anchor", "Cheng2020Attention", "ELIC2022",
             "SymmetricalTransFormer2022", "TCM2023", "InvCompress", "VITAutoencoderKL",
-            "VariationCNNPrior")}),
+            "VariationCNNPrior", "ScaleSpaceFlow")}),
         (DATASETS, {name: getattr(data, name) for name in (
             "ERA5NpyDataset", "ERA5NcDataset", "ImageFolder", "PreGeneratedMemmapDataset",
             "VideoFolder", "Vimeo90kDataset")}),

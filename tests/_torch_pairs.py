@@ -14,11 +14,25 @@ fresh one filled from that tree by ``convert.load_flax_variables``.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cra5_tpu_torch.convert import flax_layout, load_flax_variables, to_flax_params
 
 RTOL = 1e-4  # x max|ref|: float32 towers differ in summation order only
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module (import it and name it in
+    ``pytestmark``'s usefixtures): tiny CPU ops, such as the plain
+    coder's steps and the metrics' 11 x 11 depthwise convs, run tens of
+    times slower with oversubscribed threads when the suite's workers
+    share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _flat(tree, prefix=""):

@@ -119,12 +119,13 @@ def test_lazy_import_mode_reads_the_same_namespace(tmp_path):
 @pytest.mark.parametrize("name", ["MODELS", "DATASETS", "CRITERIONS", "OPTIMIZERS", "SCHEDULERS"])
 def test_registries_hold_the_jax_names_less_the_queued_ones(name):
     """Each port registry holds every name of the JAX registry of the same
-    name but those NOT_PORTED lists (ROADMAP.md queue A1), and nothing
+    name but those NOT_PORTED lists (none: every name is ported), and nothing
     else."""
     got = set(getattr(registry, name).keys())
     want = set(getattr(j_registry, name).keys())
     queued = set(registry.NOT_PORTED.get(name.lower(), ()))
     assert got | queued == want and not got & queued
+    assert registry.NOT_PORTED == {"models": (), "datasets": ()}  # ScaleSpaceFlow is ported
 
 
 def test_registries_build_the_ports_objects(tmp_path):
@@ -137,8 +138,11 @@ def test_registries_build_the_ports_objects(tmp_path):
     tx = registry.OPTIMIZERS.build({"type": "net_aux", "learning_rate": 1e-3})
     assert tx.aux_lr == 1e-3 and tx.net_rate(0) == 1e-3
     assert registry.SCHEDULERS.get("WarmupCosineLR")(1.0, 10, 2)(0) == 0.0
-    with pytest.raises(KeyError, match="ScaleSpaceFlow"):
-        registry.MODELS.get("ScaleSpaceFlow")
+    with pytest.raises(KeyError, match="NoSuchModel"):
+        registry.MODELS.get("NoSuchModel")
+    ssf = registry.MODELS.build({"type": "ScaleSpaceFlow", "planes": 8, "mid_planes": 8,
+                                 "num_levels": 2}, device="cpu")
+    assert ssf.planes == 8 and ssf.device.type == "cpu"
     zoo = registry.MODELS.build({"type": "ScaleHyperprior", "N": 8, "M": 12}, device="cpu")
     assert zoo.CODEC_KIND == "hyper" and zoo.device.type == "cpu"
 

@@ -1088,3 +1088,61 @@ def test_elic_decoder_indexes_equal_the_encoders_on_the_card(card):
     y_hat = torch.cat([hats[p] + hats[p + 1] for p in range(0, n, 2)], dim=1)
     with torch.inference_mode():
         assert torch.equal(x_hat, codec.model.synthesis(y_hat))
+
+
+def test_ssf_on_the_card_writes_the_cpu_bytes_and_rebuilds_its_chain(card):
+    """ScaleSpaceFlow at tiny widths (planes = mid = 8, two levels), the
+    same seeded weights on the card and on the CPU, a seeded 3-frame 128 x
+    128 clip: the card writes the CPU's streams (K1 for each), decodes them
+    (K2 for each) to frames bitwise equal to its encoder's reference frames,
+    and those agree with the CPU's within ZOO_XHAT_RTOL x max|ref|."""
+    from cra5_tpu_torch.models.video import ScaleSpaceFlow, ScaleSpaceFlowCodec
+
+    kw = dict(num_levels=2, mid_planes=8, planes=8)
+    cpu = ScaleSpaceFlow(**kw, device="cpu").reset_parameters(0)
+    with torch.no_grad():
+        for enc in (cpu.img_encoder, cpu.res_encoder, cpu.motion_encoder):
+            enc.l6.conv.weight.mul_(6.0)
+    gpu = ScaleSpaceFlow(**kw, device=card)
+    gpu.load_state_dict({k: v.to(card) for k, v in cpu.state_dict().items()})
+    a, b = ScaleSpaceFlowCodec(gpu), ScaleSpaceFlowCodec(cpu)
+    clip = np.random.default_rng(0).random((3, 1, 3, 128, 128), np.float32)
+    frames = [clip[i] for i in range(3)]
+    refs = []
+    fn = a._reference
+    a._reference = lambda *args: refs.append(fn(*args)) or refs[-1]
+    kernels.reset_launch_counts()
+    out, shapes = a.compress(frames)
+    assert kernels.launch_counts()["rans_encode"] == 10
+    assert (out, shapes) == b.compress(frames)
+    kernels.reset_launch_counts()
+    dec = a.decompress(out, shapes)
+    assert kernels.launch_counts()["rans_decode_generic"] == 10
+    assert len(refs) == 4 and all(torch.equal(e, d) for e, d in zip(refs[:2], refs[2:]))
+    assert torch.equal(dec[1], refs[2]) and torch.equal(dec[2], refs[3])
+    for g, c in zip(dec, b.decompress(out, shapes)):
+        assert (g.cpu() - c).abs().max().item() <= ZOO_XHAT_RTOL * c.abs().max().item()
+
+
+def test_1080p_y_stream_decodes_on_k3_like_its_plain_version(card, rng, gc_table):
+    """A UVG 1080p y stream's geometry (72 x 120 x 192 symbols, GC indexes
+    constant over channel runs as a hyperprior's scales tend to be): 2048
+    lanes, sorted and kernel-safe; K3 on the uploaded stream equals
+    rans_decode_sorted_plain, and the decode gives back the symbols."""
+    C, H, W = 192, 72, 120
+    idx = np.repeat(rng.integers(0, 64, (C, 1, 1)), H * W, axis=1).reshape(C, H, W)
+    idx = np.where(rng.random((C, H, W)) < 0.1, rng.integers(0, 64, (C, H, W)), idx)
+    idx = idx.astype(np.int32).reshape(-1)
+    sym = _sample(rng, gc_table, idx, 0.01)
+    coder = LaneCoder(gc_table, device=card)
+    data = coder.encode(sym, idx)
+    n, K, _, _, sorted_mode, safe, _ = parse_v2_header(data)
+    assert (n, K, sorted_mode, safe) == (C * H * W, 2048, True, True)
+    up = coder.upload_batch([data])[0]
+    idx_t = torch.from_numpy(idx).to(card)
+    kernel, plain, args, _ = coder.decode_call(up, idx_t)
+    assert kernel is rk.rans_decode_sorted
+    got, want = kernel(*args, coder._slots), plain(*args)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)
+    assert data == LaneCoder(gc_table, device="cpu").encode(sym, idx)

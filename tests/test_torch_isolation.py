@@ -53,7 +53,9 @@ def test_every_module_imports_with_jax_blocked():
         "tools.era5_eval", "tools.forecast_eval", "tools.update_model", "utils.profiling",
         "ops.rdoq", "models.baseline", "models.vit_vae", "tools.plot", "tools.vivt69_experiment",
         "tools.finalize_scaling", "data.image", "data.transforms", "nn.swin", "models.elic2022",
-        "models.stf2022", "models.tcm2023", "models.inv2021")} <= mods
+        "models.stf2022", "models.tcm2023", "models.inv2021", "models.video",
+        "tools.video_eval", "tools.video_bench", "tools.bench", "tools.find_close",
+        "tools.ext_codecs", "tools.era5_jpeg2000", "standalone", "standalone.export")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -268,3 +270,67 @@ def test_flash_kernels_raise_for_what_none_computes(monkeypatch, head_dim, dtype
     assert not attention.flash_supports(dtype, head_dim)
     with pytest.raises(NotImplementedError, match="head dim of at least 1"):
         attention._kernel_entry("cra5_flash_attn_fwd", q, q, q)
+
+
+def test_video_and_baseline_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """ScaleSpaceFlow, ssf2020, video_eval and the baseline tools resolve
+    their device as every entry point does: the card unless the caller asks
+    for the CPU (the baseline tools compute their metrics there)."""
+    from cra5_tpu_torch.models import ScaleSpaceFlow, ssf2020
+    from cra5_tpu_torch.tools import bench, find_close, video_bench, video_eval
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: ScaleSpaceFlow(planes=8, mid_planes=8),
+                  lambda: ssf2020(1, planes=8, mid_planes=8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    (tmp_path / "train" / "c").mkdir(parents=True)
+    img = tmp_path / "x.png"
+    img.write_bytes(b"")
+    for run in (lambda: video_eval.main([str(tmp_path)]),
+                lambda: bench.main(["jpeg", str(tmp_path)]),
+                lambda: find_close.main(["jpeg", str(img), "30"]),
+                lambda: video_bench.main(["jpeg", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+
+
+def test_video_and_standalone_paths_read_nothing_of_the_jax_package(tmp_path):
+    """With the JAX package blocked, video_eval on a PNG clip, the baseline
+    bench, era5_jpeg2000 and the standalone codec's build and export open
+    no file under cra5_tpu/ (an audit hook records every open)."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "cra5_tpu"):
+            sys.modules[name] = None
+        opened = []
+        sys.addaudithook(lambda ev, args: opened.append(str(args[0]))
+                         if ev == "open" and args and isinstance(args[0], str) else None)
+        import numpy as np
+        from PIL import Image
+        from cra5_tpu_torch.standalone import export
+        from cra5_tpu_torch.models import load_model
+        from cra5_tpu_torch.tools import bench, era5_jpeg2000, video_eval
+        root = {str(tmp_path)!r}
+        import os
+        os.makedirs(root + "/train/c0")
+        rng = np.random.default_rng(0)
+        for f in range(2):
+            Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+                root + f"/train/c0/{{f}}.png")
+        assert video_eval.main([root, "--frames", "2", "--planes", "8", "--mid-planes", "8",
+                                "--num-levels", "2", "--device", "cpu"]) == 0
+        assert bench.main(["jpeg", root, "-q", "50", "--device", "cpu"]) == 0
+        np.save(root + "/f.npy", rng.normal(size=(2, 32, 32)).astype(np.float32))
+        assert era5_jpeg2000.main([root + "/f.npy", "-q", "10"]) == 0
+        assert "cra5_tpu_torch" in str(export._SRC) and export._SRC.exists()
+        model, codec = load_model("bmshj2018-factorized", 1, device="cpu")
+        export.export_synthesis(root + "/g_s.crs", model.g_s)
+        export.export_codec(codec, root + "/art", params=model)
+        bad = [p for p in opened if "/cra5_tpu/" in p.replace(os.sep, "/")]
+        print("BAD", bad)
+        assert not bad, bad
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=NO_CARD,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]

@@ -267,8 +267,13 @@ def test_zoo_refuses_what_jax_refuses_and_what_is_not_ported():
         P.create_model("mbt2018", 99, device="cpu")
     with pytest.raises(ValueError, match="metric"):
         P.ssf2020(1, metric="psnr")
-    with pytest.raises(NotImplementedError, match="A1"):
-        P.ssf2020(3)
+    with pytest.raises(ValueError, match="quality"):
+        P.ssf2020(10)
+    # ssf2020 is ported: it builds (model, state, codec) once its arguments pass
+    model, state, codec = P.ssf2020(3, "ms-ssim", device="cpu", num_levels=2, mid_planes=8,
+                                    planes=8)
+    assert isinstance(model, P.ScaleSpaceFlow) and isinstance(codec, P.ScaleSpaceFlowCodec)
+    assert model.num_levels == 2 and set(state) == set(model.state_dict())
     for kind, codec_cls in (("elic", P.ElicCodec), ("charm", P.CharmCodec)):
         stub = type("Stub", (), {"CODEC_KIND": kind, "device": torch.device("cpu")})()
         assert type(make_codec(stub)) is codec_cls and make_codec(stub, coder="v1").coder == "v2"
