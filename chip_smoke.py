@@ -113,6 +113,26 @@ result line is printed then:
      the 268v params through the port's msgpack writer and reader, bitwise,
      into a fresh model. The ranks reset their launch counters just before
      their path and report them; those launches join the kernels line;
+  10b. tp phase (each line carries the card's name and power limit): 2
+     gloo ranks sharing the card on a {"tp": 2} mesh, 268v bf16: [tp_train]
+     one remat training step and a second, timed (Trainer with the tp mesh:
+     the attention and MLP weights of the 16-head towers split, 8 heads of
+     64 a rank, the 5-head hyper attention whole) against the same seeded
+     init, noise and rng in this process at the same batch: the first
+     step's metrics within DP_METRIC_RTOL, the update's L1 within
+     DP_UPDATE_RTOL and no element past twice the larger Adam rate, the
+     replicated parameters bitwise equal across the ranks after both steps,
+     the gathered parameters' names and shapes the one-process model's,
+     K4, K5 and K6 on each rank; each rank's step s, tp all-reduce s
+     (forward and backward), peak and launches; [tp_codec] compress and
+     decompress of one 268v field on the same 2 ranks: both ranks' strings
+     byte-identical, each rank's decode equal to its encoder's symbols,
+     K1, K2 and K3 launched with the y stream sorted and kernel-safe; the
+     tp g_s on the tp's symbols and the tp h_s on seeded z symbols within
+     TP_XHAT_RTOL of the one-process towers; against the one-process
+     roundtrip z symbols equal, at most TP_MOVED_MAX of the y symbols
+     moved and none by more than one, bytes within TP_RD_RTOL and x_hat's
+     squared difference within TP_MOVED_MAX of its square;
   11. zoo phase (each line carries the card's name and power limit):
      mbt2018-mean at a small width (N=32, M=48) on the card against the same
      weights on the CPU (streams byte-identical, x_hat within ZOO_XHAT_RTOL);
@@ -260,15 +280,16 @@ the last is a JSON object listing every kernel (the float32 K4, K5 and K6
 rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
 of the bf16 paths, the calibration's, the calibrated roundtrip's and the
-bench's included, and dp_train's and remat_dots'; the float32 rows those
-of the train CLI too, and the float32 K4 row recompress's, whose K1-K3
-launches join those rows; the head-dim-72 rows those of the hyper_width
-path in their dtype); the last is {"ok": true, "device": {...}}. It needs
+bench's included, and dp_train's, remat_dots' and the tp phase's; the
+float32 rows those of the train CLI too, and the float32 K4 row
+recompress's, whose K1-K3 launches join those rows; the head-dim-72 rows
+those of the hyper_width path in their dtype); the last is {"ok": true, "device": {...}}. It needs
 one card and no network.
 
     python3 chip_smoke.py --coder
     python3 chip_smoke.py --perm
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --tp
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --variants
@@ -278,9 +299,10 @@ one card and no network.
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
-floor or host breakdown), only the dist phases (10), only the zoo phase
-(11), only the serve phase (12), only the variants phase (13), only the
-context phase (14), or only the video phase (15), and print no result
+floor or host breakdown), only the dist phases (10), only the tp phase
+(10b), only the zoo phase (11), only the serve phase (12), only the
+variants phase (13), only the context phase (14), or only the video phase
+(15), and print no result
 line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
@@ -2028,8 +2050,11 @@ dev = resolve_device("cuda")
 rank = init_distributed(backend="gloo", device=dev)
 dev = torch.device("cuda", torch.cuda.current_device())
 res = {"rank": rank}
-mesh = make_mesh({"dp": -1}, device_type="cuda")
-if mode == "recompress":
+mesh = make_mesh({"tp" if mode == "tp" else "dp": -1}, device_type="cuda")
+if mode == "tp":
+    import chip_smoke
+    res.update(chip_smoke.tp_rank(mesh, dev, args))
+elif mode == "recompress":
     from cra5_tpu_torch.api.bitstream import load_bin
     from cra5_tpu_torch.tools import recompress
     torch.cuda.synchronize(); kernels.reset_launch_counts(); torch.cuda.reset_peak_memory_stats()
@@ -2318,6 +2343,301 @@ def phase_dp_train(dev, card: str) -> dict:
         f"{DP_METRIC_RTOL} ({ranks[0]['metrics']}); update L1 rel diff {rel:.4g} (bound "
         f"{DP_UPDATE_RTOL}); worst element {worst:.3g} (bound {2 * step_max:.3g})  ({card})")
     return dict(launches=_sum_launches(*[r["launches"] for r in ranks]))
+
+
+# The tp codec against one process. Both run bf16 towers, and the tp one
+# sums its row-parallel partial products in float32 in another order than
+# one GEMM, so a bf16 activation may round to its neighbour: a y symbol
+# near a rounding edge then moves by one, and x_hat moves where that
+# symbol decodes (max |x_hat - one| 0.059 of 0.711 at 268v on an H100,
+# 0.42% of the y symbols moved; PERF.md). So the decoders are held on the
+# same inputs: the tp g_s on the tp's symbols and means, and the tp h_s on
+# seeded z symbols in [-8, 8] (the seeded field's z symbols are all 0,
+# whose h_s output is 0 at any arithmetic), against the one-process
+# towers, bounded as the main path's bf16 attention outputs are
+# (max |tp - one| <= TP_XHAT_RTOL * max |one|). The encoders are held by
+# what that cause allows: z symbols equal, at most TP_MOVED_MAX of the y
+# symbols moved, none by more than one. The roundtrips are held by their
+# bytes within TP_RD_RTOL, as the dp phase holds its metrics, and by
+# x_hat's squared difference from the one-process x_hat within
+# TP_MOVED_MAX of that x_hat's square: a symbol moved by one moves y_hat
+# by one against its |y_hat|, so the share of x_hat's energy that moves
+# is of the order of the moved share times 1 / mean(y_hat^2).
+TP_XHAT_RTOL = FLASH_OUT_RTOL
+TP_RD_RTOL = DP_METRIC_RTOL
+TP_MOVED_MAX = 1e-2
+
+
+def tp_rank(mesh, dev, args: dict) -> dict:
+    """One rank of the tp phase (in RANK_SCRIPT): the 268v bf16 remat
+    training step and a second, timed; then the codec roundtrip of the
+    field on a tp-placed model. Both ranks run every collective in the
+    same order; rank 0 writes the gathered parameters and x_hat."""
+    import dataclasses
+    import hashlib
+    import pickle
+
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
+    from cra5_tpu_torch.parallel import fetch_tree, parallelize_, placement_of, process_index
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+    from cra5_tpu_torch.train.checkpoints import save_variables
+
+    rank, res = process_index(), {}
+    sync = lambda: torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    field = np.load(args["field"])
+    cfg = dataclasses.replace(vaeformer_268(), remat=True)
+    tr = Trainer(VAEformer(cfg, dtype=torch.bfloat16, device=dev), TrainerConfig(), mesh=mesh,
+                 seed=args["seed"])
+    batch = tr.shard_batch(torch.from_numpy(field) * 0.5)
+    sync()
+    t0 = time.perf_counter()
+    state = tr.init_state(batch)
+    sync()
+    t1 = time.perf_counter()
+    tp, placement = tr.model.tp, placement_of(tr.model)
+    tp.timing = {}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, m = tr._step_fn(state, batch, args["rng"])
+    sync()
+    t2 = time.perf_counter()
+    res.update(init_s=t1 - t0, first_s=t2 - t1, first_tp=dict(tp.timing),
+               launches=kernels.launch_counts(), metrics={k: float(v) for k, v in m.items()},
+               heads=sorted({(a.num_heads, a.local_heads) for a in tr.model.modules()
+                             if hasattr(a, "local_heads")}))
+    t0 = time.perf_counter()
+    full = fetch_tree(state.params, mesh, placement)
+    res["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        save_variables(args["params"], full, model=tr.model)
+    del full
+    torch.distributed.barrier()
+    tp.timing = {}
+    sync()
+    t0 = time.perf_counter()
+    tr._step_fn(state, batch, args["rng"])  # a second step, timed warm
+    sync()
+    res.update(step_s=time.perf_counter() - t0, tp_timing=dict(tp.timing),
+               peak=torch.cuda.max_memory_allocated(dev))
+    digest = hashlib.sha256()
+    for k in sorted(state.params):
+        if placement[k] is None:
+            digest.update(state.params[k].detach().cpu().numpy().tobytes())
+    res["replicated"] = (sum(v is None for v in placement.values()), digest.hexdigest())
+    del tr, state, batch, m
+    torch.cuda.empty_cache()
+
+    model = VAEformer(vaeformer_268(), dtype=torch.bfloat16, device=dev).reset_parameters(
+        args["seed"])
+    parallelize_(model, mesh)
+    codec = VAEformerCodec(model)
+    codec.update()
+    model.tp.timing = {}
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = codec.compress(field)
+    sync()
+    t1 = time.perf_counter()
+    x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    sync()
+    t2 = time.perf_counter()
+    res.update(codec_launches=kernels.launch_counts(), compress_s=t1 - t0,
+               decompress_s=t2 - t1, codec_tp=dict(model.tp.timing))
+    with torch.inference_mode():
+        enc = model.encode_symbols(torch.from_numpy(field).to(dev))
+    z_dec, y_dec = bench.decode_symbols(codec, out["strings"], out["z_shape"])
+    res["symbols_exact"] = bool(torch.equal(z_dec, enc["z_sym"])
+                                and torch.equal(y_dec, enc["y_sym"]))
+    res["strings"] = hashlib.sha256(pickle.dumps(out["strings"])).hexdigest()
+    res["y_header"] = list(parse_v2_header(out["strings"][0][0]))
+    with torch.inference_mode():
+        means = model.scales_from_z_symbols(z_dec)[1]
+        probe = model.scales_from_z_symbols(torch.from_numpy(np.load(args["z_probe"])).to(dev))
+    if rank == 0:
+        np.save(args["x_hat"], x_hat.float().cpu().numpy())
+        with open(args["streams"], "wb") as f:
+            pickle.dump(out["strings"], f)
+        torch.save({"z": z_dec.cpu(), "y": y_dec.cpu(), "means": means.cpu(),
+                    "probe": [t.float().cpu() for t in probe]}, args["symbols"])
+    del model, codec, enc, x_hat, means, probe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tp(dev, card: str) -> dict:
+    """Tensor parallelism on 2 gloo ranks sharing the card (NCCL refuses
+    two ranks on one device), a {"tp": 2} mesh, 268v bf16: the training
+    step against one step in this process (the pattern of phase_dp_train,
+    at the same batch of 1), then the codec roundtrip against the
+    one-process roundtrip (phase 10b of the docstring). The one-process
+    models are freed before the ranks start. Returns the launches of the
+    ranks' paths: the first step's and the roundtrip's."""
+    import dataclasses
+    import os
+    import pickle
+    import tempfile
+
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
+    from cra5_tpu_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(vaeformer_268(), remat=True)
+    field = np.random.default_rng(SEED).standard_normal((1, cfg.in_chans, *cfg.img_size),
+                                                        np.float32)
+    tcfg = TrainerConfig()
+    tr = Trainer(VAEformer(cfg, dtype=torch.bfloat16, device=dev), tcfg, seed=SEED)
+    batch = tr.shard_batch(torch.from_numpy(field) * 0.5)
+    state = tr.init_state(batch)
+    init = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = tr._step_fn(state, batch, SEED + 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    one = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+    one_m = {k: float(v) for k, v in m.items()}
+    t0 = time.perf_counter()
+    tr._step_fn(state, batch, SEED + 1)  # a second step, timed warm
+    torch.cuda.synchronize()
+    one_s, one_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    del tr, state, batch, m
+    torch.cuda.empty_cache()
+    model = VAEformer(vaeformer_268(), dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    codec = VAEformerCodec(model)
+    codec.update()
+    one_out = codec.compress(field)
+    one_x = codec.decompress(one_out["strings"], one_out["z_shape"])["x_hat"].float().cpu()
+    with torch.inference_mode():
+        enc = model.encode_symbols(torch.from_numpy(field).to(dev))
+        one_y, one_z = enc["y_sym"].cpu(), enc["z_sym"].cpu()
+        del enc
+    z_probe = np.random.default_rng(SEED + 2).integers(-8, 9, one_z.shape).astype(np.int32)
+    with torch.inference_mode():
+        one_probe = [t.float().cpu() for t in
+                     model.scales_from_z_symbols(torch.from_numpy(z_probe).to(dev))]
+    del model, codec
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = dict(field=os.path.join(tmp, "field.npy"), params=os.path.join(tmp, "p.pt"),
+                    x_hat=os.path.join(tmp, "x_hat.npy"),
+                    streams=os.path.join(tmp, "streams.pkl"),
+                    symbols=os.path.join(tmp, "symbols.pt"),
+                    z_probe=os.path.join(tmp, "z_probe.npy"), seed=SEED, rng=SEED + 1)
+        np.save(args["field"], field)
+        np.save(args["z_probe"], z_probe)
+        t0 = time.perf_counter()
+        ranks = run_ranks("tp", args)
+        wall = time.perf_counter() - t0
+        tp = torch.load(args["params"])["params"]
+        x_hat = torch.from_numpy(np.load(args["x_hat"]))
+        with open(args["streams"], "rb") as f:
+            streams = pickle.load(f)
+        sym = torch.load(args["symbols"])
+
+    # (a) training
+    if {k: tuple(v.shape) for k, v in tp.items()} != {k: tuple(v.shape) for k, v in one.items()}:
+        raise RuntimeError("[tp_train] the gathered parameters' names or shapes differ from "
+                           "the one-process model's")
+    bad = {k: (v, ranks[0]["metrics"][k]) for k, v in one_m.items()
+           if not abs(ranks[0]["metrics"][k] - v) <= DP_METRIC_RTOL * abs(v)}
+    l1_diff = sum(float((tp[k] - one[k]).abs().sum()) for k in one)
+    l1_upd = sum(float((one[k] - init[k]).abs().sum()) for k in one)
+    worst = max(float((tp[k] - one[k]).abs().max()) for k in one)
+    rel = l1_diff / l1_upd
+    step_max = max(tcfg.learning_rate, tcfg.aux_learning_rate)  # Adam's first step, at most
+    if bad or not rel <= DP_UPDATE_RTOL or not worst <= 2 * step_max * 1.001:
+        raise RuntimeError(f"[tp_train] 2 tp ranks vs one process: metrics off {bad}, update "
+                           f"L1 rel {rel}, worst element {worst}")
+    if ranks[0]["replicated"] != ranks[1]["replicated"]:
+        raise RuntimeError(f"[tp_train] the replicated parameters differ across the ranks: "
+                           f"{[r['replicated'] for r in ranks]}")
+    for r in ranks:
+        _require(r["launches"], ("flash_attention_forward", "flash_attention_backward_dq",
+                                 "flash_attention_backward_dkv"), "tp_train")
+    for r in ranks:
+        log(f"[tp_train] rank {r['rank']}: heads (whole, local) {r['heads']}; init (rank 0's "
+            f"broadcast, the cut) {r['init_s']:.3f} s; first step {r['first_s']:.4f} s (tp "
+            f"all-reduce {r['first_tp']}); second step {r['step_s']:.4f} s, its tp all-reduce "
+            f"forward {r['tp_timing'].get('forward_s', 0.0):.4f} s + backward "
+            f"{r['tp_timing'].get('backward_s', 0.0):.4f} s over "
+            f"{r['tp_timing'].get('calls', 0)} calls; gather {r['gather_s']:.3f} s; peak "
+            f"{r['peak'] / 2**30:.2f} GiB; first step's launches {r['launches']}  ({card})")
+    log(f"[tp_train] one process: first step {first_s:.4f} s, second {one_s:.4f} s, peak "
+        f"{one_peak / 2**30:.2f} GiB; first step's metrics {one_m}  ({card})")
+    log(f"[tp_train] 2 tp ranks vs one process at batch 1: metrics within rtol {DP_METRIC_RTOL} "
+        f"({ranks[0]['metrics']}); update L1 rel diff {rel:.4g} (bound {DP_UPDATE_RTOL}); worst "
+        f"element {worst:.3g} (bound {2 * step_max:.3g}); {ranks[0]['replicated'][0]} replicated "
+        f"parameters bitwise equal across the ranks; the gathered parameters' names and shapes "
+        f"the one-process model's  ({card})")
+
+    # (b) the codec
+    if ranks[0]["strings"] != ranks[1]["strings"]:
+        raise RuntimeError("[tp_codec] the two ranks' strings differ")
+    if not all(r["symbols_exact"] for r in ranks):
+        raise RuntimeError("[tp_codec] a rank's decode differs from its encoder's symbols")
+    yh = ranks[0]["y_header"]
+    for r in ranks:
+        _require(r["codec_launches"], RANS, "tp_codec")
+        _require(r["codec_launches"], ("flash_attention_forward",), "tp_codec")
+    if not (yh[4] and yh[5]):
+        raise RuntimeError(f"[tp_codec] y header {yh}: expected sorted and kernel-safe (K3)")
+    # the tp decoders against the one-process ones on the same inputs
+    model = VAEformer(vaeformer_268(), dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    with torch.inference_mode():
+        ref = model.reconstruct_from_y_symbols(sym["y"].to(dev), sym["means"].to(dev))
+        ref = ref.float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    err = float((x_hat - ref).abs().max())
+    bound = TP_XHAT_RTOL * float(ref.abs().max())
+    probe = [(float((t - o).abs().max()), TP_XHAT_RTOL * float(o.abs().max()))
+             for t, o in zip(sym["probe"], one_probe)]
+    if x_hat.shape != ref.shape or not torch.isfinite(x_hat).all() or not err <= bound \
+            or not all(0 < b and e <= b for e, b in probe):
+        raise RuntimeError(f"[tp_codec] the tp decoders vs one process on the same inputs: "
+                           f"x_hat {tuple(x_hat.shape)} err {err} (bound {bound}); h_s on the "
+                           f"probe (scales, means) err and bound {probe}")
+    # the encoders and the two roundtrips
+    nbytes = sum(len(b) for group in streams for b in group)
+    one_bytes = sum(len(b) for group in one_out["strings"] for b in group)
+    moved = sym["y"] != one_y
+    moved_share = float(moved.float().mean())
+    moved_max = int((sym["y"] - one_y).abs().max())
+    rel_mse = float((x_hat - one_x).square().mean() / one_x.square().mean())
+    if not (torch.equal(sym["z"], one_z) and moved_share <= TP_MOVED_MAX and moved_max <= 1
+            and abs(nbytes - one_bytes) <= TP_RD_RTOL * one_bytes
+            and rel_mse <= TP_MOVED_MAX):
+        raise RuntimeError(f"[tp_codec] tp vs one-process roundtrip: z symbols equal "
+                           f"{torch.equal(sym['z'], one_z)}, y symbols moved {moved_share} "
+                           f"(max |diff| {moved_max}), bytes {nbytes} vs {one_bytes}, x_hat's "
+                           f"relative squared difference {rel_mse}")
+    rt_err = float((x_hat - one_x).abs().max())
+    mean_err = float((x_hat - one_x).abs().mean())
+    for r in ranks:
+        log(f"[tp_codec] rank {r['rank']}: compress {r['compress_s']:.4f} s, decompress "
+            f"{r['decompress_s']:.4f} s (tp all-reduce {r['codec_tp']}); launches "
+            f"{r['codec_launches']}  ({card})")
+    log(f"[tp_codec] 2 tp ranks: strings byte-identical across the ranks, each rank's decode "
+        f"equal to its encoder's symbols, the y stream sorted and kernel-safe (K3); the tp "
+        f"decoders vs one process on the same inputs: g_s on the tp's symbols x_hat max err "
+        f"{err:.4g} (bound {TP_XHAT_RTOL} x max|ref| = {bound:.4g}), h_s on the probe scales "
+        f"{probe[0][0]:.4g} (bound {probe[0][1]:.4g}), means {probe[1][0]:.4g} (bound "
+        f"{probe[1][1]:.4g})  ({card})")
+    log(f"[tp_codec] tp vs one-process roundtrip: z symbols equal; {int(moved.sum())} of "
+        f"{moved.numel()} y symbols moved ({moved_share:.4g}, bound {TP_MOVED_MAX}; max |diff| "
+        f"{moved_max}, bound 1); bytes {nbytes} vs {one_bytes} (within {TP_RD_RTOL}); x_hat's "
+        f"squared difference over its square {rel_mse:.4g} (bound {TP_MOVED_MAX}), max err "
+        f"{rt_err:.4g}, mean {mean_err:.4g}; {wall:.2f} s for both ranks, process start "
+        f"included; the phase {time.perf_counter() - t_phase:.1f} s  ({card})")
+    del one, init, tp
+    return {"tp_train": _sum_launches(*[r["launches"] for r in ranks]),
+            "tp_codec": _sum_launches(*[r["codec_launches"] for r in ranks])}
 
 
 def phase_remat_dots(dev, card: str) -> dict:
@@ -3834,10 +4154,10 @@ def phase_video(dev, card: str) -> dict:
 
 
 def main(args) -> int:
-    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--zoo"], ["--serve"],
+    if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--tp"], ["--zoo"], ["--serve"],
                     ["--variants"], ["--context"], ["--video"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --zoo | "
-                         f"--serve | --variants | --context | --video]; got {args}")
+        raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --tp | "
+                         f"--zoo | --serve | --variants | --context | --video]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3853,6 +4173,8 @@ def main(args) -> int:
             coder_rows(dev, np.random.default_rng(SEED), floor=False)
         elif args == ["--dist"]:
             phase_dist(dev, CARD)
+        elif args == ["--tp"]:
+            phase_tp(dev, CARD)
         elif args == ["--zoo"]:
             phase_zoo(dev, CARD)
         elif args == ["--serve"]:
@@ -3885,6 +4207,9 @@ def main(args) -> int:
     api_launches = phase_api(dev)
     torch.cuda.empty_cache()
     dist_launches = phase_dist(dev, CARD)
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp(dev, CARD)
+    torch.cuda.empty_cache()
     zoo_launches = phase_zoo(dev, CARD)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(dev, CARD)
@@ -3905,7 +4230,8 @@ def main(args) -> int:
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
-             "train_cli": cli_res["launches"], **dist_launches, "zoo": zoo_launches,
+             "train_cli": cli_res["launches"], **dist_launches, **tp_launches,
+             "zoo": zoo_launches,
              **serve_launches, **variants_launches, "context": context_launches,
              "video": video_launches}
     sources = {
@@ -3960,8 +4286,8 @@ def main(args) -> int:
     # every other path is bf16 at head dim 64 (vivt69, float32, has no
     # sequence long enough for a flash kernel: its coder launches only)
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
-            "remat_dots", "decode_profile", "variants_codec", "variants_vae", "variants_train",
-            "finalize")
+            "remat_dots", "tp_train", "tp_codec", "decode_profile", "variants_codec",
+            "variants_vae", "variants_train", "finalize")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
             "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),

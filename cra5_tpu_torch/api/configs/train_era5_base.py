@@ -5,8 +5,8 @@ Counterpart of ``cra5_tpu/api/configs/train_era5_base.py``, key for key.
 Read by ``python -m cra5_tpu_torch.tools.train`` through
 ``utils/config.py`` (``_base_`` inheritance, ``{{$ENV:default}}``
 substitution). ``mesh = dict(dp=-1)`` takes every visible device
-data-parallel; on one card that is the one-device trainer, and a mesh of
-more devices waits for ROADMAP.md queue A4.
+data-parallel; on one card that is the one-device trainer. A mesh such as
+``dict(dp=2, tp=2)`` adds tensor parallelism over the ranks.
 """
 
 local_root = "{{$CRA5_ERA5_ROOT:/data/era5_np}}"

@@ -16,6 +16,13 @@ package (flax's default ``param_dtype``). The promotions match too:
 ``z_sym.to(dtype) + medians`` is float32 on both the encode and the decode
 side, so the hyper decoder sees identical inputs there, and the GC indexes
 are built from float32 scales.
+
+Tensor parallelism: ``parallel.parallelize_(model, mesh)`` places a whole
+``VAEformer`` on the mesh's tp axis, and a ``VAEformerCodec`` of the placed
+model runs ``compress`` and ``decompress`` on every rank of the tp group
+together (their collectives pair up). After each row-parallel sum every
+rank holds the same activations, so every rank writes byte-identical
+streams; let only the primary write them to files.
 """
 
 from __future__ import annotations

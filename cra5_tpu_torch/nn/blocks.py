@@ -20,6 +20,14 @@ kernel by dtype and head dim: tensor-core kernels at head dim 64 in bf16
 and float32 and, for K4 and K6, at the other head dims of
 ``anydim_supports``; SIMT kernels for the rest), so nothing the TPU
 kernels compute is computed plainly on the card.
+
+Tensor parallelism (``parallel/tensor_parallel.py::parallelize_``) gives
+a ``Dense`` its shard (column- or row-parallel by the dim it is cut over)
+and an ``Attention`` its local head count: each rank then attends over
+its own heads at the fixed head dim,
+and ``_use_flash`` decides on the local ``batch_heads`` (the 268v global
+blocks, 10 368 tokens, still take K4/K5/K6, at 8 heads of 64 when
+tp = 2).
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..parallel.sharding import full_shape, shard_tensor
+from ..parallel.tensor_parallel import CopyToTP, ReduceFromTP
 from .init import init_linear_
 
 FLASH_MIN_SEQ = 2048
@@ -53,16 +63,56 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
 
 
 class Dense(nn.Linear):
-    """A linear layer with float32 parameters that computes in ``dtype``."""
+    """A linear layer with float32 parameters that computes in ``dtype``.
+
+    Under tensor parallelism (``parallel_``) it holds one rank's shard of a
+    weight cut by a ``sharding.Split``. Cut over dim 0, its output features,
+    it is column-parallel: the input passes ``CopyToTP``, whose backward
+    sums the input gradient over the tp group. Cut over dim 1, its input
+    features, it is row-parallel: its products are partial sums, taken in
+    float32 and summed over the group (``ReduceFromTP``), and the bias is
+    added once, after the sum, before the cast to ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
+        self.tp = None  # parallel.tensor_parallel.TPGroup under tensor parallelism
+        self.split = None  # the weight's sharding.Split under tensor parallelism
+
+    def parallel_(self, tp, split) -> None:
+        """Hold rank ``tp.rank``'s shard of the weight cut by ``split``;
+        the parameters are cut by the caller."""
+        self.tp, self.split = tp, split
+        if split[0] == 0:
+            self.out_features //= tp.size
+        else:
+            self.in_features //= tp.size
+
+    @torch.no_grad()
+    def init_(self, generator=None, scale: float = 1.0) -> None:
+        """``init_linear_``; a Dense that holds a shard draws the full
+        weight and keeps its shard, so every rank holds its part of the
+        one-device init."""
+        if self.tp is None:
+            init_linear_(self, generator, scale)
+            return
+        out_f, in_f = full_shape(self.weight.shape, self.split, self.tp.size)
+        full = Dense(in_f, out_f, bias=False, device=self.weight.device)
+        init_linear_(full, generator, scale)
+        self.weight.copy_(shard_tensor(full.weight, self.split, self.tp.rank, self.tp.size))
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         bias = self.bias.to(d) if self.bias is not None else None
+        if self.tp is not None and self.split[0] == 1:
+            partial = F.linear(x.to(d).float(), self.weight.to(d).float())
+            total = ReduceFromTP.apply(partial, self.tp)
+            return (total if bias is None else total + bias.float()).to(d)
+        if self.tp is not None:
+            x = CopyToTP.apply(x, self.tp)
         return F.linear(x.to(d), self.weight.to(d), bias)
 
 
@@ -91,8 +141,8 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_features, out_features, dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None) -> None:
-        init_linear_(self.fc1, generator)
-        init_linear_(self.fc2, generator, self.out_init_scale)
+        self.fc1.init_(generator)
+        self.fc2.init_(generator, self.out_init_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -105,20 +155,22 @@ class Attention(nn.Module):
                  proj_init_scale: float = 1.0, dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads = num_heads  # this rank's heads (num_heads / tp when split)
+        self.head_dim = dim // num_heads
         self.proj_init_scale = proj_init_scale
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, device=device)
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None) -> None:
-        init_linear_(self.qkv, generator)
-        init_linear_(self.proj, generator, self.proj_init_scale)
+        self.qkv.init_(generator)
+        self.proj.init_(generator, self.proj_init_scale)
 
     def _mha(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
-        hd = C // self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        B, N, _ = x.shape
+        h, hd = self.local_heads, self.head_dim
+        qkv = self.qkv(x).reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
         out = _attend(qkv[0], qkv[1], qkv[2], hd ** -0.5)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B, N, h * hd))
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         return self._mha(x)

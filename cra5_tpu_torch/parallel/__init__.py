@@ -16,11 +16,15 @@ from .distributed import (
 from .mesh import local_device_count, make_mesh
 from .sharding import (
     batch_sharding,
+    gather_tensor,
     mesh_param_specs,
     replicate,
+    shard_tensor,
     shard_variables,
+    tp_placement,
     vaeformer_param_specs,
 )
+from .tensor_parallel import TPGroup, parallelize_, placement_of
 
 __all__ = [
     "make_mesh",
@@ -30,6 +34,12 @@ __all__ = [
     "replicate",
     "vaeformer_param_specs",
     "shard_variables",
+    "tp_placement",
+    "shard_tensor",
+    "gather_tensor",
+    "TPGroup",
+    "parallelize_",
+    "placement_of",
     "barrier",
     "kv_barrier",
     "fetch_tree",

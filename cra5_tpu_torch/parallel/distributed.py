@@ -7,6 +7,10 @@ device (a rank), joined into one ``torch.distributed`` world:
   - training uses the mesh's dp axis: each rank feeds its local batch
     (``make_global_batch``), and the gradients are all-reduced over dp
     (``train/loop.py``);
+  - tensor parallelism uses the mesh's tp axis: the ranks of a tp group
+    hold shards of the attention and MLP weights (``put_tree`` cuts them,
+    ``fetch_tree`` joins them; ``tensor_parallel.py`` has the
+    collectives) and see the same batch;
   - archive recompression is embarrassingly parallel: the files are split
     over the ranks (``local_work_slice``) and each rank codes its own.
 
@@ -210,29 +214,50 @@ def all_reduce_mean_(tensors: List[torch.Tensor], group=None) -> None:
 
 def put_tree(mesh, tree: Dict[str, torch.Tensor], specs: Optional[Dict[str, Any]] = None
              ) -> Dict[str, torch.Tensor]:
-    """Replicate a tree (a dict of tensors) over the mesh: every rank takes
-    the values of the mesh's first rank, in place (a broadcast; a no-op
-    single-process). A spec other than replicated is tensor parallelism,
-    which waits for ROADMAP.md queue A4b."""
-    if specs is not None and any(tuple(s) for s in specs.values()):
-        raise NotImplementedError("sharded placements (tensor parallelism) wait for "
-                                  "ROADMAP.md queue A4b; the port replicates parameters")
+    """Place a tree (a dict of full tensors) over the mesh: every rank
+    takes the values of the mesh's first rank, in place (a broadcast; a
+    no-op single-process), and a leaf that ``specs`` (a
+    ``sharding.Placement``: name -> split or None) splits is cut to this
+    rank's shard at its index on the mesh's tp axis. The result maps each
+    name to this rank's tensor: the given one where it is replicated, a
+    new one where it is split."""
+    from .sharding import shard_variables
+
     src = int(mesh.mesh.flatten()[0]) if mesh is not None else 0
     broadcast_(list(tree.values()), src=src)
-    return tree
+    if not specs or not any(specs.values()):
+        return tree
+    return shard_variables(mesh, tree, specs)
 
 
-def fetch_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """A full CPU copy of a tree: a sharded ``DTensor`` leaf is all-gathered,
-    any other tensor (replicated) is copied as it is."""
+def fetch_tree(tree: Dict[str, Any], mesh=None, specs: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
+    """A full CPU copy of a tree: a sharded ``DTensor`` leaf is
+    all-gathered, a leaf that ``specs`` (a ``sharding.Placement``) splits
+    over the mesh's tp axis is all-gathered over that axis and joined into
+    its full layout (``sharding.gather_tensor``; every rank of the tp group
+    calls), any other tensor (replicated) is copied as it is."""
     from torch.distributed.tensor import DTensor
 
-    def fetch(leaf):
+    from .mesh import axis_group
+    from .sharding import gather_tensor
+
+    group, tp, _ = axis_group(mesh, "tp")
+
+    def fetch(name, leaf):
         if isinstance(leaf, DTensor):
             leaf = leaf.full_tensor()
-        return leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else leaf
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        leaf = leaf.detach()
+        split = (specs or {}).get(name)
+        if split is not None and tp > 1:
+            parts = [torch.empty_like(leaf) for _ in range(tp)]
+            dist.all_gather(parts, leaf.contiguous(), group=group)
+            leaf = gather_tensor(parts, split)
+        return leaf.cpu()
 
-    return {k: fetch(v) for k, v in tree.items()}
+    return {k: fetch(k, v) for k, v in tree.items()}
 
 
 def local_work_slice(n_items: int) -> slice:

@@ -15,7 +15,7 @@ Config keys (all optional except model):
   dataset    = dict(type="ERA5NpyDataset", ..., batch_size=...) |
                dict(type="synthetic", shape=(B, C, H, W))
   trainer    = dict(learning_rate=..., lmbda=..., use_ema=..., ...)
-  mesh       = dict(dp=-1) | dict(dp=4, tp=2)
+  mesh       = dict(dp=-1) | dict(dp=2, tp=2) | dict(tp=-1)
   steps      = the run's whole step budget (the schedule's horizon)
 
 It runs on the card unless ``--device cpu``. Under torchrun (or
@@ -26,11 +26,13 @@ It runs on the card unless ``--device cpu``. Under torchrun (or
   torchrun --nproc-per-node N -m cra5_tpu_torch.tools.train CONFIG.py ...
 
 A mesh is resolved over the world's ranks as the JAX package resolves it
-over its devices (-1: the axis takes every rank); a dp axis of several
-ranks trains data-parallel (each rank reads its own batches, seeded by
-seed + rank), a mesh of one device is the one-device trainer, and a tp
-axis of more than one device raises (tensor parallelism, ROADMAP.md queue
-A4b). ``--resume`` takes a directory with a ``last_state`` pointer, a
+over its devices (-1: the axis takes what the others leave), and a mesh
+of more devices than the world raises the JAX package's ValueError. A dp
+axis of several ranks trains data-parallel (each dp rank reads its own
+batches, seeded by seed + its dp index), a tp axis of several ranks
+splits the attention and MLP weights over them (the ranks of a tp group
+read the same batches; ``train/loop.py``), and a mesh of one device is
+the one-device trainer. ``--resume`` takes a directory with a ``last_state`` pointer, a
 ``state_*`` file (parameters, moments, EMA and step) or a ``step_*``
 parameters file (optimizer and EMA start fresh), each ``.pt`` or the JAX
 package's ``.msgpack``.
@@ -111,8 +113,9 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
     args = parser.parse_args(argv)
 
     from ..device import resolve_device
-    from ..parallel import init_distributed, make_mesh, process_count, process_index
-    from ..parallel.sharding import check_no_tp
+    from ..parallel import init_distributed, make_mesh, process_count, shard_variables
+    from ..parallel.mesh import axis_group
+    from ..parallel.tensor_parallel import placement_of
     from ..train import Trainer, TrainerConfig
     from ..train.checkpoints import load_variables, resolve_last_checkpoint
     from ..utils.config import Config
@@ -125,10 +128,8 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
     mesh = None
     if "mesh" in cfg:
         axes = dict(cfg["mesh"])
-        check_no_tp({k: v for k, v in axes.items() if v != -1})
         if mesh_devices(axes, process_count()) > 1:
             mesh = make_mesh(axes, device_type=device.type)
-            check_no_tp(mesh)
     model = build_model(cfg["model"], device=device)
     trainer_cfg = dict(cfg.get("trainer", {}))
     if trainer_cfg.get("scheduler") is not None:
@@ -144,7 +145,9 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
         tc.ckpt_dir = args.ckpt_dir
 
     trainer = Trainer(model, tc, mesh=mesh, seed=args.seed)
-    data = build_data(cfg.get("dataset"), seed=args.seed + process_index(), device=device)
+    # the ranks of a tp group train on the same batches
+    data = build_data(cfg.get("dataset"), seed=args.seed + axis_group(mesh, "dp")[2],
+                      device=device)
 
     state = None
     if args.resume:
@@ -164,6 +167,7 @@ def run(argv=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = N
             state = trainer.init_state(trainer.shard_batch(first))
             if set(params) != set(state.params):
                 raise ValueError(f"{resume}: parameter names differ from the model's")
+            params = shard_variables(mesh, params, placement_of(model))
             with torch.no_grad():
                 for k, p in state.params.items():
                     p.copy_(params[k])

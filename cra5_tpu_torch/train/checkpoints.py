@@ -22,10 +22,18 @@ returns its trained CDF tables beside the params under ``"_cdf_tables"``,
 as the JAX package's does. The port's own files are never written there.
 
 The ``last_checkpoint`` / ``last_state`` pointer files hold the newest path.
+
+Every file holds full tensors in the fused layout, also when a
+tensor-parallel run wrote it: ``full_state`` gathers a tp state's shards
+(``parallel.fetch_tree``) before the primary writes, and ``shard_state_``
+cuts a full state back to a rank's shards (``parallel.shard_variables``)
+after a load, so one file serves a one-process run, a tp run of any
+size and the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -252,3 +260,38 @@ def load_train_state(path: str, template: Any, model=None, scheduled: bool = Fal
         template.ema.steps = data["ema"]["steps"]
     template.step = data["step"]
     return template
+
+
+def full_state(state: Any, mesh, placement: Dict[str, Any]) -> Any:
+    """A full CPU copy of a tensor-parallel train state: the shards of the
+    params, both moments and the EMA all-gathered over the mesh's tp axis
+    into the fused layout (every rank of the tp group calls)."""
+    from ..parallel.distributed import fetch_tree
+
+    fetch = lambda tree: fetch_tree(tree, mesh, placement)
+    opt = dataclasses.replace(state.opt_state, mu=fetch(state.opt_state.mu),
+                              nu=fetch(state.opt_state.nu))
+    ema = None if state.ema is None else dataclasses.replace(state.ema,
+                                                             params=fetch(state.ema.params))
+    return dataclasses.replace(state, params=fetch(state.params), opt_state=opt, ema=ema)
+
+
+@torch.no_grad()
+def shard_state_(state: Any, full: Any, mesh, placement: Dict[str, Any]) -> Any:
+    """Copy a full train state into a tensor-parallel one in place: every
+    tensor cut to this rank's shard, the counts as they are."""
+    from ..parallel.sharding import shard_variables
+
+    def fill(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> None:
+        for k, v in shard_variables(mesh, src, placement).items():
+            dst[k].copy_(v)
+
+    fill(state.params, full.params)
+    fill(state.opt_state.mu, full.opt_state.mu)
+    fill(state.opt_state.nu, full.opt_state.nu)
+    state.opt_state.count = full.opt_state.count
+    if state.ema is not None:
+        fill(state.ema.params, full.ema.params)
+        state.ema.steps = full.ema.steps
+    state.step = full.step
+    return state

@@ -20,9 +20,18 @@ each forced by the framework:
     global batch's noise from ``step_generator(rng, step)`` and keeps its
     own rows (``entropy.ops.BatchRows``), so the dp step is the
     single-device step at the global batch. Rank 0's initial parameters
-    are broadcast, only rank 0 writes checkpoints, and a barrier follows.
-    Tensor parallelism (a tp axis of more than one device) waits for
-    ROADMAP.md queue A4b and raises.
+    are broadcast, only rank 0 writes checkpoints, and a barrier follows;
+  - under a mesh with a tp axis of several ranks (alone or with dp), the
+    model is placed on it at ``init_state`` (``parallel.parallelize_``:
+    rank 0's seeded init broadcast, each rank keeping its shards of the
+    attention and MLP weights), the ranks of a tp group see the same batch
+    and draw the same noise (the rows are keyed by the dp rank), the
+    gradients are averaged over dp only, the clip's norm sums the shards
+    over tp (``optim.py``), Adam and the EMA run on the shards, and the
+    checkpoints hold full tensors in the fused layout: ``save`` gathers
+    them and ``restore`` cuts them again (``checkpoints.full_state`` /
+    ``shard_state_``), so a tp run's files load into a one-process run and
+    into the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +45,12 @@ import numpy as np
 import torch
 
 from .checkpoints import (
+    full_state,
     load_train_state,
     resolve_last_checkpoint,
     save_train_state,
     save_variables,
+    shard_state_,
     write_last_checkpoint,
 )
 from ..entropy.ops import BatchRows
@@ -51,8 +62,8 @@ from ..parallel.distributed import (
     process_count,
     put_tree,
 )
-from ..parallel.mesh import axis_group
-from ..parallel.sharding import check_no_tp
+from ..parallel.mesh import axis_group, axis_size
+from ..parallel.tensor_parallel import parallelize_, placement_of
 from .ema import EmaState, ema_init, ema_update_
 from .loss import RateDistortionLoss, kl_weighted_loss
 from .optim import NetAuxAdam, OptState, make_net_aux_optimizers
@@ -103,7 +114,8 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
     ``dp_group`` of several ranks, ``batch`` is this rank's rows of the
     global batch (the ranks' local batches are equal in size, in rank
     order), and ``train_step.timing["allreduce_s"]`` holds the last step's
-    seconds in the gradient all-reduce."""
+    seconds in the gradient all-reduce. A model placed on a tp axis
+    (``model.tp``) clips by the norm of the whole tree."""
     import torch.distributed as dist
 
     rd = RateDistortionLoss(lmbda=cfg.lmbda, bpp_weight=cfg.bpp_weight)
@@ -149,7 +161,10 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
             stacked = torch.stack([metrics[k].detach().float() for k in names])
             all_reduce_mean_([stacked], dp_group)
             metrics = dict(zip(names, stacked.unbind()))
-        tx.update_(state.params, grads, state.opt_state)
+        tp = getattr(model, "tp", None)
+        split = [k for k, v in placement_of(model).items() if v is not None]
+        tx.update_(state.params, grads, state.opt_state, split=split,
+                   tp_group=tp.group if tp is not None else None)
         for p in state.params.values():
             p.grad = None
         if state.ema is not None:
@@ -167,9 +182,10 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, cfg: TrainerConfig = TrainerConfig(),
                  mesh=None, seed: int = 0):
         """``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) whose dp axis
-        the step averages its gradients over; None trains on one device."""
-        check_no_tp(mesh)
+        the step averages its gradients over and whose tp axis the model is
+        placed on; None trains on one device."""
         self.model, self.cfg, self.seed, self.mesh = model, cfg, seed, mesh
+        self.tp_size = axis_size(mesh, "tp")
         self.dp_group = axis_group(mesh, "dp")[0]
         self.tx = make_net_aux_optimizers(
             cfg.learning_rate, cfg.aux_learning_rate, cfg.max_grad_norm,
@@ -178,16 +194,23 @@ class Trainer:
         self._step_fn = make_train_step(model, self.tx, cfg, dp_group=self.dp_group)
 
     def init_state(self, example_batch: torch.Tensor) -> TrainState:
-        """Seeded init of the model's parameters (rank 0's on every rank),
-        zero moments, the EMA."""
+        """Seeded init of the model's parameters (rank 0's on every rank,
+        placed on the mesh's tp axis), zero moments, the EMA. A model
+        placed already draws its shards of the same init (``Dense.init_``
+        draws the full weight), and only its replicated parameters are
+        broadcast."""
         if process_count() > 1 and self.mesh is None:
             raise ValueError(
                 "multi-process training requires a mesh: pass one to Trainer(..., mesh=...) "
                 "(e.g. parallel.make_mesh({'dp': -1})) so the ranks know what to average over")
         self.model.reset_parameters(self.seed)
+        if self.tp_size > 1 and getattr(self.model, "tp", None) is None:
+            parallelize_(self.model, self.mesh)
+        elif process_count() > 1:
+            split = placement_of(self.model)
+            put_tree(self.mesh, {k: p.data for k, p in self.model.named_parameters()
+                                 if split.get(k) is None})
         params = dict(self.model.named_parameters())
-        if process_count() > 1:
-            put_tree(self.mesh, {k: p.data for k, p in params.items()})
         ema = ema_init(params) if self.cfg.use_ema else None
         return TrainState(step=0, params=params, opt_state=self.tx.init(params), ema=ema)
 
@@ -233,11 +256,16 @@ class Trainer:
 
     def save(self, state: TrainState) -> str:
         """Write a params-only checkpoint and the full resumable state, and
-        point ``last_checkpoint`` / ``last_state`` at them. Only the primary
-        rank writes (every rank holds the same state); a barrier follows."""
+        point ``last_checkpoint`` / ``last_state`` at them. Every rank calls:
+        a tp state is gathered into full tensors first; then only the
+        primary rank writes (every dp replica holds the same state), and a
+        barrier follows."""
         d = self.cfg.ckpt_dir
         path = os.path.join(d, f"step_{state.step}{_SUFFIX}")
         state_path = os.path.join(d, f"state_{state.step}{_SUFFIX}")
+        placement = placement_of(self.model)
+        if placement:
+            state = full_state(state, self.mesh, placement)
         if is_primary():
             save_variables(path, state.params, model=self.model)
             write_last_checkpoint(d, path)
@@ -277,11 +305,17 @@ class Trainer:
     def restore(self, example_batch: torch.Tensor, path: Optional[str] = None) -> TrainState:
         """Resume from a full train-state checkpoint (default: the
         ``last_state`` pointer under ``cfg.ckpt_dir``); a ``.msgpack`` path
-        is the JAX package's train state."""
+        is the JAX package's train state. Under tp the full tensors are cut
+        to this rank's shards."""
         if path is None:
             path = resolve_last_checkpoint(self.cfg.ckpt_dir, "last_state")
-        return load_train_state(path, self.init_state(self.shard_batch(example_batch)),
+        template = self.init_state(self.shard_batch(example_batch))
+        placement = placement_of(self.model)
+        if not placement:
+            return load_train_state(path, template, model=self.model, scheduled=self._scheduled)
+        full = load_train_state(path, full_state(template, self.mesh, placement),
                                 model=self.model, scheduled=self._scheduled)
+        return shard_state_(template, full, self.mesh, placement)
 
 
 def _chain_first(first, rest):

@@ -14,12 +14,19 @@ optax's, not ``torch.optim``'s:
 
 Parameters and moments are updated in place (the JAX package returns new
 trees); the gradients are consumed.
+
+Under tensor parallelism each rank holds shards of some parameters
+(``split``, their names) and whole copies of the rest. The clip's global
+norm then sums the shards' squares over the tp group (``tp_group``) and
+counts each replicated parameter once, as the norm of the whole tree;
+every rank gets the same norm, so the replicated parameters stay equal.
+Adam is elementwise and runs on the shards as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Union
+from typing import Collection, Dict, List, Optional, Union
 
 import torch
 
@@ -59,6 +66,21 @@ def _adam_(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch
     torch._foreach_add_(params, mu_hat, alpha=-lr)
 
 
+def _global_norm(grads: List[torch.Tensor], is_shard: List[bool], tp_group) -> torch.Tensor:
+    """The norm of the whole tree: the shards' squares summed over the tp
+    group, the replicated tensors' counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if tp_group is None or not any(is_shard):
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+
+    mask = torch.tensor(is_shard, device=norms.device)
+    squares = norms.square()
+    sharded = torch.where(mask, squares, 0.0).sum()
+    dist.all_reduce(sharded, group=tp_group)
+    return (torch.where(mask, 0.0, squares).sum() + sharded).sqrt()
+
+
 class NetAuxAdam:
     """``init(params) -> OptState``; ``update_(params, grads, state)``
     applies one update in place."""
@@ -76,15 +98,16 @@ class NetAuxAdam:
 
     @torch.no_grad()
     def update_(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                state: OptState) -> OptState:
+                state: OptState, split: Collection[str] = (), tp_group=None) -> OptState:
+        """``split``: the names of the parameters held as tensor-parallel
+        shards, whose squares the clip's norm sums over ``tp_group``."""
         groups = {True: [], False: []}
         for name in params:
             groups[is_aux(name)].append(name)
         net, aux = groups[False], groups[True]
         net_grads = [grads[k] for k in net]
         if net_grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(net_grads)))
+            norm = _global_norm(net_grads, [k in split for k in net], tp_group)
             factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                  self.max_grad_norm / norm)
             torch._foreach_mul_(net_grads, factor)

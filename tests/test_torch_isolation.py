@@ -47,7 +47,7 @@ def test_every_module_imports_with_jax_blocked():
         "bench", "tools.train", "train.calibrate", "data.era5", "data.prefetch", "utils.config",
         "utils.registry", "registry", "api.downloader", "api.configs.train_era5_base",
         "utils.msgpack", "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharding",
-        "ops.ring_attention", "tools.recompress", "train.checkpoints", "nn.conv", "nn.gdn",
+        "parallel.tensor_parallel", "ops.ring_attention", "tools.recompress", "train.checkpoints", "nn.conv", "nn.gdn",
         "models.google", "models.waseda", "models.latent_codecs", "models.codec", "models.zoo",
         "tools.eval_model", "tools.convert_torch", "tools.serve", "tools.decode_profile",
         "tools.era5_eval", "tools.forecast_eval", "tools.update_model", "utils.profiling",

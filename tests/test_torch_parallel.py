@@ -1,7 +1,7 @@
 """The port's mesh resolution, Megatron specs and work split against the
 JAX package's (``cra5_tpu/parallel``), on the 8 virtual CPU devices of
-``tests/conftest.py``; and what waits for ROADMAP.md queue A4b (tensor
-parallelism) raises."""
+``tests/conftest.py``; and the tensor-parallel placement cut to each tp
+rank's shards (the ranks themselves: tests/test_torch_tensor_parallel.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +22,6 @@ from cra5_tpu_torch.parallel import (batch_sharding, distributed, local_work_sli
                                      mesh_param_specs, replicate, shard_variables,
                                      vaeformer_param_specs)
 from cra5_tpu_torch.parallel.mesh import mesh_axes
-from cra5_tpu_torch.train import Trainer
 
 MESHES = [None, {}, {"dp": -1}, {"dp": 4}, {"dp": 2, "tp": 4}, {"dp": -1, "tp": 2},
           {"tp": -1, "dp": 2}, {"dp": 3}, {"sp": 8}, {"dp": 2, "sp": -1},
@@ -112,11 +111,27 @@ def test_local_work_slice_matches_jax(monkeypatch, procs):
             assert local_work_slice(n) == j_dist.local_work_slice(n), (pid, procs, n)
 
 
-def test_tensor_parallelism_raises_naming_a4b(params):
-    _, model = params
-    with pytest.raises(NotImplementedError, match="A4b"):
-        shard_variables({"dp": 4, "tp": 2}, dict(model.named_parameters()))
-    with pytest.raises(NotImplementedError, match="A4b"):
-        Trainer(model, mesh={"dp": 2, "tp": 2})
-    with pytest.raises(NotImplementedError, match="A4b"):
-        distributed.put_tree(None, {"w": torch.zeros(2)}, {"w": ("tp",)})
+def test_shard_variables_and_put_tree_give_each_tp_rank_its_shards(monkeypatch):
+    """Each rank of a tp axis of 2 (its index stood in for the mesh's)
+    takes its shards of the split parameters, which join back to the full
+    tensors, and the replicated ones as they are; put_tree (a world of one:
+    no broadcast) places the same shards."""
+    from cra5_tpu_torch.parallel import gather_tensor, mesh
+    from cra5_tpu_torch.parallel.tensor_parallel import model_placement
+
+    model = VAEformer(vaeformer_tiny(), device="cpu").reset_parameters(0)
+    full = {k: p.detach() for k, p in model.named_parameters()}
+    placement = model_placement(model, 2)
+    assert sum(v is not None for v in placement.values()) > 0
+    shards = []
+    for r in range(2):
+        monkeypatch.setattr(mesh, "axis_group", lambda m, axis, r=r: (None, 2, r))
+        shards.append(shard_variables(None, full, placement))
+        put = distributed.put_tree(None, dict(full), placement)
+        assert all(torch.equal(put[k], shards[r][k]) for k in full)
+    for k, v in full.items():
+        if placement[k] is None:
+            assert shards[0][k] is v and shards[1][k] is v
+        else:
+            assert shards[0][k].numel() * 2 == v.numel()
+        assert torch.equal(gather_tensor([s[k] for s in shards], placement[k]), v), k

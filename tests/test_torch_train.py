@@ -644,12 +644,31 @@ def test_resume_repeats_an_uninterrupted_run(tmp_path):
         "last_checkpoint", "last_state", "state_2.pt", "step_2.pt"]
 
 
-def test_trainer_refuses_a_mesh():
-    """A mesh with a tp axis of more than one device: tensor parallelism
-    waits for ROADMAP.md queue A4b (dp meshes train, see
-    tests/test_torch_distributed.py)."""
-    with pytest.raises(NotImplementedError, match="A4"):
-        Trainer(VAEformer(vaeformer_tiny(), device="cpu"), mesh={"dp": 1, "tp": 2})
+def test_trainer_takes_a_tp_mesh_of_the_world_and_refuses_a_larger_one():
+    """In one process a mesh with a tp axis of one device trains as no mesh
+    does, bit for bit; a tp axis larger than the world raises the JAX
+    package's ValueError (multi-rank tp: tests/test_torch_tensor_parallel.py)."""
+    import torch.distributed as dist
+
+    from cra5_tpu.parallel import make_mesh as j_make_mesh
+    from cra5_tpu_torch.parallel import make_mesh
+
+    cfg = vaeformer_tiny()
+    data = [np.random.default_rng(4).standard_normal((1, cfg.in_chans, *cfg.img_size))
+            .astype(np.float32)] * 2
+    tcfg = TrainerConfig(log_every=10**9, ckpt_every=10**9)
+    try:
+        states = [Trainer(VAEformer(cfg, device="cpu"), tcfg, mesh=mesh, seed=2).fit(data)
+                  for mesh in (None, make_mesh({"dp": 1, "tp": 1}, device_type="cpu"))]
+        with pytest.raises(ValueError) as want:
+            j_make_mesh({"dp": 1, "tp": 2}, devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as got:
+            make_mesh({"dp": 1, "tp": 2}, device_type="cpu")
+        assert str(got.value) == str(want.value)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert all(torch.equal(p, states[1].params[k]) for k, p in states[0].params.items())
 
 
 def test_ms_ssim_distortion_is_not_ported():

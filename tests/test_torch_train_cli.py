@@ -1,7 +1,8 @@
 """``python -m cra5_tpu_torch.tools.train`` on the CPU: a tiny config over a
 synthetic per-channel .npy tree, three steps, a checkpoint and a resume;
-the mesh rule (a mesh of one device is the one-device trainer, a tp axis
-of more raises naming ROADMAP A4b); the data the CLI feeds bitwise equal to the
+the mesh rule (a mesh of one device is the one-device trainer, a mesh of
+more devices than the world raises the JAX package's ValueError; a dp x tp
+mesh over ranks: tests/test_torch_tensor_parallel.py); the data the CLI feeds bitwise equal to the
 JAX CLI's ``build_data``; the card by default."""
 
 import os
@@ -92,13 +93,19 @@ def test_mesh_devices_refuse_what_make_mesh_refuses(mesh, visible, err):
         train.mesh_devices(mesh, visible)
 
 
-def test_a_mesh_of_more_devices_raises_naming_a4(tree, tmp_path):
-    """A tp axis of more than one device is tensor parallelism, ROADMAP.md
-    queue A4b (a dp axis over several ranks trains: tests/
-    test_torch_distributed.py)."""
+def test_a_tp_mesh_larger_than_the_world_raises_jax_s_value_error(tree, tmp_path):
+    """A tp axis of 2 in a world of one rank: the JAX package's make_mesh
+    refuses it on one device with the same message."""
+    import jax
+
+    from cra5_tpu.parallel import make_mesh as j_make_mesh
+
+    with pytest.raises(ValueError) as want:
+        j_make_mesh({"dp": -1, "tp": 2}, devices=jax.devices()[:1])
     cfg = _config(tmp_path, tree, mesh="dict(dp=-1, tp=2)")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError) as got:
         train.run([cfg, "--steps", "1", "--ckpt-dir", str(tmp_path / "c"), "--device", "cpu"])
+    assert str(got.value) == str(want.value)
 
 
 def test_the_cli_feeds_the_jax_clis_batches(tree, tmp_path):
