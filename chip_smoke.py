@@ -256,6 +256,27 @@ result line is printed then:
      lines: device us a stream and a step, and the coder kernels' share of
      the roundtrip). The counters are zeroed just before each run and read
      just after; the launches join the coder rows of the kernels line.
+  16. examples phase (each line carries the card's name and power limit):
+     cra5_tpu_torch.examples through their main(), the counters zeroed
+     just before each and read just after. train_demo_268 at 268v (bf16
+     remat, EMA), 40 steps saved at 20 (with --examples its defaults, 400
+     saved at 200 on 6 fields): the full state saved, restored into a fresh
+     model and Trainer with every tensor and count bitwise equal, the step
+     after the save taken live and again from the restored state, its
+     metrics and every tensor bitwise equal, the step-0, trained and EMA
+     codecs on a held-out field with every decoded symbol equal to the
+     encoder's (bytes, bpp, MSE, the y stream's decode kernel and escape
+     share); train_demo_report on its JSON; quickstart (268v float32,
+     --no-plots); test_model --full; roundtrip_timing (2 iterations;
+     --examples: 5); train_268v_smoke; profile_268_train --steps 2
+     (--examples: 3). Gates: every metric finite; the launches reckoned
+     from each one's steps and roundtrips (a remat step 14 K4, 7 K5, 7
+     K6; a codec roundtrip K1 and K2 or K3 a stream, 7 K4; an API
+     roundtrip's four calls 14 K4); no profile variant in error; the mean
+     total loss of the demo's last 10 steps below its first 10's, and with
+     --examples the trained codec's held-out rate-distortion cost below the
+     step-0 codec's. The bf16 launches join the bf16 rows of the kernels
+     line, the float32 ones the float32 K4 row, all the coder rows.
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -295,14 +316,16 @@ one card and no network.
     python3 chip_smoke.py --variants
     python3 chip_smoke.py --context
     python3 chip_smoke.py --video
+    python3 chip_smoke.py --examples
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the tp phase
 (10b), only the zoo phase (11), only the serve phase (12), only the
-variants phase (13), only the context phase (14), or only the video phase
-(15), and print no result
+variants phase (13), only the context phase (14), only the video phase
+(15), or only the examples phase at its default depth (16), and print no
+result
 line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
@@ -4153,11 +4176,203 @@ def phase_video(dev, card: str) -> dict:
     return _sum_launches(*launches)
 
 
+# cra5_tpu_torch.examples' arguments: with --examples each at its defaults
+# (the demo 400 steps saved at 200 on 6 fields); in the full run shorter.
+EXAMPLES_ARGS = {"default": dict(demo=[], timing=[], profile=["--steps", "3"]),
+                 "short": dict(demo=["--steps", "40", "--save-at", "20"], timing=["2"],
+                               profile=["--steps", "2"])}
+LEARN_STEPS = 10  # the short demo learns: its last 10 steps' mean total loss below its first 10's
+TRAIN_STEP_LAUNCHES = {"flash_attention_forward": 14, "flash_attention_backward_dq": 7,
+                       "flash_attention_backward_dkv": 7}  # a 268v remat step
+
+
+def _launch_gate(tag: str, got: dict, want: dict, decodes: int = 0, sorted_y=None) -> None:
+    """got equals want (every other counter 0), K2 and K3 together equal
+    ``decodes`` and, where given, K3 equals ``sorted_y``."""
+    dec = ("rans_decode_generic", "rans_decode_sorted")
+    rest = {k: v for k, v in got.items() if k not in dec}
+    n_dec = sum(got.get(k, 0) for k in dec)
+    if (rest != {k: want.get(k, 0) for k in rest} or n_dec != decodes
+            or sorted_y is not None and got.get("rans_decode_sorted", 0) != sorted_y):
+        raise RuntimeError(f"[examples] {tag}: launches {got}, expected {want} with {decodes} "
+                           f"decodes (K2 + K3{'' if sorted_y is None else f', K3 {sorted_y}'})")
+
+
+def phase_examples(dev, card: str, depth: str) -> dict:
+    """cra5_tpu_torch.examples through their main() on the card, each with
+    the counters zeroed just before and read just after (EXAMPLES_ARGS[depth]):
+    train_demo_268 at 268v (bf16 remat, EMA; the full state saved and
+    restored bitwise into a fresh Trainer, the resumed step repeated, the
+    step-0, trained and EMA codecs on the held-out field with their decoded
+    symbols equal to the encoder's), train_demo_report on its JSON,
+    quickstart (268v float32, --no-plots), test_model --full,
+    roundtrip_timing, train_268v_smoke and profile_268_train. Gates: every
+    metric finite; the launches reckoned from the steps and roundtrips
+    each ran; no profile variant in error; training learned: with the
+    short depth the mean total loss of the last LEARN_STEPS steps below the
+    first LEARN_STEPS', at the default depth the trained codec's held-out
+    rate-distortion cost (lmbda mse + bpp_weight bpp, from its bytes and
+    x_hat) below the step-0 codec's. Returns {"examples": bf16 launches,
+    "examples_f32": float32 launches}."""
+    import os
+    import tempfile
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.examples import (profile_268_train, quickstart, roundtrip_timing,
+                                         test_model, train_268v_smoke, train_demo_268,
+                                         train_demo_report)
+    from cra5_tpu_torch.models.vaeformer import vaeformer_268
+
+    args = EXAMPLES_ARGS[depth]
+    t_phase = time.time()
+
+    def run(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        got, sec = kernels.launch_counts(), time.time() - t0
+        torch.cuda.empty_cache()
+        return res, got, sec
+
+    def finite(tag: str, values) -> None:
+        values = list(values)
+        if not all(np.isfinite(v) for v in values):
+            raise RuntimeError(f"[examples] {tag}: values not all finite: {values}")
+
+    def scaled(n: int) -> dict:
+        return {k: v * n for k, v in TRAIN_STEP_LAUNCHES.items()}
+
+    bf16, f32 = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the demo: steps + 1 training steps (the live step after the save is
+        # taken twice) and three codec evals
+        out = os.path.join(tmp, "demo.json")
+        demo, got, sec = run(lambda: train_demo_268.main(
+            args["demo"] + ["--ckpt-dir", os.path.join(tmp, "ckpt"), "--out", out]))
+        cfg, resume = demo["config"], demo["resume"]
+        evals = {k: demo[k] for k in ("codec_step0", "codec_trained", "codec_trained_ema")}
+        n_steps = cfg["steps"] + 1
+        want = scaled(n_steps)
+        want.update(rans_encode=6, flash_attention_forward=want["flash_attention_forward"] + 21)
+        _launch_gate("train_demo_268", got, want, decodes=6,
+                     sorted_y=sum(e["y_decode_kernel"] == "K3" for e in evals.values()))
+        bf16.append(got)
+        finite("train_demo_268 losses", [v for m in demo["losses"].values() for v in m.values()])
+        finite("train_demo_268 total loss", demo["total_loss"])
+        finite("train_demo_268 evals", [v for e in evals.values() for k, v in e.items()
+                                        if k != "y_decode_kernel"])
+        if not (resume["checksums_match"] and resume["repeat_bitwise"]
+                and resume["resumed_step"] == cfg["save_at"]):
+            raise RuntimeError(f"[examples] train_demo_268 resume: {resume}")
+        rd = {k: cfg["lmbda"] * e["mse"] + cfg["bpp_weight"] * e["bpp"] for k, e in evals.items()}
+        first = statistics.mean(demo["total_loss"][:LEARN_STEPS])
+        last = statistics.mean(demo["total_loss"][-LEARN_STEPS:])
+        losses = {int(k): v for k, v in demo["losses"].items()}
+        for step in sorted(losses):
+            m = losses[step]
+            log(f"[examples] demo step {step}: total {m['total_loss']:.6g} bpp "
+                f"{m['bpp_loss']:.6g} mse {m['mse_loss']:.6g} aux {m['aux_loss']:.6g}  ({card})")
+        for k, e in evals.items():
+            log(f"[examples] demo {k}: {e['bin_bytes']} B, bpp {e['bpp']:.6f}, mse "
+                f"{e['mse']:.6g}, rd {rd[k]:.6g}, {e['wall_s']:.3f} s, y on "
+                f"{e['y_decode_kernel']} with {e['y_escape_share']:.4%} escapes; symbols exact  "
+                f"({card})")
+        t = demo["timing"]
+        log(f"[examples] demo {cfg['steps']} steps saved at {cfg['save_at']} on {cfg['pool']} "
+            f"fields: init {t['init_s']:.2f} s, median step {t['step_s_median']:.4f} s over "
+            f"{t['steps_timed']} (host clock ending in a synchronize, the field made on the card "
+            f"included); save {resume['save_s']:.2f} s ({resume['bytes']} B), restore "
+            f"{resume['restore_s']:.2f} s, every tensor bitwise; step {cfg['save_at'] + 1} "
+            f"repeated bitwise {resume['repeat_bitwise']}; total loss first "
+            f"{LEARN_STEPS} mean {first:.6g}, last {LEARN_STEPS} {last:.6g}; demo {sec:.1f} s; "
+            f"launches {got}  ({card})")
+        if not last < first:
+            raise RuntimeError(f"[examples] train_demo_268 did not learn: the mean total loss "
+                               f"of its last {LEARN_STEPS} steps {last} is not below the first "
+                               f"{LEARN_STEPS}' {first}")
+        if depth == "default" and not rd["codec_trained"] < rd["codec_step0"]:
+            raise RuntimeError(f"[examples] the trained codec's held-out rate-distortion cost "
+                               f"{rd['codec_trained']} is not below the step-0 codec's "
+                               f"{rd['codec_step0']}")
+        md = os.path.join(tmp, "demo.md")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_demo_report.main([out, md])
+        log(f"[examples] train_demo_report: {buf.getvalue().strip()}")
+
+        qs, got, sec = run(lambda: quickstart.main(
+            ["--no-plots", "--out", os.path.join(tmp, "quickstart")]))
+        _launch_gate("quickstart", got, {"flash_attention_forward": 14, "rans_encode": 4},
+                     decodes=4)
+        c = vaeformer_268()
+        if not (qs["x_hat_finite"] and qs["x_hat_shape"] == (c.in_chans, *c.img_size)):
+            raise RuntimeError(f"[examples] quickstart: x_hat {qs['x_hat_shape']}, finite "
+                               f"{qs['x_hat_finite']}")
+        f32.append(got)
+        log(f"[examples] quickstart 268v float32: .bin streams {qs['bin_bytes']} B, encode "
+            f"{qs['encoding_time']:.3f} s, decode {qs['decoding_time']:.3f} s; {sec:.1f} s; "
+            f"launches {got}  ({card})")
+
+        tm, got, sec = run(lambda: test_model.main(["--full"]))
+        _launch_gate("test_model", got, {"flash_attention_forward": 7, "rans_encode": 3},
+                     decodes=3)
+        if not tm["finite"]:
+            raise RuntimeError(f"[examples] test_model: x_hat not finite: {tm}")
+        f32.append(got)
+        log(f"[examples] test_model --full: bmshj2018-factorized {tm['zoo_bytes']} B, "
+            f"VAEformer(268v) float32 {tm['vaeformer_bytes']} B; {sec:.1f} s; launches {got}  "
+            f"({card})")
+
+        rt, got, sec = run(lambda: roundtrip_timing.main(
+            args["timing"] + ["--out", os.path.join(tmp, "timing")]))
+        n = len(rt["encode_s"])
+        _launch_gate("roundtrip_timing", got, {"flash_attention_forward": 14 * n,
+                                               "rans_encode": 4 * n}, decodes=4 * n)
+        finite("roundtrip_timing", rt["encode_s"] + rt["decode_s"])
+        f32.append(got)
+        log(f"[examples] roundtrip_timing {n} iterations, 268v float32: encode "
+            f"{rt['encode_mean_s']:.4f} s ± {rt['encode_pstdev_s']:.4f}, decode "
+            f"{rt['decode_mean_s']:.4f} s ± {rt['decode_pstdev_s']:.4f} (each "
+            f"{[round(v, 4) for v in rt['encode_s']]} / {[round(v, 4) for v in rt['decode_s']]}); "
+            f"{sec:.1f} s; launches {got}  ({card})")
+
+    sm, got, sec = run(lambda: train_268v_smoke.main([]))
+    _launch_gate("train_268v_smoke", got, scaled(1 + train_268v_smoke.TIMED_STEPS))
+    finite("train_268v_smoke", sm["metrics"].values())
+    bf16.append(got)
+    log(f"[examples] train_268v_smoke: init {sm['init_s']:.2f} s, warm-up step "
+        f"{sm['warmup_step_s']:.2f} s, {sm['step_s']:.4f} s a step over "
+        f"{train_268v_smoke.TIMED_STEPS}; {sec:.1f} s; launches {got}  ({card})")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, got, sec) = run(lambda: profile_268_train.main(args["profile"]))
+    prof = json.loads(buf.getvalue().splitlines()[-1])
+    variants = {k: v for k, v in prof.items() if k.startswith("auto+")}
+    if rc != 0 or len(variants) != 2 or any("error" in v for v in variants.values()):
+        raise RuntimeError(f"[examples] profile_268_train: {prof}")
+    steps = int(args["profile"][-1])
+    _launch_gate("profile_268_train", got, scaled(2 * (1 + steps)))
+    finite("profile_268_train", [v["loss"] for v in variants.values()])
+    bf16.append(got)
+    for k, v in variants.items():
+        log(f"[examples] profile_268_train {k}: median step {v['step_s']:.4f} s "
+            f"({[round(t, 4) for t in v['all_steps_s']]}), init {v['init_s']:.2f} s, warm-up "
+            f"{v['warmup_s']:.2f} s  ({card})")
+    log(f"[examples] profile_268_train: {prof['decision']} (speed-up "
+        f"{prof['dots_remat_speedup']}); {sec:.1f} s; launches {got}  ({card})")
+    log(f"[examples] phase {time.time() - t_phase:.1f} s  ({card})")
+    return {"examples": _sum_launches(*bf16), "examples_f32": _sum_launches(*f32)}
+
+
 def main(args) -> int:
     if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--tp"], ["--zoo"], ["--serve"],
-                    ["--variants"], ["--context"], ["--video"]):
+                    ["--variants"], ["--context"], ["--video"], ["--examples"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --tp | "
-                         f"--zoo | --serve | --variants | --context | --video]; got {args}")
+                         "--zoo | --serve | --variants | --context | --video | --examples]; "
+                         f"got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4185,6 +4400,8 @@ def main(args) -> int:
             phase_context(dev, CARD)
         elif args == ["--video"]:
             phase_video(dev, CARD)
+        elif args == ["--examples"]:
+            phase_examples(dev, CARD, "default")
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -4219,6 +4436,8 @@ def main(args) -> int:
     context_launches = phase_context(dev, CARD)
     torch.cuda.empty_cache()
     video_launches = phase_video(dev, CARD)
+    torch.cuda.empty_cache()
+    examples_launches = phase_examples(dev, CARD, "short")
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -4233,7 +4452,7 @@ def main(args) -> int:
              "train_cli": cli_res["launches"], **dist_launches, **tp_launches,
              "zoo": zoo_launches,
              **serve_launches, **variants_launches, "context": context_launches,
-             "video": video_launches}
+             "video": video_launches, **examples_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -4281,15 +4500,17 @@ def main(args) -> int:
                          "profiling/_perm_probe.py:160"),
     }
     # the flash kernels of every dtype and head dim share one wrapper and
-    # counter each: the head-dim-64 float32 paths are the API's, serve's
-    # and the float32 train step's, the head-dim-72 paths hyper_width's two,
+    # counter each: the head-dim-64 float32 paths are the API's, serve's,
+    # the float32 train step's and the float32 examples' (quickstart,
+    # test_model, roundtrip_timing), the head-dim-72 paths hyper_width's two,
     # every other path is bf16 at head dim 64 (vivt69, float32, has no
     # sequence long enough for a flash kernel: its coder launches only)
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
             "remat_dots", "tp_train", "tp_codec", "decode_profile", "variants_codec",
-            "variants_vae", "variants_train", "finalize")
+            "variants_vae", "variants_train", "finalize", "examples")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
-            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve"),
+            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve",
+                                   "examples_f32"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
             "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
     only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in

@@ -55,7 +55,10 @@ def test_every_module_imports_with_jax_blocked():
         "tools.finalize_scaling", "data.image", "data.transforms", "nn.swin", "models.elic2022",
         "models.stf2022", "models.tcm2023", "models.inv2021", "models.video",
         "tools.video_eval", "tools.video_bench", "tools.bench", "tools.find_close",
-        "tools.ext_codecs", "tools.era5_jpeg2000", "standalone", "standalone.export")} <= mods
+        "tools.ext_codecs", "tools.era5_jpeg2000", "standalone", "standalone.export",
+        "examples", "examples.quickstart", "examples.test_model", "examples.roundtrip_timing",
+        "examples.train_268v_smoke", "examples.train_demo_268", "examples.train_demo_report",
+        "examples.profile_268_train")} <= mods
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -158,6 +161,24 @@ def test_variant_entry_points_default_to_the_card(monkeypatch, tmp_path):
         vivt69_experiment.make_device_sampler(np.ones((2, 1), np.float32), 8, 8, 0.1, 3.0, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finalize_scaling.main(["record", "-o", str(tmp_path / "f.npz"), "--model", "tiny"])
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", ["--tiny", "--no-plots"]), ("test_model", []), ("roundtrip_timing", ["1", "--tiny"]),
+    ("train_268v_smoke", []), ("train_demo_268", ["--config", "tiny"]),
+    ("profile_268_train", ["--steps", "1"])])
+def test_example_entry_points_default_to_the_card(monkeypatch, tmp_path, name, argv):
+    """Every walkthrough with a device (all but train_demo_report, which
+    renders a JSON file) runs on the card unless given --device cpu, and
+    raises without one before it builds a model or writes a file."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    module = importlib.import_module(f"cra5_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_kernel_wrappers_take_no_other_route():
