@@ -277,6 +277,33 @@ result line is printed then:
      --examples the trained codec's held-out rate-distortion cost below the
      step-0 codec's. The bf16 launches join the bf16 rows of the kernels
      line, the float32 ones the float32 K4 row, all the coder rows.
+  17. switches phase (each line carries the card's name and power limit;
+     both modes restored afterwards): (a) the seeded 268v bf16 codec,
+     uncalibrated, one compress and decompress under each flash mode
+     ("auto", "on", "off"; nn/blocks.py::set_flash_attention) after a
+     warm-up: g_a, h_a, h_s and g_s ms, the peak, the K4 launches (7, 37,
+     0); each decoder's symbols exactly its encoder's; against "auto" the y
+     symbols within one on at most 1% of positions and the x_hat each
+     mode's g_s makes of "auto"'s decoded y within 2e-2 x max |x_hat| (the
+     roundtrips' own x_hat printed beside); then the bf16 remat train step
+     under "on" beside "auto": each parameter's gradient at the same
+     weights and noise within 4 x its own bf16 noise (the gradient's move
+     when every weight moves by half a bf16 ulp) + 2^-8 x max |g_auto|,
+     and Trainer.fit's s a step, peak and launches (K4 58, K5 33, K6 33 a
+     step under "on"); (b) K4, K5 and K6 at (18, 16, 576, 64) and (1, 5,
+     648, 72) in bf16 and float32 against their plain versions, event ms,
+     device us, SDPA, bound; (c) the 268v y of the "auto" encode written
+     under the sorted-lanes mode "auto" (sorted, K3) and "off" (unsorted,
+     K2; coder/rans_kernels.py::set_sorted_lanes), each twice
+     byte-identical and decoded exactly, K1 and the decode kernel held to
+     their plain versions, both byte counts and K2's and K3's device time;
+     (d) the towers' options at 268v width: a codec roundtrip at 720 x 1440
+     with patch = stride = (10, 10) and the linear un-patchify
+     (use_conv_transpose=False), and a ViTEncoder(window=False) forward (13
+     global blocks of 10 368 tokens on K4). The counters are zeroed just
+     before each path run and read just after; its launches join the
+     kernels line (the flash ones split by head dim: 64 to the bf16 rows,
+     72 to the bf16 any-head-dim rows).
 
 The kernels phase also holds K4-K6 on float32 operands (on the tensor
 cores with 3xTF32) at a ragged N and at the global blocks' shape against
@@ -317,6 +344,7 @@ one card and no network.
     python3 chip_smoke.py --context
     python3 chip_smoke.py --video
     python3 chip_smoke.py --examples
+    python3 chip_smoke.py --switches
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
@@ -324,9 +352,8 @@ K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the tp phase
 (10b), only the zoo phase (11), only the serve phase (12), only the
 variants phase (13), only the context phase (14), only the video phase
-(15), or only the examples phase at its default depth (16), and print no
-result
-line. They import
+(15), only the examples phase at its default depth (16), or only the
+switches phase (17), and print no result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -4367,12 +4394,544 @@ def phase_examples(dev, card: str, depth: str) -> dict:
     return {"examples": _sum_launches(*bf16), "examples_f32": _sum_launches(*f32)}
 
 
+# ------------------------------------------------------------- switches
+# The flash mode and the sorted-lanes mode (nn/blocks.py::set_flash_attention,
+# coder/rans_kernels.py::set_sorted_lanes) and the JAX towers' options at
+# 268v. Gates of the three flash modes' roundtrips, each against "auto":
+# the y symbols differ by at most one on at most SWITCH_Y_SHARE of the
+# positions (the window and hyperprior attention rounds at other places in
+# K4 than on the plain path, a bf16 ulp here and there), and the x_hat that
+# each mode's g_s makes of "auto"'s decoded y lies within SWITCH_XHAT_RTOL x
+# max |x_hat|. Each roundtrip's own x_hat is printed beside, not gated: a
+# few y symbols moved by one move x_hat past that bound (on an H100 the
+# 0.33-0.49% that "off" and "on" move put it at 3.8-4.6 x the bound).
+SWITCH_Y_SHARE = 0.01
+SWITCH_XHAT_RTOL = FLASH_OUT_RTOL
+# K4 launches of one compress + decompress of the 268v codec by mode: "auto"
+# the 7 global blocks; "on" every attention, g_a 13 (the dual heads
+# included), h_a 4, h_s 4 in the compress and 4 in the decompress, g_s 12
+SWITCH_K4 = {"auto": 7, "on": 37, "off": 0}
+# K4, K5, K6 launches of one bf16 remat train step: under "on" the 25 g_a
+# and g_s blocks forward and again in the recompute, the 8 hyperprior
+# blocks once, and one backward each
+SWITCH_STEP = {"auto": (14, 7, 7), "on": (58, 33, 33)}
+# the train step's gradient under "on" against "auto": each parameter's
+# max |g_on - g_auto| within SWITCH_NOISE_MULT times that parameter's own
+# bf16 noise (max |g' - g_auto|, g' the same step with every weight moved
+# by half a bf16 ulp, 2**-9 of itself, so that its bf16 rounding moves)
+# plus 2**-8 x max |g_auto|
+SWITCH_NOISE_MULT = 4.0
+SWITCH_WINDOW = ((18, 16, 576, 64), (1, 5, 648, 72))  # K4-K6 shapes "on" adds at 268v
+LINEAR_FINAL_SIZE = (720, 1440)  # the linear un-patchify's field: 72 x 144 patches of 10 x 10
+
+
+@contextlib.contextmanager
+def tally_into(tally):
+    """Adds to ``tally`` (a Counter) the flash launches inside the block
+    by (entry, dtype, head dim): ops/attention.py::_kernel_entry picks the
+    entry before each launch. The wrappers' own counters stay the launch
+    counts; this only splits them between the kernels line's rows."""
+    from cra5_tpu_torch.ops import attention
+
+    real = attention._kernel_entry
+
+    def pick(name, *ts):
+        tally[(name, str(ts[0].dtype)[6:], ts[0].shape[-1])] += 1
+        return real(name, *ts)
+
+    attention._kernel_entry = pick
+    try:
+        yield
+    finally:
+        attention._kernel_entry = real
+
+
+def _tally_paths(tally) -> dict:
+    """The switches phase's flash launches as kernels-line paths: bf16 at
+    head dim 64 (the 268v width) and bf16 at 72 (the hyperprior's)."""
+    counters = {"cra5_flash_attn_fwd": "flash_attention_forward",
+                "cra5_flash_attn_bwd_dq": "flash_attention_backward_dq",
+                "cra5_flash_attn_bwd_dkv": "flash_attention_backward_dkv"}
+    paths = {"switches_d64": {}, "switches_d72": {}}
+    for (name, dtype, D), n in tally.items():
+        if dtype != "bfloat16" or D not in (64, 72):
+            raise RuntimeError(f"switches: unexpected flash launches {name} {dtype} D={D}")
+        path = paths[f"switches_d{D}"]
+        path[counters[name]] = path.get(counters[name], 0) + n
+    return paths
+
+
+def switch_codec(dev, card: str, tally) -> dict:
+    """(a) One compress and decompress of the seeded 268v bf16 codec
+    (uncalibrated) under each flash mode, after a warm-up roundtrip: the
+    towers' ms (CUDA events, 3 calls each after one), the roundtrip's peak
+    and K4 launches; each decoder's symbols exactly its own encoder's;
+    against "auto" the y symbols, x_hat, and x_hat of g_s on "auto"'s
+    decoded y. Returns the roundtrips' launches, the model, codec, field
+    and "auto"'s encoder output for (c)."""
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
+    from cra5_tpu_torch.nn import blocks
+
+    cfg = vaeformer_268()
+    model = VAEformer(cfg, dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    codec = VAEformerCodec(model)
+    codec.update()
+    x = np.random.default_rng(SEED).standard_normal((1, cfg.in_chans, *cfg.img_size), np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    res, launches, fails = {}, [], []
+    for mode in ("auto", "on", "off"):
+        blocks.set_flash_attention(mode)
+        out = codec.compress(x)  # warm-up
+        codec.decompress(out["strings"], out["z_shape"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tally_into(tally):
+            out = codec.compress(x)
+            x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        launches.append(got)
+        with torch.inference_mode():
+            enc = model.encode_symbols(xd)
+            y_in = model.post_quant_conv(enc["y_sym"].to(enc["means"].dtype) + enc["means"])
+            z_hat = enc["z_sym"].to(model.dtype) + model._medians()
+            ms = {"g_a": timed_ms(lambda: model.g_a(xd), 3),
+                  "h_a": timed_ms(lambda: model.h_a(enc["y"]), 3),
+                  "h_s": timed_ms(lambda: model.h_s(z_hat), 3),
+                  "g_s": timed_ms(lambda: model.g_s(y_in), 3)}
+        z_dec, y_dec = bench.decode_symbols(codec, out["strings"], out["z_shape"])
+        exact = torch.equal(z_dec, enc["z_sym"]) and torch.equal(y_dec, enc["y_sym"])
+        want = dict.fromkeys(got, 0)
+        want.update(_stream_kernels(out)[1], flash_attention_forward=SWITCH_K4[mode])
+        if not exact or got != want or not torch.isfinite(x_hat).all():
+            fails.append(f"{mode}: symbols exact {exact}, launches {got} (expected {want}), "
+                         f"x_hat finite {bool(torch.isfinite(x_hat).all())}")
+        res[mode] = dict(enc=enc, x_hat=x_hat, ms=ms, peak=peak, k4=got["flash_attention_forward"],
+                         sec=sec, y_bytes=len(out["strings"][0][0]))
+        with torch.inference_mode():  # g_s of "auto"'s decoded y under this mode
+            res[mode]["g_s_on_auto_y"] = model.reconstruct_from_y_symbols(
+                res["auto"]["enc"]["y_sym"], res["auto"]["enc"]["means"])
+        log(f"[switches flash {mode}] roundtrip {sec:.4f} s (compress + decompress, host clock "
+            f"ending in a synchronize), y {res[mode]['y_bytes']} B; towers "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f"; peak {peak / 2**30:.2f} GiB; K4 launches {got['flash_attention_forward']} "
+            f"(expected {SWITCH_K4[mode]}); decoded symbols exactly the encoder's {exact}  "
+            f"({card})")
+    blocks.set_flash_attention("auto")
+    ref = res["auto"]
+    bound = SWITCH_XHAT_RTOL * ref["x_hat"].float().abs().max().item()
+    bound_same = SWITCH_XHAT_RTOL * ref["g_s_on_auto_y"].float().abs().max().item()
+    for mode in ("on", "off"):
+        dy = (res[mode]["enc"]["y_sym"] - ref["enc"]["y_sym"]).abs()
+        dz = (res[mode]["enc"]["z_sym"] - ref["enc"]["z_sym"]).abs()
+        share = (dy > 0).float().mean().item()
+        err = (res[mode]["x_hat"].float() - ref["x_hat"].float()).abs().max().item()
+        err_same = (res[mode]["g_s_on_auto_y"].float()
+                    - ref["g_s_on_auto_y"].float()).abs().max().item()
+        log(f"[switches flash {mode} vs auto] y symbols: {share:.4%} differ, by at most "
+            f"{int(dy.max())} (gate: at most 1 on at most {SWITCH_Y_SHARE:.0%}); z symbols "
+            f"{(dz > 0).float().mean().item():.4%} differ, by at most {int(dz.max())}; g_s on "
+            f"auto's decoded y err {err_same:.4g} (bound {bound_same:.4g} = {SWITCH_XHAT_RTOL} x "
+            f"max|x_hat|); the roundtrips' own x_hat err {err:.4g} ({err / bound:.3g} x the "
+            f"bound, not gated)  ({card})")
+        if int(dy.max()) > 1 or share > SWITCH_Y_SHARE or not err_same <= bound_same:
+            fails.append(f"{mode} vs auto: y share {share}, max {int(dy.max())}; g_s on auto's "
+                         f"y err {err_same} (bound {bound_same})")
+    if fails:
+        raise RuntimeError("[switches flash] " + "; ".join(fails))
+    return dict(launches=_sum_launches(*launches), model=model, codec=codec, x=x,
+                enc=ref["enc"])
+
+
+class _GradRecorder:
+    """Stands in for the optimizer of make_train_step: keeps the step's
+    gradients and changes no parameter."""
+
+    def update_(self, params, grads, opt_state, split=None, tp_group=None):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+
+
+def switch_train(dev, card: str, tally) -> dict:
+    """(a) The 268v bf16 remat train step under "on" beside "auto": each
+    parameter's gradient of one step at the same weights and noise, held
+    to "auto"'s within SWITCH_NOISE_MULT x its own bf16 noise + 2**-8 x
+    max |g_auto|; then Trainer.fit under each mode, a warm-up and two
+    timed steps with the counters zeroed just before and read just after:
+    s a step, peak, launches, finite metrics."""
+    import dataclasses
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.nn import blocks
+    from cra5_tpu_torch.train import Trainer, TrainerConfig, TrainState, make_train_step
+
+    cfg = dataclasses.replace(vaeformer_268(), remat=True)
+    model = VAEformer(cfg, dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fields = [torch.randn((1, cfg.in_chans, *cfg.img_size), generator=gen, device=dev) * 0.5
+              for _ in range(3)]
+    rec = _GradRecorder()
+    step = make_train_step(model, rec, TrainerConfig())
+    params = dict(model.named_parameters())
+
+    def grads_of(mode):
+        blocks.set_flash_attention(mode)
+        _, m = step(TrainState(step=0, params=params, opt_state=None), fields[0], SEED)
+        blocks.set_flash_attention("auto")
+        if not all(bool(torch.isfinite(v)) for v in m.values()):
+            raise RuntimeError(f"[switches train] {mode}: metrics not finite {m}")
+        return rec.grads, {k: float(v) for k, v in m.items()}
+
+    g_auto, m_auto = grads_of("auto")
+    g_on, m_on = grads_of("on")
+    with torch.no_grad():
+        saved = {k: p.detach().clone() for k, p in params.items()}
+        for p in params.values():  # half a bf16 ulp, so that roundings move
+            p.mul_(1.0 + 2.0 ** -9)
+    g_noise, _ = grads_of("auto")
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+    del saved
+    worst, fails = (None, 0.0, 0.0, 0.0), []
+    for k, ref in g_auto.items():
+        top = ref.float().abs().max().item()
+        err = (g_on[k].float() - ref.float()).abs().max().item()
+        noise = (g_noise[k].float() - ref.float()).abs().max().item()
+        tol = SWITCH_NOISE_MULT * noise + 2.0 ** -8 * top
+        if not err <= tol:
+            fails.append((k, err, noise, top))
+        ratio = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio >= worst[1]:
+            worst = (k, ratio, err, noise)
+    log(f"[switches train grads] 268v bf16 remat, one step at the same weights and noise: "
+        f"loss auto {m_auto['loss']:.6g}, on {m_on['loss']:.6g}; {len(g_auto)} parameters' "
+        f"gradients under on within {SWITCH_NOISE_MULT} x their bf16 noise + 2^-8 x max|g_auto| "
+        f"of auto's: {len(g_auto) - len(fails)} of {len(g_auto)}; worst {worst[0]} at "
+        f"{worst[1]:.3f} of its tolerance (err {worst[2]:.4g}, noise {worst[3]:.4g})  ({card})")
+    if fails:
+        raise RuntimeError(f"[switches train grads] {len(fails)} parameters past their "
+                           f"tolerance, e.g. (name, err, noise, max) {fails[:5]}")
+    del g_auto, g_on, g_noise, rec, step
+    torch.cuda.empty_cache()
+
+    res, launches = {}, []
+    for mode in ("auto", "on"):
+        blocks.set_flash_attention(mode)
+        trainer = Trainer(model, TrainerConfig(log_every=1, ckpt_every=10**9), seed=SEED)
+        state = trainer.fit(fields[:1], num_steps=1, log_fn=lambda *a: None)  # init + warm-up
+        stamps, metrics = [], []
+
+        def log_fn(i, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            metrics.append(m)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        stamps.append(time.perf_counter())
+        with tally_into(tally):
+            state = trainer.fit(fields[1:], state=state, num_steps=2, log_fn=log_fn)
+        got = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        blocks.set_flash_attention("auto")
+        launches.append(got)
+        steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+        want = dict.fromkeys(got, 0)
+        want.update(zip(("flash_attention_forward", "flash_attention_backward_dq",
+                         "flash_attention_backward_dkv"), (2 * n for n in SWITCH_STEP[mode])))
+        finite = all(np.isfinite(v) for m in metrics for v in m.values())
+        log(f"[switches train {mode}] 268v bf16 remat: steps {[round(s, 4) for s in steps_s]} s "
+            f"(host clock ending in a synchronize), peak {peak / 2**30:.2f} GiB, loss "
+            f"{[round(float(m['loss']), 6) for m in metrics]}, launches {got}  ({card})")
+        if got != want or not finite:
+            raise RuntimeError(f"[switches train {mode}] launches {got}, expected {want}; "
+                               f"finite {finite}")
+        res[mode] = dict(step_s=statistics.median(steps_s), peak=peak)
+        del trainer, state
+        torch.cuda.empty_cache()
+    del model, fields
+    torch.cuda.empty_cache()
+    return dict(launches=_sum_launches(*launches), **res)
+
+
+def switch_kernel_rows(dev, card: str) -> dict:
+    """(b) K4, K5 and K6 at the attention shapes that "on" adds at 268v
+    (the window blocks' (18, 16, 576, 64) and the hyperprior's (1, 5, 648,
+    72)) in bf16 and float32, each against its plain version to the
+    kernels phase's bounds, two calls bitwise equal: event ms (20 calls
+    after one), device us a call, the plain version's ms, SDPA's
+    forward and backward (forward + backward less forward) and the bound
+    (the larger of the tensor-core operations, float32 as three TF32
+    products, and the bytes)."""
+    from cra5_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
+        flash_attention_forward,
+        flash_attention_plain,
+    )
+
+    rng = np.random.default_rng(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for B, H, N, D in SWITCH_WINDOW:
+        for dtype, rtol, lse_atol in ((torch.bfloat16, FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
+                                      (torch.float32, FLASH_F32_RTOL, FLASH_F32_LSE_ATOL)):
+            scale = D ** -0.5
+            q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
+                           .to(dev, dtype) for _ in range(4))
+            fwd = lambda: flash_attention_forward(q, k, v, scale)
+            out, lse = fwd()
+            delta = (do.float() * out.float()).sum(-1)
+            ops = (q, k, v, do, lse, delta, scale)
+            dq = lambda: flash_attention_backward_dq(*ops)
+            dkv = lambda: flash_attention_backward_dkv(*ops)
+            got = {"out": out, "dq": dq()}
+            got["dk"], got["dv"] = dkv()
+            again = {"out": fwd()[0], "dq": dq()}
+            again["dk"], again["dv"] = dkv()
+            same = all(torch.equal(got[n], again[n]) for n in got)
+            ref_out, ref_lse = flash_attention_plain(q, k, v, scale)
+            refs = {"out": ref_out, "dq": flash_attention_backward_dq_plain(*ops)}
+            refs["dk"], refs["dv"] = flash_attention_backward_dkv_plain(*ops)
+            torch.cuda.synchronize()
+            errs = {n: ((a.float() - refs[n].float()).abs().max().item(),
+                        rtol * refs[n].float().abs().max().item()) for n, a in got.items()}
+            lerr = (lse - ref_lse).abs().max().item()
+            finite = all(bool(torch.isfinite(a).all()) for a in got.values())
+            name = f"({B}, {H}, {N}, {D}) {str(dtype)[6:]}"
+            if not finite or not same or lerr > lse_atol or any(e > b for e, b in errs.values()):
+                raise RuntimeError(f"[switches kernels] {name}: (err, bound) {errs}, lse err "
+                                   f"{lerr}, finite {finite}, two calls bitwise equal {same}")
+            del got, again, refs, ref_out, ref_lse
+            ms = {"K4": timed_ms(fwd, 20), "K5": timed_ms(dq, 20), "K6": timed_ms(dkv, 20)}
+            dev_us = {"K4": device_us(fwd), "K5": device_us(dq), "K6": device_us(dkv)}
+            plain = {"K4": timed_ms(lambda: flash_attention_plain(q, k, v, scale), 1),
+                     "K5": timed_ms(lambda: flash_attention_backward_dq_plain(*ops), 1),
+                     "K6": timed_ms(lambda: flash_attention_backward_dkv_plain(*ops), 1)}
+            qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+            lib_fwd = timed_ms(lambda: sdpa(qg, kg, vg, scale=scale), 20)
+            lib_bwd = timed_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, scale=scale),
+                                                           (qg, kg, vg), do), 20) - lib_fwd
+            lib = {"K4": lib_fwd, "K5": lib_bwd, "K6": lib_bwd}
+            flops = {"K4": 4 * B * H * N * N * D, "K5": 6 * B * H * N * N * D,
+                     "K6": 8 * B * H * N * N * D}
+            io, stats = B * H * N * D * q.element_size(), B * H * N * 4
+            nbytes = {"K4": 4 * io + stats, "K5": 5 * io + 2 * stats, "K6": 6 * io + 2 * stats}
+            mult, peak = (3, TF32_FLOPS) if dtype == torch.float32 else (1, BF16_FLOPS)
+            bounds, kinds = {}, {}
+            for n, f in flops.items():
+                ops_ms, bytes_ms = mult * f / peak * 1e3, bytes_bound_ms(nbytes[n])
+                bounds[n] = max(ops_ms, bytes_ms)
+                kinds[n] = "operations" if ops_ms >= bytes_ms else "bytes"
+            log(f"[switches kernels {name}] (err, bound {rtol} x max|ref|) "
+                + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
+                + f", lse err {lerr:.3g} (atol {lse_atol}), two calls of each bitwise equal  "
+                f"({card})")
+            for n in ("K4", "K5", "K6"):
+                log(f"[switches {n} {name}] kernel {ms[n]:.4f} ms, device {dev_us[n]:.2f} us "
+                    f"({bounds[n] / ms[n]:.1%} of the bound by events), plain {plain[n]:.4f} ms, "
+                    f"sdpa {'forward' if n == 'K4' else 'backward'} {lib[n]:.4f} ms, bound "
+                    f"{bounds[n]:.4f} ms ({kinds[n]})  ({card})")
+            rows[name] = dict(ms=ms, device_us=dev_us, plain_ms=plain, library_ms=lib,
+                              bound_ms=bounds)
+            del q, k, v, do, out, lse, delta, ops, qg, kg, vg
+            torch.cuda.empty_cache()
+    return rows
+
+
+def switch_sorted_lanes(codec, enc: dict, card: str) -> dict:
+    """(c) The 268v y of one "auto" encode (2 654 208 symbols, 8192 lanes)
+    written under the sorted-lanes mode "auto" (sorted, K3) and "off"
+    (unsorted, K2), twice each, and decoded, the counters zeroed just
+    before and read just after; then hold_streams on each (K1 and the
+    decode kernel exact against their plain versions, the decode the
+    encoder's symbols, device us). Gates: each container byte-identical
+    across its two encodes, the headers' routes, symbols exact."""
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.coder import rans_kernels
+    from cra5_tpu_torch.coder.lane_coder import default_num_lanes, parse_v2_header
+
+    coder = codec._gc_coder
+    idx = codec._gc_indexes(enc["scales"])
+    sym = enc["y_sym"]
+    strings, launches = {}, []
+    for mode, route in (("auto", "K3"), ("off", "K2")):
+        rans_kernels.set_sorted_lanes(mode)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            a = coder.encode_from_device(sym[0], idx[0])
+            b = coder.encode_from_device(sym[0], idx[0])
+            dec = coder.decode_batch_to_device([a], idx)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+        finally:
+            rans_kernels.set_sorted_lanes("auto")
+        launches.append(got)
+        n, K, n_esc, _, srt, safe, _ = parse_v2_header(a)
+        want = dict.fromkeys(got, 0)
+        want.update(rans_encode=2, **{"rans_decode_sorted" if route == "K3"
+                                      else "rans_decode_generic": 1})
+        ok = (a == b and torch.equal(dec, sym) and got == want
+              and (srt and safe) == (route == "K3") and K == default_num_lanes(n))
+        log(f"[switches sorted {mode}] y {n} symbols on {K} lanes, sorted {srt}, kernel-safe "
+            f"{safe}, {len(a)} B ({n_esc} escapes); two encodes byte-identical {a == b}; decoded "
+            f"on {route}, symbols exact {torch.equal(dec, sym)}; launches {got}  ({card})")
+        if not ok:
+            raise RuntimeError(f"[switches sorted {mode}] expected {route} on the default lanes, "
+                               f"launches {want}: got K={K} sorted {srt} safe {safe}, "
+                               f"launches {got}, identical {a == b}")
+        strings[mode] = a
+    held = {}
+    for mode in ("auto", "off"):
+        rans_kernels.set_sorted_lanes(mode)
+        try:
+            held.update(hold_streams([(f"y {mode}", coder, sym[0], idx[0], strings[mode])],
+                                     "268v", card, where="switches sorted kernels"))
+        finally:
+            rans_kernels.set_sorted_lanes("auto")
+    log(f"[switches sorted] the same y: sorted {len(strings['auto'])} B, K3 device "
+        f"{held['y auto']['dec_us'] / 1e3:.4f} ms; unsorted {len(strings['off'])} B, K2 device "
+        f"{held['y off']['dec_us'] / 1e3:.4f} ms  ({card})")
+    return dict(launches=_sum_launches(*launches), bytes={m: len(s) for m, s in strings.items()},
+                held=held)
+
+
+def switch_tower_options(dev, card: str, tally) -> dict:
+    """(d) The JAX towers' options at 268v width, bf16, seeded, "auto":
+    a codec roundtrip at 720 x 1440 with patch = stride = (10, 10) and the
+    linear un-patchify (use_conv_transpose=False; decoded symbols exactly
+    the encoder's, x_hat finite at 720 x 1440, launches K1 2, K2 1, K3 1,
+    K4 7), and a ViTEncoder(window=False) forward at 721 x 1440 (13 global
+    blocks of 10 368 tokens: 13 K4 launches, finite moments). The counters
+    are zeroed just before each and read just after."""
+    import dataclasses
+
+    from cra5_tpu_torch import bench, kernels
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_268
+    from cra5_tpu_torch.nn.vit import ViTEncoder
+
+    cfg = dataclasses.replace(vaeformer_268(), img_size=LINEAR_FINAL_SIZE, patch_size=(10, 10),
+                              use_conv_transpose=False)
+    model = VAEformer(cfg, dtype=torch.bfloat16, device=dev).reset_parameters(SEED)
+    codec = VAEformerCodec(model)
+    codec.update()
+    x = np.random.default_rng(SEED).standard_normal((1, cfg.in_chans, *cfg.img_size), np.float32)
+    out = codec.compress(x)  # warm-up
+    codec.decompress(out["strings"], out["z_shape"])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tally_into(tally):
+        out = codec.compress(x)
+        x_hat = codec.decompress(out["strings"], out["z_shape"])["x_hat"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    with torch.inference_mode():
+        enc = model.encode_symbols(torch.from_numpy(x).to(dev))
+    z_dec, y_dec = bench.decode_symbols(codec, out["strings"], out["z_shape"])
+    exact = torch.equal(z_dec, enc["z_sym"]) and torch.equal(y_dec, enc["y_sym"])
+    want = dict.fromkeys(got, 0)
+    want.update(_stream_kernels(out)[1], flash_attention_forward=SWITCH_K4["auto"])
+    finite = (tuple(x_hat.shape) == (1, cfg.in_chans, *LINEAR_FINAL_SIZE)
+              and bool(torch.isfinite(x_hat).all()))
+    log(f"[switches linear_final] 268v bf16 at {LINEAR_FINAL_SIZE}, patch = stride = (10, 10), "
+        f"use_conv_transpose=False: roundtrip {sec:.4f} s, y {len(out['strings'][0][0])} B, z "
+        f"{len(out['strings'][1][0])} B; x_hat {tuple(x_hat.shape)} finite {finite}; symbols "
+        f"exact {exact}; launches {got}  ({card})")
+    if not (exact and finite and got == want):
+        raise RuntimeError(f"[switches linear_final] launches {got} (expected {want}), "
+                           f"exact {exact}, finite {finite}")
+    paths = [got]
+    del model, codec, x_hat, enc
+    torch.cuda.empty_cache()
+
+    base = vaeformer_268()
+    enc_tower = ViTEncoder(base.img_size, base.patch_size, base.patch_stride, base.in_chans,
+                           base.y_channels, base.depth, base.num_heads, base.window_sizes,
+                           base.interval, window=False, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for m in enc_tower.modules():  # the flax initializers; Linears are their owners'
+        if hasattr(m, "reset_parameters") and not isinstance(m, torch.nn.Linear):
+            m.reset_parameters(gen)
+    xd = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, base.in_chans, *base.img_size), np.float32)).to(dev)
+    with torch.inference_mode():
+        enc_tower(xd)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with tally_into(tally):
+            moments = enc_tower(xd)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        ms = timed_ms(lambda: enc_tower(xd), 3)
+    want = dict.fromkeys(got, 0)
+    want.update(flash_attention_forward=base.depth // 2 + 1)
+    Hp, Wp = base.latent_grid
+    finite = (tuple(moments.shape) == (1, 2 * base.y_channels, Hp, Wp)
+              and bool(torch.isfinite(moments).all()))
+    log(f"[switches window_false] ViTEncoder(window=False) at 268v bf16: {base.depth // 2 + 1} "
+        f"global blocks of {Hp * Wp} tokens, {ms:.3f} ms a forward; moments "
+        f"{tuple(moments.shape)} finite {finite}; launches {got}  ({card})")
+    if not (finite and got == want):
+        raise RuntimeError(f"[switches window_false] launches {got} (expected {want}), "
+                           f"finite {finite}")
+    paths.append(got)
+    del enc_tower, xd, moments
+    torch.cuda.empty_cache()
+    return dict(launches=_sum_launches(*paths))
+
+
+def phase_switches(dev, card: str) -> dict:
+    """The flash and sorted-lanes modes and the towers' options at 268v
+    ((a)-(d) above); both modes restored afterwards. Returns the paths'
+    launches for the kernels line: the coder kernels' under
+    "switches_codec", the flash kernels' split by head dim."""
+    from collections import Counter
+
+    from cra5_tpu_torch.coder import rans_kernels
+    from cra5_tpu_torch.nn import blocks
+
+    t_phase = time.time()
+    saved = blocks.flash_attention_mode(), rans_kernels.sorted_lanes_mode()
+    tally = Counter()
+    try:
+        a = switch_codec(dev, card, tally)
+        c = switch_sorted_lanes(a["codec"], a["enc"], card)
+        del a["model"], a["codec"], a["x"], a["enc"]
+        torch.cuda.empty_cache()
+        train = switch_train(dev, card, tally)
+        switch_kernel_rows(dev, card)
+        d = switch_tower_options(dev, card, tally)
+    finally:
+        blocks.set_flash_attention(saved[0])
+        rans_kernels.set_sorted_lanes(saved[1])
+    log(f"[switches] train step median auto {train['auto']['step_s']:.4f} s, peak "
+        f"{train['auto']['peak'] / 2**30:.2f} GiB; on {train['on']['step_s']:.4f} s, peak "
+        f"{train['on']['peak'] / 2**30:.2f} GiB  ({card})")
+    log(f"[switches] phase {time.time() - t_phase:.1f} s  ({card})")
+    coder_only = lambda launches: {k: v for k, v in launches.items() if k.startswith("rans_")}
+    return {"switches_codec": coder_only(_sum_launches(a["launches"], c["launches"],
+                                                       train["launches"], d["launches"])),
+            **_tally_paths(tally)}
+
+
 def main(args) -> int:
     if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--tp"], ["--zoo"], ["--serve"],
-                    ["--variants"], ["--context"], ["--video"], ["--examples"]):
+                    ["--variants"], ["--context"], ["--video"], ["--examples"], ["--switches"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --tp | "
-                         "--zoo | --serve | --variants | --context | --video | --examples]; "
-                         f"got {args}")
+                         "--zoo | --serve | --variants | --context | --video | --examples | "
+                         f"--switches]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4402,6 +4961,8 @@ def main(args) -> int:
             phase_video(dev, CARD)
         elif args == ["--examples"]:
             phase_examples(dev, CARD, "default")
+        elif args == ["--switches"]:
+            phase_switches(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
@@ -4438,6 +4999,8 @@ def main(args) -> int:
     video_launches = phase_video(dev, CARD)
     torch.cuda.empty_cache()
     examples_launches = phase_examples(dev, CARD, "short")
+    torch.cuda.empty_cache()
+    switches_launches = phase_switches(dev, CARD)
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
@@ -4452,7 +5015,7 @@ def main(args) -> int:
              "train_cli": cli_res["launches"], **dist_launches, **tp_launches,
              "zoo": zoo_launches,
              **serve_launches, **variants_launches, "context": context_launches,
-             "video": video_launches, **examples_launches}
+             "video": video_launches, **examples_launches, **switches_launches}
     sources = {
         "rans_encode": ("rans_encode", "cra5_tpu_torch/csrc/rans_encode.cu",
                         "cra5_tpu/coder/rans_pallas.py:212"),
@@ -4502,18 +5065,20 @@ def main(args) -> int:
     # the flash kernels of every dtype and head dim share one wrapper and
     # counter each: the head-dim-64 float32 paths are the API's, serve's,
     # the float32 train step's and the float32 examples' (quickstart,
-    # test_model, roundtrip_timing), the head-dim-72 paths hyper_width's two,
-    # every other path is bf16 at head dim 64 (vivt69, float32, has no
-    # sequence long enough for a flash kernel: its coder launches only)
+    # test_model, roundtrip_timing), the head-dim-72 paths hyper_width's two
+    # and the switches phase's bf16 hyperprior launches (its paths split by
+    # head dim), every other path is bf16 at head dim 64 (vivt69, float32,
+    # has no sequence long enough for a flash kernel: its coder launches only)
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
             "remat_dots", "tp_train", "tp_codec", "decode_profile", "variants_codec",
-            "variants_vae", "variants_train", "finalize", "examples")
+            "variants_vae", "variants_train", "finalize", "examples", "switches_d64")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
             "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve",
                                    "examples_f32"),
             "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
             "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
-    only.update({f"{k}{t}": ("hyper_f32" if t else "hyper_bf16",) for t in ("", "_f32") for k in
+    only.update({f"{k}{t}": ("hyper_f32",) if t else ("hyper_bf16", "switches_d72")
+                 for t in ("", "_f32") for k in
                  ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_anydim",
                   "flash_attn_bwd_dkv_anydim")})
     kernels_line = []

@@ -11,9 +11,12 @@ indexes, lane count and flags it writes the same bytes as the JAX
   - Sorted mode (header bits 31/29): symbols are coded in index order
     (stable by position) after tiny cdf buckets are merged into their
     nearest bucket of >= K symbols; bit 30 records the encoder's verdict
-    that every step spans at most two cdf rows. The port writes sorted
-    streams when K >= 2048 and K % 128 == 0, which is what the JAX package
-    writes on its accelerator, on the CPU and on the card alike.
+    that every step spans at most two cdf rows. Whether a new stream is
+    sorted is the sorted-lanes mode's (``rans_kernels.set_sorted_lanes``,
+    ``CRA5_TPU_SORTED_LANES``): under "auto", the default, the port sorts
+    when K >= 2048 and K % 128 == 0, which is what the JAX package writes
+    on its accelerator, on the CPU and on the card alike; "on" sorts
+    whenever K % 128 == 0, "off" never.
 
 Routing follows the format, not a chip: a sorted stream with bit 30 goes
 to K3 (``rans_decode_sorted``); every other stream, the channel-broadcast
@@ -40,6 +43,7 @@ from .rans_kernels import (
     rans_decode_sorted_plain,
     rans_encode,
     slot_table,
+    use_sorted_lanes,
 )
 
 PRECISION = 16
@@ -214,9 +218,11 @@ class LaneCoder:
     """Encode/decode int32 symbol tensors against a CdfTable with the
     interleaved-lane rANS (format v2), on ``device`` (default: the card).
 
-    New streams are index-sorted when K >= 2048 and K % 128 == 0 (the
-    format default); ``sorted_lanes=True`` sorts whenever K % 128 == 0,
-    which small streams such as the sorted golden need."""
+    New streams are index-sorted as the sorted-lanes mode says (under
+    "auto", when K >= 2048 and K % 128 == 0: the format default);
+    ``sorted_lanes=True`` is "on" for this coder, sorting whenever K % 128
+    == 0, which small streams such as the sorted golden need. Decoding
+    does not depend on the mode: it routes by the header's bits."""
 
     def __init__(self, table: CdfTable, num_lanes: Optional[int] = None,
                  device=None, sorted_lanes: bool = False):
@@ -237,9 +243,9 @@ class LaneCoder:
     def _sorted_ok(self, n: int, K: int) -> bool:
         pos_bits = max((n - 1).bit_length(), 1)
         idx_bits = max(int(self.num_indexes - 1).bit_length(), 1)
-        if pos_bits + idx_bits > 31 or K % 128:
+        if pos_bits + idx_bits > 31:
             return False
-        return self.sorted_lanes or K >= 2048
+        return (self.sorted_lanes and K % 128 == 0) or use_sorted_lanes(K)
 
     # -- encode -----------------------------------------------------------
     def encode(self, symbols: np.ndarray, indexes: np.ndarray) -> bytes:

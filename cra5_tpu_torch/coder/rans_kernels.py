@@ -22,6 +22,7 @@ g % K.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -31,6 +32,39 @@ from .. import kernels
 PRECISION = 16
 LANE_L = 1 << PRECISION
 MAX_LANES = 1 << 20  # the CRX2 header's bound on K
+SORTED_MIN_LANES = 2048  # "auto" sorts streams of at least this many lanes
+
+
+def _check_sorted_mode(mode: str) -> str:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"invalid sorted lanes mode {mode!r}")
+    return mode
+
+
+_SORTED_MODE = _check_sorted_mode(os.environ.get("CRA5_TPU_SORTED_LANES", "auto"))
+
+
+def set_sorted_lanes(mode: str) -> None:
+    """mode: "auto" | "on" | "off": whether new streams take the
+    index-sorted lane assignment (decoded by K3) or stay unsorted (K2)."""
+    global _SORTED_MODE
+    _SORTED_MODE = _check_sorted_mode(mode)
+
+
+def sorted_lanes_mode() -> str:
+    """The mode ``set_sorted_lanes`` (or ``CRA5_TPU_SORTED_LANES``) set."""
+    return _SORTED_MODE
+
+
+def use_sorted_lanes(K: int) -> bool:
+    """Encode a new stream of K lanes index-sorted? Never under "off" or
+    when K % 128; always else under "on"; under "auto" from 2048 lanes.
+    The port's "auto" is the format's default on every device, where the
+    JAX package's "auto" also asks for its accelerator (its CPU writes
+    unsorted streams)."""
+    if _SORTED_MODE == "off" or K % 128:
+        return False
+    return _SORTED_MODE == "on" or K >= SORTED_MIN_LANES
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:

@@ -68,11 +68,12 @@ class VAEformerConfig:
     # embed_dim; without them y carries the ViT width (embed_dim must then
     # equal y_channels)
     lower_dim: bool = True
-    # JAX's field: g_s ends in the exact ConvTranspose inverse. False (the
-    # JAX towers' linear un-patchify) is not ported: no model sets it
+    # g_s ends in the exact ConvTranspose inverse; False ends it in the
+    # linear un-patchify, which the reference uses for every geometry other
+    # than the ERA5 721 x 1440
     use_conv_transpose: bool = True
-    # recompute g_a and g_s blocks in the backward: False | True ("full");
-    # "dots" is not ported (ROADMAP.md queue A)
+    # recompute g_a and g_s blocks in the backward: False | True ("full") |
+    # "dots" (nn/vit.py)
     remat: Union[bool, str] = False
     name: str = "vaeformer"
 
@@ -199,15 +200,12 @@ class VAEformer(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         self.device = resolve_device(device)
         c, d = cfg, dict(dtype=dtype, device=self.device)
-        if not c.use_conv_transpose:
-            raise NotImplementedError("use_conv_transpose=False (the linear un-patchify) is "
-                                      "not ported")
         self.g_a = ViTEncoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
                               c.depth, c.num_heads, c.window_sizes, c.interval,
                               remat=c.remat, **d)
         self.g_s = ViTDecoder(c.img_size, c.patch_size, c.patch_stride, c.in_chans, c.y_channels,
                               c.depth, c.num_heads, c.window_sizes, c.interval,
-                              remat=c.remat, **d)
+                              use_conv_transpose=c.use_conv_transpose, remat=c.remat, **d)
         if c.lower_dim:
             self.quant_conv = Conv1x1(2 * c.y_channels, 2 * c.embed_dim, **d)
             self.post_quant_conv = Conv1x1(c.embed_dim, c.y_channels, **d)

@@ -6,13 +6,19 @@ sets no ``param_dtype``): ``Dense`` casts its input, weight and bias to
 that dtype where it computes, and LayerNorm keeps float32 statistics and
 casts its output. Attention logits and softmax are float32.
 
-``_attend`` routes to the flash kernels exactly where the JAX package
-routes to its Pallas kernels on its accelerator: on the card, for
-sequences of 2048 tokens or more, or when the (B*H, N, N) float32 logits
-would reach 1 GiB. On the 268v main path that selects the seven global
-blocks and no window or hyperprior block. The route is the differentiable
-``flash_attention`` (K4 forward, K5/K6 backward), so the global blocks'
-weights get their gradients. Elsewhere attention is plain matmul +
+``_attend`` routes by the flash mode, the JAX package's
+``set_flash_attention`` ("auto" | "on" | "off", read from
+``CRA5_TPU_FLASH`` at import). Under "auto", the default, it routes to the
+flash kernels exactly where the JAX package routes to its Pallas kernels on
+its accelerator: on the card, for sequences of 2048 tokens or more, or when
+the (B*H, N, N) float32 logits would reach 1 GiB. On the 268v main path
+that selects the seven global blocks and no window or hyperprior block.
+"on" sends every attention to ``flash_attention``: K4-K6 on the card, their
+plain versions on the CPU (JAX's interpret mode on its CPU). "off" sends
+every attention to the plain matmul + softmax, on the card too, as JAX's
+"off" does; it is a mode the caller chose, not the main path. The route
+is the differentiable ``flash_attention`` (K4 forward, K5/K6 backward), so
+the global blocks' weights get their gradients. Elsewhere attention is plain matmul +
 softmax, as the JAX package leaves it to XLA. The route looks at the shape
 only, as the JAX package's does: its Pallas kernels take the head dim
 from the operands, and so do the port's (``ops/attention.py`` picks the
@@ -32,6 +38,7 @@ tp = 2).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -45,9 +52,32 @@ from .init import init_linear_
 
 FLASH_MIN_SEQ = 2048
 FLASH_MIN_LOGIT_BYTES = 1 << 30
+FLASH_MODES = ("auto", "on", "off")
+
+
+def _check_flash_mode(mode: str) -> str:
+    if mode not in FLASH_MODES:
+        raise ValueError(f"invalid flash mode {mode!r}")
+    return mode
+
+
+_FLASH_MODE = _check_flash_mode(os.environ.get("CRA5_TPU_FLASH", "auto"))
+
+
+def set_flash_attention(mode: str) -> None:
+    """mode: "auto" | "on" | "off"."""
+    global _FLASH_MODE
+    _FLASH_MODE = _check_flash_mode(mode)
+
+
+def flash_attention_mode() -> str:
+    """The mode ``set_flash_attention`` (or ``CRA5_TPU_FLASH``) set."""
+    return _FLASH_MODE
 
 
 def _use_flash(n: int, batch_heads: int, device: torch.device) -> bool:
+    if _FLASH_MODE != "auto":
+        return _FLASH_MODE == "on"
     if device.type != "cuda":
         return False
     return n >= FLASH_MIN_SEQ or batch_heads * n * n * 4 >= FLASH_MIN_LOGIT_BYTES
@@ -148,6 +178,40 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+class DropPath(nn.Module):
+    """Stochastic depth per sample, as the JAX package's ``DropPath``: in
+    training mode with ``rate`` > 0 each sample's residual branch is kept
+    with probability 1 - rate (a uniform draw below 1 - rate, from the
+    ``torch.Generator`` the caller passes) and the kept ones are scaled by
+    1 / (1 - rate); the identity in eval mode or at rate 0, which draw
+    nothing. ``draw`` and the ``keep`` argument let a caller draw the mask
+    outside a rematerialised block, so that its recompute sees the same
+    mask."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def draw(self, batch: int, generator: Optional[torch.Generator],
+             device) -> Optional[torch.Tensor]:
+        """The (batch,) bool keep mask, or None when the layer is inactive."""
+        if self.rate == 0.0 or not self.training:
+            return None
+        if generator is None:
+            raise ValueError("DropPath in training mode with a rate above 0 needs a generator")
+        u = torch.rand(batch, generator=generator, device=device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep is None:
+            keep = self.draw(x.shape[0], generator, x.device)
+        if keep is None:
+            return x
+        mask = keep.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / (1.0 - self.rate), 0.0)
+
+
 class Attention(nn.Module):
     """Global multi-head self attention over all tokens."""
 
@@ -218,11 +282,14 @@ class WindowAttention(Attention):
 class Block(nn.Module):
     """Pre-norm transformer block; window attention when ``window_size``
     is set, global attention otherwise. At init the attention projection
-    and fc2 are scaled by 1/sqrt(2 * (layer_id + 1))."""
+    and fc2 are scaled by 1/sqrt(2 * (layer_id + 1)). ``drop_path`` is the
+    rate of the ``DropPath`` on both residual branches, which draw their
+    masks apart (the attention's first) from ``generator``, or take the
+    ``keep`` pair that ``drop_masks`` drew."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  window_size: Optional[Tuple[int, int]] = None, layer_id: Optional[int] = None,
-                 dtype=torch.float32, device=None):
+                 drop_path: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         rescale = (2.0 * (layer_id + 1)) ** -0.5 if layer_id is not None else 1.0
         self.window_size = window_size
@@ -233,7 +300,16 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, rescale, dtype, device)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), H, W)
-        return x + self.mlp(self.norm2(x))
+    def drop_masks(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """The two branches' keep masks for input ``x`` (None each when the
+        drop path is inactive)."""
+        dp = self.drop_path
+        return dp.draw(x.shape[0], generator, x.device), dp.draw(x.shape[0], generator, x.device)
+
+    def forward(self, x: torch.Tensor, H: int, W: int,
+                generator: Optional[torch.Generator] = None, keep=None) -> torch.Tensor:
+        keep_attn, keep_mlp = keep if keep is not None else self.drop_masks(x, generator)
+        x = x + self.drop_path(self.attn(self.norm1(x), H, W), keep=keep_attn)
+        return x + self.drop_path(self.mlp(self.norm2(x)), keep=keep_mlp)

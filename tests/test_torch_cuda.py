@@ -1146,3 +1146,73 @@ def test_1080p_y_stream_decodes_on_k3_like_its_plain_version(card, rng, gc_table
     assert all(torch.equal(u, v) for u, v in zip(got, want))
     np.testing.assert_array_equal(coder.decode(data, idx), sym)
     assert data == LaneCoder(gc_table, device="cpu").encode(sym, idx)
+
+
+# The attention shapes that the flash mode "on" adds at 268v: the window
+# blocks' 576 tokens (18 windows of 24 x 24 or 12 x 48, 16 heads of 64; the
+# 48 x 12 windows pad to 24 of them) and the hyperprior's global blocks
+# (648 tokens, 5 heads of 72), in bf16 and float32.
+SWITCH_SHAPES = [(18, 16, 576, 64), (24, 16, 576, 64), (1, 5, 648, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,N,D", SWITCH_SHAPES)
+def test_flash_attn_at_the_window_and_hyperprior_shapes_close_to_plain(card, rng, dtype,
+                                                                       B, H, N, D):
+    """K4, K5 and K6 at the shapes the flash mode "on" routes at 268v,
+    each launched once and held against its plain version within the bf16
+    (FLASH_OUT_RTOL, FLASH_GRAD_RTOL) or float32 (FLASH_F32_RTOL) bounds."""
+    rtol, lse_atol = ((FLASH_GRAD_RTOL, FLASH_LSE_ATOL) if dtype == torch.bfloat16
+                      else (FLASH_F32_RTOL, FLASH_F32_LSE_ATOL))
+    scale = D ** -0.5
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32)).to(card, dtype)
+                   for _ in range(4))
+    fns = (flash_attention_forward, flash_attention_backward_dq, flash_attention_backward_dkv)
+    before = tuple(f.launches for f in fns)
+    out, lse = flash_attention_forward(q, k, v, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    ops = (q, k, v, do, lse, delta, scale)
+    dq = flash_attention_backward_dq(*ops)
+    dk, dv = flash_attention_backward_dkv(*ops)
+    torch.cuda.synchronize()
+    assert tuple(f.launches for f in fns) == tuple(b + 1 for b in before)
+    ref, ref_lse = flash_attention_plain(q, k, v, scale)
+    assert (lse - ref_lse).abs().max().item() <= lse_atol
+    pairs = [(out, ref), (dq, flash_attention_backward_dq_plain(*ops)),
+             *zip((dk, dv), flash_attention_backward_dkv_plain(*ops))]
+    for got, want in pairs:
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        bound = rtol * want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+def test_268v_sized_unsorted_y_decodes_on_k2(card, rng, gc_table):
+    """A stream of the 268v y's size (2 654 208 symbols on 8192 lanes, its
+    GC indexes 2-D with a channel's cdf rows as the scales give them)
+    written under the sorted-lanes mode "off": unsorted, so it takes K2,
+    which equals lane_decode_plain exactly, and the decode gives back the
+    symbols."""
+    from cra5_tpu_torch.coder import rans_kernels as rkm
+
+    C, H, W = 256, 72, 144
+    idx = np.clip(rng.normal(12, 5, (C, 1, 1)) + rng.normal(0, 3, (C, H, W)), 0,
+                  gc_table.num_indexes - 1).astype(np.int32).reshape(-1)
+    sym = _sample(rng, gc_table, idx, 0.01)
+    saved = rkm.sorted_lanes_mode()
+    rkm.set_sorted_lanes("off")
+    try:
+        coder = LaneCoder(gc_table, device=card)
+        data = coder.encode(sym, idx)
+    finally:
+        rkm.set_sorted_lanes(saved)
+    hdr = parse_v2_header(data)
+    (n, K, _, _, srt, _, _), states, words, _ = coder._upload(data, hdr)
+    assert (n, K, srt) == (C * H * W, 8192, False)
+    idx2 = torch.from_numpy(idx).to(card).reshape(-1, K)
+    args = (coder._cdf, idx2, states, words, coder._max_values, coder._offsets)
+    before = rk.rans_decode_generic.launches
+    got = rk.rans_decode_generic(*args, coder._slots)
+    torch.cuda.synchronize()
+    assert rk.rans_decode_generic.launches == before + 1
+    assert _equal(got, rk.lane_decode_plain(*args))
+    np.testing.assert_array_equal(coder.decode(data, idx), sym)

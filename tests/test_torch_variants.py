@@ -146,11 +146,23 @@ def test_vit_towers_at_other_patch_geometries(patch, stride, hw):
 
 
 def test_use_conv_transpose_false_is_not_ported():
-    """JAX's config field stays; its linear un-patchify, which no model
-    uses, raises in the port."""
+    """The linear un-patchify raised NotImplementedError before the JAX
+    towers' options were ported. It now builds as JAX's does: g_s ends in
+    a bias-free Dense named ``final`` (the flax path ``g_s/final/kernel``)
+    and gives x at the patch grid's size, Hp * p1 rows; the default keeps
+    the exact ConvTranspose (``tests/test_torch_tower_options.py`` holds
+    both against JAX)."""
     cfg = dataclasses.replace(vaeformer_tiny(), use_conv_transpose=False)
-    with pytest.raises(NotImplementedError, match="use_conv_transpose"):
-        VAEformer(cfg, device="cpu")
+    model = VAEformer(cfg, device="cpu").reset_parameters(0)
+    assert isinstance(model.g_s.final, torch.nn.Linear) and model.g_s.final.bias is None
+    assert convert.flax_layout(model)["g_s.final.weight"] == ("g_s/final/kernel", "dense")
+    x = torch.from_numpy(_x(cfg))
+    with torch.no_grad():
+        x_hat = model(x)["x_hat"]
+    (Hp, Wp), (p1, p2) = cfg.latent_grid, cfg.patch_size
+    assert tuple(x_hat.shape) == (1, cfg.in_chans, Hp * p1, Wp * p2)
+    assert torch.isfinite(x_hat).all()
+    assert isinstance(VAEformer(vaeformer_tiny(), device="cpu").g_s.final, PatchUnembed)
 
 
 # ------------------------------------------------------------------ variants
