@@ -74,16 +74,35 @@ result line is printed then:
      counters zeroed just before and read just after (14 forward, 7 dQ and
      7 dK/dV launches a step, of the bf16 kernels in the one, of the
      float32 kernels in the other), then one step under torch.profiler;
-  7b. train CLI: cra5_tpu_torch.tools.train.run (the body of its main) on
-     a synthetic per-channel .npy tree of two 268 x 721 x 1440 timestamps
-     (ERA5NpyDataset.save_timestep) through a config whose _base_ is the
-     port's train_era5_268v_1h.py: the float32 268v model without remat,
-     batch 1, its dp=-1 mesh resolving to this card, three steps with the
-     counters zeroed just before and read just after (float32 K4, K5 and K6
-     seven times a step each); step s, peak memory, a finite loss,
-     parameters moved from their seeded init, the checkpoint written
-     reloading equal to them, and one batch's read and copy beside one
-     step on a batch already on the card;
+  7b. published configs (each line carries the card's name and power
+     limit; it runs right after the build, while the process holds
+     nothing on the card): the port's train_era5_268v_1h.py as published
+     (float32, no remat) one step each at batch 1 and 2 on a card batch,
+     each in a process of its own (profiling/train_memory.py), each
+     step's K4, K5 and K6 launches the 7 global blocks' and its loss
+     finite, their peaks and batch 4 reckoned from them (the phase raises
+     if it fits without remat); K4, K5 and K6 at a 268v window block's
+     attentions at batch 4, (72, 16, 576, 64) and, for the 48 x 12
+     windows over the grid padded to 96 rows, (96, 16, 576, 64) float32,
+     against
+     their plain versions and SDPA; then, on one seeded .npy tree of four
+     six-hourly stamps (268v's channels and tp6h), tools/train.py::run at
+     the published batch of 4 through configs whose _base_ is the port's
+     train_era5_268v_1h.py and train_era5_159v_1h.py, two steps each,
+     each adding only remat (CONFIG_REMAT): the "auto" rule puts the 18
+     window blocks on K4-K6 beside the 7 global ones, so K4 50 (the
+     forward and the recompute), K5 25 and K6 25 a step, the built model's
+     blocks held to that layout (CONFIG_FLASH) under "auto"; each step's seconds, rate (the published
+     WarmupCosineLR over the 300 000-step horizon, within 1e-9) and batch
+     reads from the tree, the peak, a finite loss, the parameters and the
+     EMA moved from the seeded init, the params file reloading equal, one
+     step on a card batch; then the 159v checkpoint through
+     tools/recompress.py --config 159 twice (two timesteps, the .bin files
+     byte-identical) and tools/serve.py --config 159 (each .npy equal
+     bitwise to the in-process decompress, K1 and K2/K3 of each bin held to
+     their plain versions, each decode equal to the encoder's symbols), and
+     one bf16 159v roundtrip from a host field with its stages. The
+     counters are zeroed just before each path and read just after;
   8. probe path: cra5_tpu_torch.profiling.perm_probe.main on the card (the
      torch sort/take/scatter probes at 2.65 M elements, K7 and K8), the
      counters zeroed just before and read just after;
@@ -164,7 +183,7 @@ result line is printed then:
      gives the model's params bitwise and the tables; verify_268_manifest
      reports only the seven CDF buffers reshaped (the manifest lists them
      empty); tools/convert_torch.main on a manifest-exact copy exits 0;
-     cra5_api(weights=.pth) installs the file's tables and writes four
+     cra5_api(weights=.pth) installs the file's tables and writes two
      timesteps' .bin files (synthetic fields), whose y stream differs from
      recomputed tables'; on the first bin's y and z streams, under the
      file's tables, K1 and the decode kernel each takes (K3 or K2) are
@@ -176,8 +195,9 @@ result line is printed then:
      three times a decode); each .npy equals cra5_api's decode_from_bin
      bitwise (the .npy files deleted after the check), with decode_from_bin
      timed beside np.save of the field; era5_eval.evaluate_fields over the
-     four pairs (mean_wrmse, the worst three variables); decode_profile at
-     268 with --depths 2,4 --batches 1,2 --iters 3 (its launches counted).
+     two pairs (mean_wrmse, the worst three variables); decode_profile at
+     268 with --depths 2 --batches 1 --iters 2 --per-window 6
+     --phase-iters 2 (its launches counted).
      Serve's launches join the float32 K4 and K2/K3 rows of the kernels
      line, decode_profile's the bf16 ones.
   13. variants phase (each line carries the card's name and power limit):
@@ -267,7 +287,7 @@ result line is printed then:
      codecs on a held-out field with every decoded symbol equal to the
      encoder's (bytes, bpp, MSE, the y stream's decode kernel and escape
      share); train_demo_report on its JSON; quickstart (268v float32,
-     --no-plots); test_model --full; roundtrip_timing (2 iterations;
+     --no-plots); test_model --full; roundtrip_timing (1 iteration;
      --examples: 5); train_268v_smoke; profile_268_train --steps 2
      (--examples: 3). Gates: every metric finite; the launches reckoned
      from each one's steps and roundtrips (a remat step 14 K4, 7 K5, 7
@@ -329,10 +349,11 @@ rows of their own: K4's launches those of the API and the float32 train
 path, K5's and K6's those of the float32 train path; the bf16 rows those
 of the bf16 paths, the calibration's, the calibrated roundtrip's and the
 bench's included, and dp_train's, remat_dots' and the tp phase's; the
-float32 rows those of the train CLI too, and the float32 K4 row
-recompress's, whose K1-K3 launches join those rows; the head-dim-72 rows
-those of the hyper_width path in their dtype); the last is {"ok": true, "device": {...}}. It needs
-one card and no network.
+float32 rows those of the published configs' two trainings too, and the
+float32 K4 row recompress's and the 159v recompression's and serve's,
+whose K1-K3 launches join those rows; the head-dim-72 rows those of the
+hyper_width path in their dtype); the last is {"ok": true, "device":
+{...}}. It needs one card and no network.
 
     python3 chip_smoke.py --coder
     python3 chip_smoke.py --perm
@@ -345,6 +366,7 @@ one card and no network.
     python3 chip_smoke.py --video
     python3 chip_smoke.py --examples
     python3 chip_smoke.py --switches
+    python3 chip_smoke.py --configs
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
 y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
@@ -352,8 +374,9 @@ K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the tp phase
 (10b), only the zoo phase (11), only the serve phase (12), only the
 variants phase (13), only the context phase (14), only the video phase
-(15), only the examples phase at its default depth (16), or only the
-switches phase (17), and print no result line. They import
+(15), only the examples phase at its default depth (16), only the
+switches phase (17), or only the published configs (7b), and print no
+result line. They import
 the cra5_tpu_torch that Python finds, so with PYTHONSAFEPATH=1
 PYTHONPATH=<checkout> they time another checkout's kernels with this
 script's timers, for a comparison in one run.
@@ -1711,118 +1734,485 @@ def phase_bench(codec, dev, calibration: dict) -> dict:
     return dict(result=result, detail=detail, launches=launches)
 
 
-def phase_train_cli(dev) -> dict:
-    """python -m cra5_tpu_torch.tools.train on a synthetic per-channel .npy
-    tree at full 268 x 721 x 1440 for two timestamps (written with
-    ERA5NpyDataset.save_timestep), through a config whose _base_ is the
-    port's train_era5_268v_1h.py: the float32 268v model without remat,
-    batch 1, its dp=-1 mesh resolving to this one card, three steps. The
-    counters are zeroed just before and read just after (float32 K4, K5
-    and K6 seven times a step each); the loss is finite, the parameters
-    moved from their seeded init, and the checkpoint written reloads equal
-    to them."""
+# --configs: the published training configurations at their batch of 4
+CONFIG_YEARS = ("2020-01-01T00:00:00", "2020-01-01T18:00:00")  # four six-hourly stamps
+CONFIG_STEPS = {"268": 2, "159": 2}  # CLI steps a model; the config's `steps` stays the horizon
+CONFIG_SCHEDULE = dict(type="WarmupCosineLR", warmup_steps=2000, min_lr_ratio=0.1)
+CONFIG_HORIZON = 300_000  # train_era5_base.py's `steps`
+CONFIG_LR_RTOL = 1e-9
+CONFIG_HEADROOM = 2 * 2**30  # a run must fit the card's memory less this
+# a 268v window block's attention at batch 4: 18 windows of 24 x 24 or
+# 12 x 48 over the 72 x 144 grid, or 24 of 48 x 12 (the grid padded to 96 rows)
+CONFIG_WINDOW = ((72, 16, 576, 64), (96, 16, 576, 64))
+# (window, global) blocks of g_a and g_s on K4-K6 a forward by batch under
+# "auto" (nn/blocks.py::_use_flash): the 7 global blocks always; the 18
+# window blocks from batch 3, where their float32 logits (batch x 18 or
+# 24 windows x 16 heads x 576^2 x 4 B) pass 1 GiB. The 648-token hyperprior
+# blocks stay on the plain path.
+CONFIG_FLASH = {1: (0, 7), 2: (0, 7), 4: (18, 7)}
+# What the derived configs add to the published ones, fixed here (not
+# reached by catching an out-of-memory error): remat. As published (float32,
+# no remat) batch 4 does not fit one card: float32_reckoning measures batch
+# 1 and 2 and prints the reckoning. With remat, float32 fits, so the
+# published dtype stays.
+CONFIG_REMAT = True
+
+
+def _published(model: str):
+    """(the path of the port's train_era5_<model>v_1h.py, its Config)."""
     import os
-    import tempfile
+
+    from cra5_tpu_torch.tools import train as train_cli
+    from cra5_tpu_torch.utils.config import Config
+
+    path = os.path.abspath(os.path.join(os.path.dirname(train_cli.__file__), "..", "api",
+                                        "configs", f"train_era5_{model}v_1h.py"))
+    return path, Config.fromfile(path)
+
+
+def _model_cfg(model: str, remat=False):
+    import dataclasses
+
+    from cra5_tpu_torch.models.vaeformer import vaeformer_159, vaeformer_268
+
+    return dataclasses.replace({"268": vaeformer_268, "159": vaeformer_159}[model](), remat=remat)
+
+
+def flash_per_forward(layout: list, batch: int) -> dict:
+    """The attentions of one forward at ``batch`` that the flash mode sends
+    to K4 on the card, by tower and kind, from a built model's
+    ``attention_layout`` (profiling/train_memory.py)."""
+    from cra5_tpu_torch.nn import blocks
+
+    out = {}
+    for tower, n, windows, heads in layout:
+        kind = f"{tower} {'global' if windows == 1 else 'window'}"
+        out[kind] = out.get(kind, 0) + bool(
+            blocks._use_flash(n, batch * windows * heads, torch.device("cuda")))
+    return out
+
+
+def _hold_flash_layout(layout: dict, batch: int, tag: str) -> int:
+    """Raise unless the flash attentions a forward at ``batch`` (
+    flash_per_forward) are CONFIG_FLASH's window and global counts; returns
+    their sum."""
+    window = layout.get("g_a window", 0) + layout.get("g_s window", 0)
+    glob = layout.get("g_a global", 0) + layout.get("g_s global", 0)
+    hyper = sum(v for k, v in layout.items() if k.startswith("h_"))
+    if (window, glob, hyper) != (*CONFIG_FLASH[batch], 0):
+        raise RuntimeError(f"[{tag}] flash attentions a forward at batch {batch}: {layout}, "
+                           f"expected {CONFIG_FLASH[batch]} window and global blocks and no "
+                           f"hyperprior block")
+    return window + glob
+
+
+def write_config_tree(root: str, card: str) -> dict:
+    """One seeded .npy tree of the CONFIG_YEARS stamps for both published
+    models: 268v's channels and the one more of 159v's (tp6h), each file
+    once (ERA5NpyDataset.save_timestep). Returns each model's dataset over
+    it."""
+    import os
+
+    from cra5_tpu_torch.data import ERA5NpyDataset
+
+    ds = {}
+    for model in ("268", "159"):
+        d = _published(model)[1]["dataset"]
+        ds[model] = ERA5NpyDataset(root, d["vnames"], d["pressure_level"], CONFIG_YEARS,
+                                   d["time_interval"])
+    n268, n159 = ds["268"].channel_names(), ds["159"].channel_names()
+    extra = [n for n in n159 if n not in n268]
+    if (len(n268), len(n159), extra, len(ds["268"])) != (268, 159, ["tp6h"], 4):
+        raise RuntimeError(f"[configs] 159v's channels beyond 268v's: {extra}; "
+                           f"{len(ds['268'])} stamps")
+    names = n268 + extra
+    t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    for ts in ds["268"].timestamps:
+        data = rng.standard_normal((len(names), *_model_cfg("268").img_size),
+                                   dtype=np.float32) * np.float32(0.5)
+        ERA5NpyDataset.save_timestep(root, ts, data, names)
+    del data
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for d, _, fs in os.walk(root) for n in fs)
+    log(f"[configs] wrote {len(ds['268'])} timesteps x {len(names)} channels (268v's and tp6h; "
+        f"159v's {len(n159)} among them) as .npy, {nbytes / 1e9:.2f} GB, in "
+        f"{time.time() - t0:.2f} s  ({card})")
+    return ds
+
+
+def float32_reckoning(dev, card: str) -> None:
+    """The published 268v config as it stands (float32, no remat), its
+    trainer block, one step at batch 1, then one at batch 2, on a card
+    batch in a process of its own under "auto" (profiling/train_memory.py:
+    a fresh allocator, whatever this process's earlier phases left cached): the
+    peaks, and batch 4 reckoned from them, the slope a sample less the
+    window blocks' saved float32 softmax, which from batch 3 K4-K6 hold
+    instead. Gates: each step's K4, K5 and K6 launches the layout's global
+    blocks (CONFIG_FLASH), its loss and bpp finite, and the reckoning over
+    the card (else the published config needs no remat, CONFIG_REMAT)."""
+    import os
+
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", "CRA5_TPU_FLASH": "auto"}
+    r = subprocess.run([sys.executable, "-m", "cra5_tpu_torch.profiling.train_memory",
+                        "--dtype", "float32", "--batch", "1,2", "--steps", "1"], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        raise RuntimeError(f"[configs] train_memory exited {r.returncode}: {r.stderr[-3000:]}")
+    runs = {run["batch"]: run for run in map(json.loads, r.stdout.strip().splitlines()[-2:])}
+    for b, run in sorted(runs.items()):
+        n = _hold_flash_layout(flash_per_forward(run["attention"], b), b, "configs")
+        want = {k: n for k in ("flash_attention_forward", "flash_attention_backward_dq",
+                               "flash_attention_backward_dkv")}
+        mt = run["metrics"]
+        if (run["flash_mode"] != "auto" or run["remat"] or run["launches"] != want
+                or not all(np.isfinite(mt[k]) for k in ("loss", "bpp_loss", "total_loss"))):
+            raise RuntimeError(f"[configs] train_memory at batch {b}: mode {run['flash_mode']}, "
+                               f"remat {run['remat']}, launches {run['launches']} (expected "
+                               f"{want}), metrics {mt}")
+    peaks = {b: run["peak_gib"] * 2**30 for b, run in runs.items()}
+    window = [r for r in runs[1]["attention"] if r[0] in ("g_a", "g_s") and r[2] > 1]
+    softmax = sum(windows * heads * n * n * 4 for _, n, windows, heads in window)
+    slope = peaks[2] - peaks[1]
+    reckoned = peaks[1] + 3 * slope - 4 * softmax
+    limit = torch.cuda.get_device_properties(dev).total_memory - CONFIG_HEADROOM
+    _, n, _, heads = window[0]
+    by_windows = ", ".join(f"{sum(r[2] == w for r in window)} at {w}"
+                           for w in sorted({r[2] for r in window}))
+    line = (f"[configs] float32 268v without remat (as published), its trainer block, one step "
+            f"at batch 1, then at 2, on a card batch in a process of its own (this one holding {held[0] / 2**30:.2f} "
+            f"GiB, {held[1] / 2**30:.2f} reserved): batch 1 peak {peaks[1] / 2**30:.2f} GiB "
+            f"({runs[1]['steps_s'][0]:.4f} s, loss {runs[1]['metrics']['loss']:.6g}), batch 2 "
+            f"{peaks[2] / 2**30:.2f} GiB ({runs[2]['steps_s'][0]:.4f} s, loss "
+            f"{runs[2]['metrics']['loss']:.6g}); launches a step {runs[1]['launches']} (the "
+            f"{CONFIG_FLASH[1][1]} global blocks); batch 4 reckoned {peaks[1] / 2**30:.2f} + 3 x "
+            f"{slope / 2**30:.2f} (a sample) - 4 x {softmax / 2**30:.2f} (a sample's float32 "
+            f"softmax of the {len(window)} window blocks, {by_windows} windows x {heads} heads x "
+            f"{n}^2 x 4 B each, on K4-K6 from batch 3) = {reckoned / 2**30:.2f} GiB against "
+            f"{limit / 2**30:.2f} GiB (the card less {CONFIG_HEADROOM / 2**30:.0f} GiB)")
+    if reckoned <= limit:
+        raise RuntimeError(f"{line}: fits, so the published config runs unchanged and "
+                           f"CONFIG_REMAT={CONFIG_REMAT} is not wanted")
+    log(f"{line}: does not fit; so the derived configs add remat={CONFIG_REMAT} and keep "
+        f"float32  ({card})")
+
+
+def _derived_config(path: str, model: str, root: str) -> str:
+    """A config whose _base_ is the published one, with the tree's root and
+    stamps, log_every 1 and the model's remat (CONFIG_REMAT)."""
+    with open(path, "w") as f:
+        f.write("import dataclasses\n\n"
+                f"from cra5_tpu_torch.models.vaeformer import vaeformer_{model}\n\n"
+                f"_base_ = [{_published(model)[0]!r}]\n"
+                f"dataset = dict(root={root!r}, years={CONFIG_YEARS!r})\n"
+                f"trainer = dict(log_every=1)\n"
+                f"model = dict(type='VAEformer', "
+                f"cfg=dataclasses.replace(vaeformer_{model}(), remat={CONFIG_REMAT!r}))\n")
+    return path
+
+
+def train_published(dev, card: str, model: str, root: str, ds, tmp: str) -> dict:
+    """tools/train.py::run on the derived config of train_era5_<model>v_1h.py
+    at its batch of 4 for CONFIG_STEPS[model] steps, the counters zeroed
+    just before and read just after. Gates: the built model's blocks put
+    CONFIG_FLASH's 18 window and 7 global blocks on K4-K6 at batch 4; K4,
+    K5 and K6 launches equal to those a step (K4 twice under remat: the
+    forward and the recompute); loss and bpp finite; each step's rate the published
+    schedule's over the 300 000-step horizon (and the horizon's own); the
+    parameters and the EMA moved from the seeded init; the params file
+    reloads equal. Prints each step's seconds and rate, each batch's reads
+    from the tree, the peak, and for 268v one step on a batch on the card."""
+    import os
 
     from cra5_tpu_torch import kernels
     from cra5_tpu_torch.data import ERA5NpyDataset, device_put
-    from cra5_tpu_torch.models.vaeformer import VAEformer, vaeformer_268
+    from cra5_tpu_torch.models.vaeformer import VAEformer
+    from cra5_tpu_torch.profiling.train_memory import attention_layout
     from cra5_tpu_torch.tools import train as train_cli
+    from cra5_tpu_torch.train import build_schedule
     from cra5_tpu_torch.train.checkpoints import load_variables
 
-    base = os.path.abspath(os.path.join(os.path.dirname(train_cli.__file__), "..", "api",
-                                        "configs", "train_era5_268v_1h.py"))
-    years = ("2020-01-01T00:00:00", "2020-01-01T06:00:00")
-    with tempfile.TemporaryDirectory() as tmp:
-        root, ckpt = os.path.join(tmp, "era5_np"), os.path.join(tmp, "ckpt")
-        cfg_path = os.path.join(tmp, "train_smoke.py")
-        with open(cfg_path, "w") as f:
-            f.write(f"_base_ = [{base!r}]\n"
-                    f"dataset = dict(root={root!r}, years={years!r}, batch_size=1)\n"
-                    f"trainer = dict(log_every=1)\n"
-                    f"steps = 3\n")
-        from cra5_tpu_torch.utils.config import Config
+    tag = f"configs {model}v"
+    published = _published(model)[1]
+    batch, steps = published["dataset"]["batch_size"], CONFIG_STEPS[model]
+    if batch != 4 or published["steps"] != CONFIG_HORIZON:
+        raise RuntimeError(f"[{tag}] published batch {batch}, steps {published['steps']}")
+    cfg_path = _derived_config(os.path.join(tmp, f"train_{model}v_batch4.py"), model, root)
+    reads, stamps, metrics = [], [], []
+    get = ERA5NpyDataset.__getitem__
 
-        dcfg = Config.fromfile(cfg_path)["dataset"]
-        ds = ERA5NpyDataset(root, dcfg["vnames"], dcfg["pressure_level"], years,
-                            dcfg["time_interval"])
-        t0 = time.time()
-        rng = np.random.default_rng(SEED)
-        shape = (ds.num_channels, 721, 1440)
-        for ts in ds.timestamps:
-            data = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.5)
-            ERA5NpyDataset.save_timestep(root, ts, data, ds.channel_names())
-        del data
-        nbytes = sum(os.path.getsize(os.path.join(d, n)) for d, _, fs in os.walk(root) for n in fs)
-        log(f"[train_cli] wrote {len(ds.timestamps)} timesteps x {ds.num_channels} channels "
-            f"(.npy, {nbytes / 1e9:.2f} GB) in {time.time() - t0:.2f} s")
+    def timed_get(self, i):
+        t0 = time.perf_counter()
+        out = get(self, i)
+        reads.append(time.perf_counter() - t0)
+        return out
 
-        stamps, metrics = [], []
+    def log_fn(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append(m)
 
-        def log_fn(step, m):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            metrics.append(m)
-
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ERA5NpyDataset.__getitem__ = timed_get
+    try:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         trainer, state, path = train_cli.run(
-            [cfg_path, "--steps", "3", "--ckpt-dir", ckpt], log_fn=log_fn)
+            [cfg_path, "--steps", str(steps), "--ckpt-dir", os.path.join(tmp, f"ckpt_{model}")],
+            log_fn=log_fn)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        steps_s = [b - a for a, b in zip([t0] + stamps, stamps)]
-        for i, (sec, m) in enumerate(zip(steps_s, metrics)):
-            log(f"[train_cli] step {i + 1}: {sec:.4f} s{' (with init)' if i == 0 else ''}; loss "
-                f"{m['loss']:.6g} bpp {m['bpp_loss']:.6g} mse {m['mse_loss']:.6g} aux "
-                f"{m['aux_loss']:.6g}")
-        if len(metrics) != 3 or not all(np.isfinite(v) for m in metrics for v in m.values()):
-            raise RuntimeError(f"train_cli metrics {metrics}")
-        per_step = {"flash_attention_forward": 7, "flash_attention_backward_dq": 7,
-                    "flash_attention_backward_dkv": 7}
-        want = {k: 3 * per_step.get(k, 0) for k in launches}
-        if launches != want:
-            raise RuntimeError(f"train_cli launches {launches}, expected {want}")
-        model = trainer.model
-        if model.dtype != torch.float32 or model.cfg.remat or model.cfg != vaeformer_268():
-            raise RuntimeError(f"train_cli built {model.cfg} in {model.dtype}")
-        saved = load_variables(path)
-        same = set(saved) == set(state.params) and all(
-            torch.equal(saved[k], p.detach().cpu()) for k, p in state.params.items())
-        if not same:
-            raise RuntimeError(f"{path} does not reload equal to the parameters")
-        # where a step's time goes: one batch read from the tree and moved to
-        # the card, and one step on a batch already on the card
+    finally:
+        ERA5NpyDataset.__getitem__ = get
+    t_save = time.perf_counter() - stamps[-1]
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    m = trainer.model
+    if m.dtype != torch.float32 or m.cfg != _model_cfg(model, CONFIG_REMAT):
+        raise RuntimeError(f"[{tag}] the CLI built {m.cfg} in {m.dtype}")
+    for i, (sec, mt) in enumerate(zip(steps_s, metrics)):
+        log(f"[{tag}] step {i + 1}: {sec:.4f} s{' (with init)' if i == 0 else ''}, lr "
+            f"{trainer.tx.net_rate(i):.6g}; loss {mt['loss']:.6g} bpp {mt['bpp_loss']:.6g} mse "
+            f"{mt['mse_loss']:.6g} aux {mt['aux_loss']:.6g}  ({card})")
+    if len(metrics) != steps or not all(np.isfinite(mt[k]) for mt in metrics
+                                        for k in ("loss", "bpp_loss", "total_loss")):
+        raise RuntimeError(f"[{tag}] metrics {metrics}")
+    sched = build_schedule(CONFIG_SCHEDULE, published["trainer"]["learning_rate"], CONFIG_HORIZON)
+    counts = list(range(steps)) + [2000, CONFIG_HORIZON // 2, CONFIG_HORIZON - 1]
+    bad = [(c, trainer.tx.net_rate(c), sched(c)) for c in counts
+           if abs(trainer.tx.net_rate(c) - sched(c)) > CONFIG_LR_RTOL * abs(sched(c))]
+    if bad or trainer.cfg.total_steps != CONFIG_HORIZON or state.opt_state.count != steps:
+        raise RuntimeError(f"[{tag}] rates (count, got, want) {bad}, horizon "
+                           f"{trainer.cfg.total_steps}, updates {state.opt_state.count}")
+    rows = attention_layout(m)
+    layout = flash_per_forward(rows, batch)
+    n_flash = _hold_flash_layout(layout, batch, tag)
+    per_step = {"flash_attention_forward": n_flash * (2 if CONFIG_REMAT else 1),
+                "flash_attention_backward_dq": n_flash, "flash_attention_backward_dkv": n_flash}
+    want = {k: steps * per_step.get(k, 0) for k in launches}
+    if launches != want:
+        raise RuntimeError(f"[{tag}] launches {launches}, expected {want} from the layout "
+                           f"{layout}")
+    saved = load_variables(path)
+    if set(saved) != set(state.params) or not all(
+            torch.equal(saved[k], p.detach().cpu()) for k, p in state.params.items()):
+        raise RuntimeError(f"[{tag}] {path} does not reload equal to the parameters")
+    del saved
+    init = dict(VAEformer(m.cfg, device=dev).reset_parameters(trainer.seed).named_parameters())
+    watch = ("g_a.blocks.3.attn.qkv.weight", "g_a.patch_embed.weight", "quant_conv.weight",
+             "entropy_bottleneck.quantiles", "g_s.final.weight")
+    moved = {k: tuple(float((t.detach() - init[k].detach()).abs().max())
+                      for t in (state.params[k], state.ema.params[k])) for k in watch}
+    if not all(a > 0 and e > 0 for a, e in moved.values()) or state.ema.steps != steps:
+        raise RuntimeError(f"[{tag}] the parameters or the EMA did not move: {moved}")
+    del init
+    per_batch = [sum(reads[i:i + batch]) for i in range(0, batch * steps, batch)]
+    card_step = ""
+    if model == "268":  # 159v's tower is 268v's: one step on a card batch is enough
+        x = device_put(dev)(ds[model][0]["inputs"][:1].repeat(batch, 0))
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batch = ds[0]["inputs"][:1]
-        t1 = time.perf_counter()
-        on_card = device_put(dev)(batch)
+        trainer.fit([x], state=state, num_steps=1, log_fn=lambda *a: None)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        trainer.fit([on_card], state=state, num_steps=1, log_fn=lambda *a: None)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        log(f"[train_cli] one batch: read {t1 - t0:.4f} s (268 .npy files, stacked), to the "
-            f"card {t2 - t1:.4f} s (pinned, non-blocking); one step on a batch on the card "
-            f"{t3 - t2:.4f} s")
-        del trainer, saved, batch, on_card
-        fresh = VAEformer(vaeformer_268(), device=dev).reset_parameters(0)
-        init = dict(fresh.named_parameters())
-        watch = ("g_a.blocks.3.attn.qkv.weight", "quant_conv.weight",
-                 "entropy_bottleneck.quantiles", "g_s.final.weight")
-        moved = {k: (state.params[k].detach() - init[k].detach()).abs().max().item()
-                 for k in watch}
-        if not all(v > 0 for v in moved.values()):
-            raise RuntimeError(f"train_cli: parameters did not move: {moved}")
-        del fresh, init, model, state
+        card_step = f"one step on a card batch {time.perf_counter() - t0:.4f} s; "
+        del x
+    del trainer, state, m
     torch.cuda.empty_cache()
-    log(f"[train_cli] float32 268v, no remat, batch 1, dp=-1 mesh on 1 card: steps "
-        f"{', '.join(f'{t:.4f}' for t in steps_s)} s; peak {peak / 2**30:.2f} GiB; loss finite; "
-        f"max |change| from the seeded init {moved}; {os.path.basename(path)} reloads equal; "
-        f"launches {launches}")
-    return dict(steps_s=steps_s, peak_bytes=peak, launches=launches)
+    log(f"[{tag}] the published config at batch {batch}, float32, remat {CONFIG_REMAT}, dp=-1 "
+        f"on 1 card: steps {', '.join(f'{t:.4f}' for t in steps_s)} s; each step's batch of "
+        f"{batch} read from the tree in the loader's thread, ahead of its step, "
+        f"{', '.join(f'{t:.4f}' for t in per_batch)} s ({len(reads)} timesteps read in all); "
+        f"{card_step}fit's return (the loader's thread "
+        f"joined) and the save {t_save:.2f} s; peak {peak / 2**30:.2f} GiB; flash "
+        f"attentions a forward {layout}; launches {launches} ({per_step} a step, from the "
+        f"layout); rates the schedule's within {CONFIG_LR_RTOL:g} at counts {counts}; loss and "
+        f"bpp finite; max |change| from the seeded init (params, EMA) {moved}; "
+        f"{os.path.basename(path)} reloads equal  ({card})")
+    return dict(launches=launches, path=path, layout=rows)
+
+
+def chain_159(dev, card: str, ds, ckpt: str, layout: list, tmp: str) -> dict:
+    """The 159v checkpoint through tools/recompress.py --config 159 (two
+    timesteps of the tree, stacked (159, 721, 1440) .npy files) twice, the
+    .bin files byte-identical, and tools/serve.py --config 159 on them
+    (4 threads, no --denormalize: C19), the counters zeroed just before
+    and read just after each. Gates: each .npy equal bitwise to the
+    in-process VAEformerCodec.decompress of its container on the card;
+    each bin's streams held by hold_stream_kernels (K1 and K2/K3 exact
+    against their plain versions, the decode equal to the encoder's
+    symbols); launches as the headers and the layout give them. Then one
+    bf16 roundtrip from a host field with its stages. Returns each path's
+    launches."""
+    import os
+
+    from cra5_tpu_torch import kernels
+    from cra5_tpu_torch.api.bitstream import load_bin
+    from cra5_tpu_torch.coder.lane_coder import parse_v2_header
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec
+    from cra5_tpu_torch.tools import recompress, serve
+    from cra5_tpu_torch.train.checkpoints import load_variables
+
+    tag = "configs 159v"
+    inputs = os.path.join(tmp, "fields_159")
+    os.makedirs(inputs)
+    fields = {}
+    for i in range(2):
+        fields[f"t{i}"] = ds["159"][i]["inputs"][0]
+        np.save(os.path.join(inputs, f"t{i}.npy"), fields[f"t{i}"])
+    cfg = _model_cfg("159")
+    launches, outs, lines = {}, [], []
+    for run in range(2):
+        out = os.path.join(tmp, f"bins_159_{run}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = recompress.main([inputs, "-o", out, "--config", "159", "--checkpoint", ckpt])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"[{tag}] recompress exited {rc}")
+        lines.append((json.loads(buf.getvalue().strip().splitlines()[-1]), time.time() - t0))
+        if run == 0:
+            launches["recompress"] = kernels.launch_counts()
+        outs.append({n: open(os.path.join(out, n), "rb").read() for n in sorted(os.listdir(out))})
+    if outs[0] != outs[1] or sorted(outs[0]) != ["t0.bin", "t1.bin"]:
+        raise RuntimeError(f"[{tag}] the two recompressions differ")
+    want = {k: 0 for k in launches["recompress"]}
+    want.update(rans_encode=2 * len(fields), flash_attention_forward=sum(
+        v for k, v in flash_per_forward(layout, len(fields)).items() if k.startswith("g_a")))
+    if launches["recompress"] != want:
+        raise RuntimeError(f"[{tag}] recompress launches {launches['recompress']}, expected "
+                           f"{want}")
+    sizes = {n: len(b) for n, b in outs[0].items()}
+    bpp = {n: round(8 * s / (cfg.img_size[0] * cfg.img_size[1]), 4) for n, s in sizes.items()}
+    log(f"[{tag}] recompress --config 159 --checkpoint {os.path.basename(ckpt)} (float32), twice: "
+        f"the .bin files byte-identical, {sizes} B ({bpp} bits a grid point); main's lines "
+        f"{[ln for ln, _ in lines]}, the calls {[round(s, 2) for _, s in lines]} s with the "
+        f"model build; launches {launches['recompress']}  ({card})")
+
+    bin_dir, npy_dir = os.path.join(tmp, "bins_159_0"), os.path.join(tmp, "served_159")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main([bin_dir, "-o", npy_dir, "--config", "159", "--checkpoint", ckpt,
+                         "--threads", "4"])
+    torch.cuda.synchronize()
+    serve_wall = time.time() - t0
+    launches["serve"] = kernels.launch_counts()
+    if rc != 0:
+        raise RuntimeError(f"[{tag}] serve exited {rc}")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    served = sorted(outs[0])
+    decodes = [served[0]] + served  # the warm decode, then every file
+    heads = {b: parse_v2_header(load_bin(os.path.join(bin_dir, b))[0][0][0]) for b in served}
+    k3 = sum(1 for b in decodes if heads[b][4] and heads[b][5])
+    g_s = sum(v for k, v in flash_per_forward(layout, 1).items() if k.startswith("g_s"))
+    want = {k: 0 for k in launches["serve"]}
+    want.update(rans_decode_generic=2 * len(decodes) - k3, rans_decode_sorted=k3,
+                flash_attention_forward=g_s * len(decodes))
+    if launches["serve"] != want or line["decoded"] != len(served) or line["kernel_fallbacks"]:
+        raise RuntimeError(f"[{tag}] serve launches {launches['serve']} (expected {want}), "
+                           f"line {line}")
+    codec = recompress.build_codec("159", ckpt, dev)
+    # the encoder's symbols at the batch recompress coded (its one call of
+    # both files, in their order): a row's symbols may depend on the batch
+    with torch.inference_mode():
+        enc = codec.model.symbols_from_latent(codec.model.encode_latent(torch.as_tensor(
+            np.stack([fields[b[:-4]] for b in served]), device=dev)))
+    for i, b in enumerate(served):
+        strings, z_shape = load_bin(os.path.join(bin_dir, b))
+        with torch.inference_mode():
+            x_hat = codec.decompress(strings, z_shape)["x_hat"][0].float().cpu().numpy()
+        got = np.load(os.path.join(npy_dir, b[:-4] + ".npy"))
+        if got.dtype != np.float32 or not np.array_equal(got, x_hat):
+            raise RuntimeError(f"[{tag}] serve's {b[:-4]}.npy differs from the in-process decode")
+        hold_stream_kernels(codec, {"strings": strings}, {k: v[i:i + 1] for k, v in enc.items()},
+                            f"159v {b}", card, "configs kernels")
+    del enc
+    y_heads = [(h[0], h[1], h[2], h[4], h[5]) for h in heads.values()]
+    log(f"[{tag}] serve --config 159 --threads 4: {line['decoded']} decodes in "
+        f"{line['seconds']} s, {line['decodes_per_sec']} decodes/s; the call {serve_wall:.1f} s "
+        f"with the model build; each .npy equal bitwise to the in-process decompress on the "
+        f"card; y headers (n, K, escapes, sorted, safe) {y_heads}; launches {launches['serve']}  "
+        f"({card})")
+
+    # one bf16 roundtrip from a host field, with its stages
+    del codec
+    model = VAEformer(cfg, dtype=torch.bfloat16, device=dev)
+    params = load_variables(ckpt)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+    del params
+    codec = VAEformerCodec(model)
+    codec.update()
+    x = fields["t0"][None]
+    for run in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        codec.stage_times = {}
+        t0 = time.perf_counter()
+        enc = codec.compress(x)
+        dec = codec.decompress(enc["strings"], enc["z_shape"])["x_hat"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stages, codec.stage_times = codec.stage_times, None
+    launches["codec"] = kernels.launch_counts()
+    _launch_gate(f"{tag} roundtrip", launches["codec"], {
+        "rans_encode": 2, "flash_attention_forward": sum(flash_per_forward(layout, 1).values())},
+        decodes=2)
+    if not bool(torch.isfinite(dec).all()) or tuple(dec.shape) != (1, 159, *cfg.img_size):
+        raise RuntimeError(f"[{tag}] the bf16 roundtrip gave {tuple(dec.shape)}, finite "
+                           f"{bool(torch.isfinite(dec).all())}")
+    log(f"[{tag}] bf16 roundtrip from a host field (the second of two): {wall:.4f} s, "
+        f"{sum(len(s[0]) for s in enc['strings'])} B; stages " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in stages.items())
+        + f"; launches {launches['codec']}  ({card})")
+    del model, codec, dec, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_configs(dev, card: str) -> dict:
+    """The published training configurations on the card: the float32
+    reckoning at batch 1 and 2 (while the host writes one seeded .npy
+    tree into a temporary directory), K4-K6 at a 268v window block's
+    shapes at batch 4, the 268v CLI at batch 4 (train_published), then
+    159v from training through recompression to serving (chain_159), on
+    that tree. Returns each path's launches."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cra5_tpu_torch.nn import blocks
+
+    if blocks.flash_attention_mode() != "auto":
+        raise RuntimeError(f"[configs] the flash mode is {blocks.flash_attention_mode()!r}: the "
+                           f"phase holds the \"auto\" rule's routing")
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "era5_np")
+        # the host writes the tree while the reckoning's process has the card
+        with ThreadPoolExecutor(1) as pool:
+            tree = pool.submit(write_config_tree, root, card)
+            float32_reckoning(dev, card)
+            ds = tree.result()
+        switch_kernel_rows(dev, card, CONFIG_WINDOW, (torch.float32,), "configs")
+        res268 = train_published(dev, card, "268", root, ds, tmp)
+        shutil.rmtree(os.path.dirname(res268["path"]))
+        res159 = train_published(dev, card, "159", root, ds, tmp)
+        chained = chain_159(dev, card, ds, res159["path"], res159["layout"], tmp)
+    log(f"[configs] phase {time.time() - t_phase:.1f} s  ({card})")
+    return {"configs_268": res268["launches"], "configs_159": res159["launches"],
+            **{f"configs_159_{k}": v for k, v in chained.items()}}
 
 
 def phase_profile(codec, x) -> None:
@@ -3176,8 +3566,7 @@ def phase_zoo(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------- serve phase
-SERVE_STAMPS = ("2024-01-01T00:00:00", "2024-01-01T06:00:00", "2024-01-01T12:00:00",
-                "2024-01-01T18:00:00")
+SERVE_STAMPS = ("2024-01-01T00:00:00", "2024-01-01T06:00:00")
 CDF_BUFFERS = ("entropy_bottleneck._cdf_length", "entropy_bottleneck._offset",
                "entropy_bottleneck._quantized_cdf", "gaussian_conditional._cdf_length",
                "gaussian_conditional._offset", "gaussian_conditional._quantized_cdf",
@@ -3427,7 +3816,8 @@ def phase_serve(dev, card: str) -> dict:
     t0 = time.time()
     buf, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        rc = decode_profile.main(["--depths", "2,4", "--batches", "1,2", "--iters", "3"])
+        rc = decode_profile.main(["--depths", "2", "--batches", "1", "--iters", "2",
+                                  "--per-window", "6", "--phase-iters", "2"])
     torch.cuda.synchronize()
     prof_launches = kernels.launch_counts()
     if rc != 0:
@@ -3435,7 +3825,8 @@ def phase_serve(dev, card: str) -> dict:
     prof = json.loads(buf.getvalue().strip().splitlines()[-1])
     _require(prof_launches, ("rans_encode", "rans_decode_generic", "flash_attention_forward"),
              "decode_profile")
-    log(f"[serve] decode_profile --depths 2,4 --batches 1,2 --iters 3 (268v bf16, calibrated), "
+    log(f"[serve] decode_profile --depths 2 --batches 1 --iters 2 --per-window 6 "
+        f"--phase-iters 2 (268v bf16, calibrated), "
         f"{time.time() - t0:.1f} s: {json.dumps(prof)}  ({card})")
     log(f"[serve] decode_profile launches {prof_launches}  ({card})")
     log(f"[serve] phase {time.time() - t_phase:.1f} s  ({card})")
@@ -3443,7 +3834,7 @@ def phase_serve(dev, card: str) -> dict:
 
 
 # --variants: the ERA5 VAEformer variants, the vivt69 experiment, finalize
-VIVT69_STEPS = 300  # vivt69_experiment.main's training steps on the card
+VIVT69_STEPS = 150  # vivt69_experiment.main's training steps on the card
 FINALIZE_WORKERS = "1,2,4,8"
 
 
@@ -4206,7 +4597,7 @@ def phase_video(dev, card: str) -> dict:
 # cra5_tpu_torch.examples' arguments: with --examples each at its defaults
 # (the demo 400 steps saved at 200 on 6 fields); in the full run shorter.
 EXAMPLES_ARGS = {"default": dict(demo=[], timing=[], profile=["--steps", "3"]),
-                 "short": dict(demo=["--steps", "40", "--save-at", "20"], timing=["2"],
+                 "short": dict(demo=["--steps", "40", "--save-at", "20"], timing=["1"],
                                profile=["--steps", "2"])}
 LEARN_STEPS = 10  # the short demo learns: its last 10 steps' mean total loss below its first 10's
 TRAIN_STEP_LAUNCHES = {"flash_attention_forward": 14, "flash_attention_backward_dq": 7,
@@ -4221,7 +4612,7 @@ def _launch_gate(tag: str, got: dict, want: dict, decodes: int = 0, sorted_y=Non
     n_dec = sum(got.get(k, 0) for k in dec)
     if (rest != {k: want.get(k, 0) for k in rest} or n_dec != decodes
             or sorted_y is not None and got.get("rans_decode_sorted", 0) != sorted_y):
-        raise RuntimeError(f"[examples] {tag}: launches {got}, expected {want} with {decodes} "
+        raise RuntimeError(f"[{tag}] launches {got}, expected {want} with {decodes} "
                            f"decodes (K2 + K3{'' if sorted_y is None else f', K3 {sorted_y}'})")
 
 
@@ -4661,10 +5052,11 @@ def switch_train(dev, card: str, tally) -> dict:
     return dict(launches=_sum_launches(*launches), **res)
 
 
-def switch_kernel_rows(dev, card: str) -> dict:
+def switch_kernel_rows(dev, card: str, shapes=SWITCH_WINDOW,
+                       dtypes=(torch.bfloat16, torch.float32), where: str = "switches") -> dict:
     """(b) K4, K5 and K6 at the attention shapes that "on" adds at 268v
     (the window blocks' (18, 16, 576, 64) and the hyperprior's (1, 5, 648,
-    72)) in bf16 and float32, each against its plain version to the
+    72)), or ``shapes``, in ``dtypes``, each against its plain version to the
     kernels phase's bounds, two calls bitwise equal: event ms (20 calls
     after one), device us a call, the plain version's ms, SDPA's
     forward and backward (forward + backward less forward) and the bound
@@ -4682,9 +5074,11 @@ def switch_kernel_rows(dev, card: str) -> dict:
     rng = np.random.default_rng(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for B, H, N, D in SWITCH_WINDOW:
-        for dtype, rtol, lse_atol in ((torch.bfloat16, FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
-                                      (torch.float32, FLASH_F32_RTOL, FLASH_F32_LSE_ATOL)):
+    tols = {torch.bfloat16: (FLASH_GRAD_RTOL, FLASH_LSE_ATOL),
+            torch.float32: (FLASH_F32_RTOL, FLASH_F32_LSE_ATOL)}
+    for B, H, N, D in shapes:
+        for dtype in dtypes:
+            rtol, lse_atol = tols[dtype]
             scale = D ** -0.5
             q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, N, D), np.float32))
                            .to(dev, dtype) for _ in range(4))
@@ -4709,7 +5103,7 @@ def switch_kernel_rows(dev, card: str) -> dict:
             finite = all(bool(torch.isfinite(a).all()) for a in got.values())
             name = f"({B}, {H}, {N}, {D}) {str(dtype)[6:]}"
             if not finite or not same or lerr > lse_atol or any(e > b for e, b in errs.values()):
-                raise RuntimeError(f"[switches kernels] {name}: (err, bound) {errs}, lse err "
+                raise RuntimeError(f"[{where} kernels] {name}: (err, bound) {errs}, lse err "
                                    f"{lerr}, finite {finite}, two calls bitwise equal {same}")
             del got, again, refs, ref_out, ref_lse
             ms = {"K4": timed_ms(fwd, 20), "K5": timed_ms(dq, 20), "K6": timed_ms(dkv, 20)}
@@ -4732,12 +5126,12 @@ def switch_kernel_rows(dev, card: str) -> dict:
                 ops_ms, bytes_ms = mult * f / peak * 1e3, bytes_bound_ms(nbytes[n])
                 bounds[n] = max(ops_ms, bytes_ms)
                 kinds[n] = "operations" if ops_ms >= bytes_ms else "bytes"
-            log(f"[switches kernels {name}] (err, bound {rtol} x max|ref|) "
+            log(f"[{where} kernels {name}] (err, bound {rtol} x max|ref|) "
                 + ", ".join(f"{n} ({e:.3g}, {b:.3g})" for n, (e, b) in errs.items())
                 + f", lse err {lerr:.3g} (atol {lse_atol}), two calls of each bitwise equal  "
                 f"({card})")
             for n in ("K4", "K5", "K6"):
-                log(f"[switches {n} {name}] kernel {ms[n]:.4f} ms, device {dev_us[n]:.2f} us "
+                log(f"[{where} {n} {name}] kernel {ms[n]:.4f} ms, device {dev_us[n]:.2f} us "
                     f"({bounds[n] / ms[n]:.1%} of the bound by events), plain {plain[n]:.4f} ms, "
                     f"sdpa {'forward' if n == 'K4' else 'backward'} {lib[n]:.4f} ms, bound "
                     f"{bounds[n]:.4f} ms ({kinds[n]})  ({card})")
@@ -4928,10 +5322,11 @@ def phase_switches(dev, card: str) -> dict:
 
 def main(args) -> int:
     if args not in ([], ["--coder"], ["--perm"], ["--dist"], ["--tp"], ["--zoo"], ["--serve"],
-                    ["--variants"], ["--context"], ["--video"], ["--examples"], ["--switches"]):
+                    ["--variants"], ["--context"], ["--video"], ["--examples"], ["--switches"],
+                    ["--configs"]):
         raise SystemExit("usage: python3 chip_smoke.py [--coder | --perm | --dist | --tp | "
                          "--zoo | --serve | --variants | --context | --video | --examples | "
-                         f"--switches]; got {args}")
+                         f"--switches | --configs]; got {args}")
     device = phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4963,48 +5358,79 @@ def main(args) -> int:
             phase_examples(dev, CARD, "default")
         elif args == ["--switches"]:
             phase_switches(dev, CARD)
+        elif args == ["--configs"]:
+            phase_configs(dev, CARD)
         else:
             perm_rows(np.random.default_rng(SEED), dev, extras=False)
         return 0
+    t_start = time.time()
+    lap = lambda name: log(f"[time] {name} done at {time.time() - t_start:.1f} s")
+    # first, while this process holds nothing on the card: the float32
+    # batch-2 step of its reckoning takes 69 GiB of the card's 79, and the
+    # phases before the train CLI's old place leave ~11 GiB held here
+    configs_launches = phase_configs(dev, CARD)
+    lap("configs")
+    torch.cuda.empty_cache()
     rows = phase_kernels(dev)
+    lap("kernels")
     ref_launches = phase_reference(dev)
+    lap("reference")
     hyper_launches = phase_hyper_width(dev)
+    lap("hyper_width")
     main_res, codec, x = phase_main_path(dev)
+    lap("main_path")
     phase_profile(codec, x)
+    lap("profile")
     calib_res = phase_calibrate(codec, dev)
+    lap("calibrate")
     calrt_res = phase_calibrated_roundtrip(codec, x, dev, main_res)
+    lap("calibrated_roundtrip")
     bench_res = phase_bench(codec, dev, calib_res["calibration"])
+    lap("bench")
     del codec, x
     torch.cuda.empty_cache()
     train_res = phase_train(dev)
+    lap("train")
     torch.cuda.empty_cache()
     train_f32_res = phase_train(dev, torch.float32)
+    lap("train_f32")
     torch.cuda.empty_cache()
-    cli_res = phase_train_cli(dev)
     probe_launches = phase_probe(dev)
+    lap("probe")
     api_launches = phase_api(dev)
+    lap("api")
     torch.cuda.empty_cache()
     dist_launches = phase_dist(dev, CARD)
+    lap("dist")
     torch.cuda.empty_cache()
     tp_launches = phase_tp(dev, CARD)
+    lap("tp")
     torch.cuda.empty_cache()
     zoo_launches = phase_zoo(dev, CARD)
+    lap("zoo")
     torch.cuda.empty_cache()
     serve_launches = phase_serve(dev, CARD)
+    lap("serve")
     torch.cuda.empty_cache()
     variants_launches = phase_variants(dev, CARD)
+    lap("variants")
     torch.cuda.empty_cache()
     context_launches = phase_context(dev, CARD)
+    lap("context")
     torch.cuda.empty_cache()
     video_launches = phase_video(dev, CARD)
+    lap("video")
     torch.cuda.empty_cache()
     examples_launches = phase_examples(dev, CARD, "short")
+    lap("examples")
     torch.cuda.empty_cache()
     switches_launches = phase_switches(dev, CARD)
+    lap("switches")
 
     # every launch of the paths' own runs: the codec roundtrip, the tiny
     # codec's decompress on the card, the three timed steps of each train
-    # path, the probe and the API's two .bin roundtrips. K2
+    # path, the published configs' CLI steps, recompression, serving and
+    # roundtrip, the probe and the API's two .bin roundtrips. K2
     # (rans_decode_generic) replaces both decode_scan_pallas (:705) and
     # decode_rowplan_pallas (:368); its entry names the former.
     paths = {"codec": main_res["launches"], "tiny": ref_launches, "train": train_res["launches"],
@@ -5012,7 +5438,7 @@ def main(args) -> int:
              "api": api_launches, "hyper_bf16": hyper_launches["bf16"],
              "hyper_f32": hyper_launches["f32"], "calibrate": calib_res["launches"],
              "calibrated": calrt_res["launches"], "bench": bench_res["launches"],
-             "train_cli": cli_res["launches"], **dist_launches, **tp_launches,
+             **configs_launches, **dist_launches, **tp_launches,
              "zoo": zoo_launches,
              **serve_launches, **variants_launches, "context": context_launches,
              "video": video_launches, **examples_launches, **switches_launches}
@@ -5064,19 +5490,22 @@ def main(args) -> int:
     }
     # the flash kernels of every dtype and head dim share one wrapper and
     # counter each: the head-dim-64 float32 paths are the API's, serve's,
-    # the float32 train step's and the float32 examples' (quickstart,
+    # the float32 train step's, the published configs' (their two
+    # trainings, the 159v recompression and serve) and the float32 examples' (quickstart,
     # test_model, roundtrip_timing), the head-dim-72 paths hyper_width's two
     # and the switches phase's bf16 hyperprior launches (its paths split by
     # head dim), every other path is bf16 at head dim 64 (vivt69, float32,
     # has no sequence long enough for a flash kernel: its coder launches only)
     bf16 = ("codec", "tiny", "train", "probe", "calibrate", "calibrated", "bench", "dp_train",
             "remat_dots", "tp_train", "tp_codec", "decode_profile", "variants_codec",
-            "variants_vae", "variants_train", "finalize", "examples", "switches_d64")
+            "variants_vae", "variants_train", "finalize", "examples", "switches_d64",
+            "configs_159_codec")
     only = {"flash_attn_fwd": bf16, "flash_attn_bwd_dq": bf16, "flash_attn_bwd_dkv": bf16,
-            "flash_attn_fwd_f32": ("api", "train_f32", "train_cli", "recompress", "serve",
-                                   "examples_f32"),
-            "flash_attn_bwd_dq_f32": ("train_f32", "train_cli"),
-            "flash_attn_bwd_dkv_f32": ("train_f32", "train_cli")}
+            "flash_attn_fwd_f32": ("api", "train_f32", "configs_268", "configs_159",
+                                   "configs_159_recompress", "configs_159_serve", "recompress",
+                                   "serve", "examples_f32"),
+            "flash_attn_bwd_dq_f32": ("train_f32", "configs_268", "configs_159"),
+            "flash_attn_bwd_dkv_f32": ("train_f32", "configs_268", "configs_159")}
     only.update({f"{k}{t}": ("hyper_f32",) if t else ("hyper_bf16", "switches_d72")
                  for t in ("", "_f32") for k in
                  ("flash_attn_fwd_anydim", "flash_attn_bwd_dq_anydim",

@@ -17,9 +17,9 @@ NOT_PORTED = {"models": (), "datasets": ()}
 
 def _register_all() -> None:
     from . import data, models
+    from .train import schedulers  # noqa: F401  (registers the schedules itself)
     from .train.loss import RateDistortionLoss
     from .train.optim import make_net_aux_optimizers
-    from .train.schedulers import SCHEDULERS as schedules
 
     for registry, entries in (
         (MODELS, {name: getattr(models, name) for name in (
@@ -33,7 +33,6 @@ def _register_all() -> None:
             "VideoFolder", "Vimeo90kDataset")}),
         (CRITERIONS, {"RateDistortionLoss": RateDistortionLoss}),
         (OPTIMIZERS, {"net_aux": make_net_aux_optimizers}),
-        (SCHEDULERS, schedules),
     ):
         for name, obj in entries.items():
             if name not in registry:

@@ -2,10 +2,11 @@
 the learning rate.
 
 Counterpart of ``cra5_tpu/train/schedulers.py``: the same four schedules,
-each computing what its optax schedule computes, selected by
-``build_schedule`` from a config dict ``{"type": <name>, ...}``. The port
-keeps its own name -> schedule table (the registry of the JAX package is
-not ported yet).
+each computing what its optax schedule computes, registered into the
+``SCHEDULERS`` registry (``utils/registry.py``) and selected by
+``build_schedule`` from a config dict ``{"type": <name>, ...}``. A
+schedule registered there with ``@SCHEDULERS.register`` builds and
+trains like the built-in ones.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import bisect
 import inspect
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Union
+
+from ..utils.registry import SCHEDULERS
 
 Schedule = Callable[[int], float]
 
@@ -30,10 +33,12 @@ def _linear(init_value: float, end_value: float, transition_steps: int) -> Sched
     return schedule
 
 
+@SCHEDULERS.register("ConstantLR")
 def constant_lr(base_lr: float) -> Schedule:
     return lambda count: base_lr
 
 
+@SCHEDULERS.register("WarmupCosineLR")
 def warmup_cosine_lr(
     base_lr: float,
     total_steps: int,
@@ -61,6 +66,7 @@ def warmup_cosine_lr(
     return schedule
 
 
+@SCHEDULERS.register("MultiStepLR")
 def multistep_lr(
     base_lr: float,
     milestones: Sequence[int] = (),
@@ -82,18 +88,11 @@ def multistep_lr(
     return schedule
 
 
+@SCHEDULERS.register("LinearWarmupLR")
 def linear_warmup_lr(base_lr: float, warmup_steps: int = 1000) -> Schedule:
     w = int(warmup_steps)
     warm = _linear(0.0, base_lr, w)
     return lambda count: warm(count) if count < w else base_lr
-
-
-SCHEDULERS: Dict[str, Callable[..., Schedule]] = {
-    "ConstantLR": constant_lr,
-    "WarmupCosineLR": warmup_cosine_lr,
-    "MultiStepLR": multistep_lr,
-    "LinearWarmupLR": linear_warmup_lr,
-}
 
 
 def build_schedule(
@@ -108,10 +107,7 @@ def build_schedule(
         return base_lr
     cfg = dict(cfg)
     name = cfg.pop("type")
-    if name not in SCHEDULERS:
-        raise KeyError(f"{name!r} not found in registry 'schedulers' "
-                       f"(available: {sorted(SCHEDULERS)})")
-    factory = SCHEDULERS[name]
+    factory = SCHEDULERS.get(name)
     params = inspect.signature(factory).parameters
     accepted = set(params)
     unknown = set(cfg) - accepted

@@ -3,7 +3,8 @@
 The port's own copy of ``cra5_tpu/utils/registry.py``: ``Registry`` with
 ``register``, ``get``, ``build``, membership and ``keys``, and the five
 registries ``MODELS``, ``DATASETS``, ``CRITERIONS``, ``OPTIMIZERS`` and
-``SCHEDULERS``, which ``cra5_tpu_torch/registry.py`` fills.
+``SCHEDULERS``, which ``cra5_tpu_torch/registry.py`` fills (the schedules
+register themselves in ``train/schedulers.py``).
 """
 
 from __future__ import annotations
