@@ -1,0 +1,16 @@
+"""optimizer_device_ms: device time a timestep launched inside the
+program's ``train/optimizer`` and ``train/ema`` spans: the net clip, net
+and aux Adam, and the EMA (``train/loop.py``). A program without the spans
+reads nothing."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location("_per_timestep", Path(__file__).with_name("_per_timestep.py"))
+_pt = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_pt)
+STAGES = ("train/optimizer", "train/ema")
+
+
+def read(run):
+    return _pt.device_ms(run, lambda op: op.stage in STAGES)

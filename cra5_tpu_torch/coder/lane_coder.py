@@ -36,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..entropy.cdf import CdfTable
+from ..utils.profiling import span
 from .rans_kernels import (
     lane_decode_plain,
     rans_decode_generic,
@@ -329,27 +330,29 @@ class LaneCoder:
             states = states.cpu().numpy().view(np.uint32)
             stream = stream.cpu().numpy().view(np.uint16)
             escs = escs.cpu().numpy()
-            out.append(assemble_container(
-                n, K, stream.size, escs.size, sort, bool(safe.item()), states, stream, escs
-            ))
+            safe = bool(safe.item())
+            with span("coder/pack", words=stream.size, escapes=escs.size):  # host work alone
+                out.append(assemble_container(n, K, stream.size, escs.size, sort, safe,
+                                              states, stream, escs))
         return out
 
     # -- decode -----------------------------------------------------------
     def upload_batch(self, datas, n: Optional[int] = None):
         """Parse B containers and copy their buffers to the device now,
         before the caller's indexes exist."""
-        ups = []
-        for d in datas:
-            d = _unwrap_bytes(d)
-            hdr = parse_v2_header(d)
+        return [self._upload(d, n=n) for d in datas]
+
+    def _upload(self, data, hdr=None, n: Optional[int] = None):
+        """A container's header (parsed unless given) and its arrays, read
+        on the host and then copied to the device; raises unless the stream
+        holds ``n`` symbols, where ``n`` is given."""
+        data = _unwrap_bytes(data)
+        with span("coder/parse", bytes=len(data)):  # host work alone
+            hdr = parse_v2_header(data) if hdr is None else hdr
             if n is not None and hdr[0] != n:
                 raise ValueError(f"symbol count mismatch: stream {hdr[0]}, indexes {n}")
-            ups.append(self._upload(d, hdr))
-        return ups
-
-    def _upload(self, data: bytes, hdr):
-        dev = lambda a: torch.from_numpy(a).to(self.device)
-        return (hdr, *map(dev, container_arrays(data, hdr)))
+            arrays = container_arrays(data, hdr)
+        return (hdr, *(torch.from_numpy(a).to(self.device) for a in arrays))
 
     def decode_uploaded_batch(self, handle, indexes: torch.Tensor) -> torch.Tensor:
         """Decode the streams of ``upload_batch`` against (B, ...) indexes."""
@@ -361,12 +364,12 @@ class LaneCoder:
         return self.decode_uploaded_batch(self.upload_batch(datas, n), indexes)
 
     def decode_to_device(self, data: bytes, indexes: torch.Tensor) -> torch.Tensor:
-        return self._decode(self._upload(data, parse_v2_header(data)), indexes)[0]
+        return self._decode(self._upload(data), indexes)[0]
 
     def decode(self, data: bytes, indexes: np.ndarray) -> np.ndarray:
         """numpy-facing decode; also checks the escape count."""
         idx = torch.as_tensor(np.ascontiguousarray(indexes, np.int32), device=self.device)
-        up = self._upload(data, parse_v2_header(data))
+        up = self._upload(data)
         out, n_sent = self._decode(up, idx)
         if int(n_sent) != up[0][2]:
             raise ValueError(

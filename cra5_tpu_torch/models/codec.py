@@ -20,16 +20,14 @@ same bytes. The JAX package passes ``row_plan=H*W`` to its z decodes, a
 promise its row-plan Pallas kernel uses; the port's K2 serves both that
 kernel's streams and the generic ones, so no such promise is passed.
 
-``stage_times``: each codec stage runs under a profiler range named
+``stage_times``: each codec stage is a span (``utils/profiling.py``) named
 ``compress/<stage>`` or ``decompress/<stage>``; when ``stage_times`` is a
-dict, each stage also ends in a device synchronize and records its host
+dict, each stage also ends in a device synchronize and adds its host
 seconds there.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +38,7 @@ from ..coder.lane_coder import LaneCoder, _unwrap_bytes
 from ..entropy import build_indexes, eb_update, gc_update, get_scale_table
 from ..entropy.cdf import CdfTable
 from ..nn.conv import _mask_A_B
+from ..utils.profiling import stage_span
 
 
 class _CodecBase:
@@ -64,15 +63,8 @@ class _CodecBase:
     def kind(self) -> str:
         return getattr(self.model, "CODEC_KIND", "hyper")
 
-    @contextlib.contextmanager
     def _stage(self, name: str):
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            if self.stage_times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.stage_times[name] = time.perf_counter() - t0
+        return stage_span(name, self.stage_times, self.device)
 
     def update(self, force: bool = False) -> bool:
         """(Re)build the integer CDF tables from the EntropyBottleneck's

@@ -33,10 +33,8 @@ convolutions.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +49,7 @@ from ..entropy import (EntropyBottleneck, GaussianConditional, build_indexes, eb
                        gc_update, get_scale_table)
 from ..entropy.ops import quantize_ste
 from ..nn.conv import deconv2d, native_conv, qrelu, reset_parameters_
+from ..utils.profiling import stage_span
 from .google import _ConvStack, _medians
 
 WHICH = ("keyframe", "residual", "motion")
@@ -368,15 +367,8 @@ class ScaleSpaceFlowCodec:
             self._coders[which] = {"eb": LaneCoder(eb_table, device=self.device), "gc": gc_coder}
         self.stage_times: Optional[Dict[str, float]] = None
 
-    @contextlib.contextmanager
     def _stage(self, name: str):
-        with torch.profiler.record_function(name):
-            t0 = time.perf_counter()
-            yield
-            if self.stage_times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.stage_times[name] = self.stage_times.get(name, 0.0) + time.perf_counter() - t0
+        return stage_span(name, self.stage_times, self.device)
 
     def _indexes(self, scales: torch.Tensor) -> torch.Tensor:
         return build_indexes(scales.float(), self._scale_table_dev)

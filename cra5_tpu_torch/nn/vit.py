@@ -24,7 +24,9 @@ NLC inside, NCHW at the module boundaries.
   - ``remat=True`` (or "full") recomputes each block of g_a and g_s in
     the backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
     package's ``nn.remat`` does; the hyperprior towers are never
-    rematerialized. ``remat="dots"`` is the JAX package's
+    rematerialized. Each recompute runs inside a ``train/recompute`` span
+    (``utils/profiling.py``) on the thread that reruns the block.
+    ``remat="dots"`` is the JAX package's
     ``dots_with_no_batch_dims_saveable`` policy as selective activation
     checkpointing: the outputs of matmuls without batch dims are saved and
     everything else is recomputed. A ``Dense`` (``F.linear``) on the
@@ -38,7 +40,7 @@ NLC inside, NCHW at the module boundaries.
 
 from __future__ import annotations
 
-import functools
+import contextlib
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -50,6 +52,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..utils.profiling import span
 from .blocks import Block, Dense, LayerNorm, Mlp
 from .init import init_linear_
 from .patch_embed import PatchEmbed, PatchUnembed
@@ -81,15 +84,42 @@ def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _RecomputeSpan:
+    """A checkpoint's recompute context: a ``train/recompute`` span around
+    ``inner`` (the selective policy's dispatch mode, or nothing). The
+    checkpoint enters it only when the backward reruns the block, on the
+    thread that reruns it; the span opens outside the policy's mode, which
+    would take the range's own operator for one of the block's."""
+
+    def __init__(self, inner=None):
+        self.inner = inner
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        self._stack.enter_context(span("train/recompute"))
+        if self.inner is not None:
+            self._stack.enter_context(self.inner)
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+
+def _full_contexts():
+    return contextlib.nullcontext(), _RecomputeSpan()
+
+
+def _dots_contexts():
+    forward, recompute = create_selective_checkpoint_contexts(dots_policy)
+    return forward, _RecomputeSpan(recompute)
+
+
 def _run_block(blk: nn.Module, x: torch.Tensor, H: int, W: int, remat: Remat,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     keep = blk.drop_masks(x, generator)  # drawn once, outside any recompute
     if remat and torch.is_grad_enabled():
-        if remat == "dots":
-            return checkpoint(blk, x, H, W, None, keep, use_reentrant=False,
-                              context_fn=functools.partial(
-                                  create_selective_checkpoint_contexts, dots_policy))
-        return checkpoint(blk, x, H, W, None, keep, use_reentrant=False)
+        return checkpoint(blk, x, H, W, None, keep, use_reentrant=False,
+                          context_fn=_dots_contexts if remat == "dots" else _full_contexts)
     return blk(x, H, W, None, keep)
 
 

@@ -64,6 +64,7 @@ from ..parallel.distributed import (
 )
 from ..parallel.mesh import axis_group, axis_size
 from ..parallel.tensor_parallel import parallelize_, placement_of
+from ..utils.profiling import span
 from .ema import EmaState, ema_init, ema_update_
 from .loss import RateDistortionLoss, kl_weighted_loss
 from .optim import NetAuxAdam, OptState, make_net_aux_optimizers
@@ -115,7 +116,9 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
     global batch (the ranks' local batches are equal in size, in rank
     order), and ``train_step.timing["allreduce_s"]`` holds the last step's
     seconds in the gradient all-reduce. A model placed on a tp axis
-    (``model.tp``) clips by the norm of the whole tree."""
+    (``model.tp``) clips by the norm of the whole tree. The phases are
+    spans (``utils/profiling.py``): ``train/forward``, ``train/backward``,
+    ``train/optimizer`` and ``train/ema``."""
     import torch.distributed as dist
 
     rd = RateDistortionLoss(lmbda=cfg.lmbda, bpp_weight=cfg.bpp_weight)
@@ -145,8 +148,10 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
             generator = BatchRows(generator, rank * b, (rank + 1) * b, world * b)
         for p in state.params.values():
             p.grad = None
-        total, metrics = loss_fn(batch, generator)
-        total.backward()
+        with span("train/forward"):
+            total, metrics = loss_fn(batch, generator)
+        with span("train/backward"):  # rematerialised blocks rerun in train/recompute
+            total.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
         if world > 1:
@@ -163,12 +168,14 @@ def make_train_step(model: torch.nn.Module, tx: NetAuxAdam, cfg: TrainerConfig,
             metrics = dict(zip(names, stacked.unbind()))
         tp = getattr(model, "tp", None)
         split = [k for k, v in placement_of(model).items() if v is not None]
-        tx.update_(state.params, grads, state.opt_state, split=split,
-                   tp_group=tp.group if tp is not None else None)
+        with span("train/optimizer"):  # the net clip, net and aux Adam
+            tx.update_(state.params, grads, state.opt_state, split=split,
+                       tp_group=tp.group if tp is not None else None)
         for p in state.params.values():
             p.grad = None
         if state.ema is not None:
-            ema_update_(state.ema, state.params, cfg.ema_decay)
+            with span("train/ema"):
+                ema_update_(state.ema, state.params, cfg.ema_decay)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

@@ -1,63 +1,88 @@
-"""Timing spans and profiler traces.
+"""Spans and profiler traces.
 
-Counterpart of ``cra5_tpu/utils/profiling.py``: ``Timings`` accumulates
-named wall-clock spans (the API facades' reading/encoding/saving keys);
-where the JAX package blocks on an array at a span's end, ``block_on``
-here synchronises the current CUDA stream of each card that holds one of
-its tensors. ``profile_trace`` records a ``torch.profiler`` trace (host
-and, on a card, device activity) into ``log_dir`` for TensorBoard or
-Perfetto, and ``annotate`` names a range in it
-(``torch.profiler.record_function``).
+Counterpart of ``cra5_tpu/utils/profiling.py``. ``span(name, **args)``
+opens a ``torch.profiler.record_function`` range, which a trace holds on
+the profiler's clock beside the device activity. While a ``torch.profiler``
+session records on the calling thread (torch's own flag, which the
+autograd threads of that thread share), the range also carries ``args``,
+and the span adds its host seconds, its self seconds (less the child spans
+on the same thread) and one call to process-wide totals by name:
+``span_totals()``, cleared by ``reset_span_totals()``. Off a profiler a
+span costs the range and one read of that flag.
+
+``stage_span`` is a span that, given a ``times`` dict, also ends in a
+device synchronize and adds its host seconds there (the codecs'
+``stage_times``). ``profile_trace`` records a trace (host and, on a card,
+device activity) into ``log_dir`` for TensorBoard or Perfetto; read
+``span_totals()`` after it for the spans' host seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
-
-def _sync_tensors(tree: Any) -> None:
-    """Wait for the current stream of every card holding a tensor of
-    ``tree`` (a tensor, or lists, tuples and dicts of them)."""
-    devices = set()
-
-    def visit(obj):
-        if isinstance(obj, torch.Tensor):
-            if obj.device.type == "cuda":
-                devices.add(obj.device)
-        elif isinstance(obj, dict):
-            for v in obj.values():
-                visit(v)
-        elif isinstance(obj, (list, tuple)):
-            for v in obj:
-                visit(v)
-
-    visit(tree)
-    for dev in devices:
-        torch.cuda.current_stream(dev).synchronize()
+_lock = threading.Lock()
+_totals: Dict[str, List[float]] = {}  # name -> [seconds, self seconds, calls]
+_local = threading.local()  # the open spans' child seconds, innermost last
 
 
-class Timings:
-    """Named wall-clock spans, summed where a name repeats."""
-
-    def __init__(self):
-        self.spans: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def span(self, name: str, block_on=None) -> Iterator[None]:
-        t0 = time.time()
-        try:
+@contextlib.contextmanager
+def span(name: str, **args) -> Iterator[None]:
+    """A named range in the profiler's timeline; under a recording
+    profiler, with ``args`` (``key=value``) and counted in the totals."""
+    if not torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(name):
             yield
-        finally:
-            if block_on is not None:
-                _sync_tensors(block_on)
-            self.spans[name] = self.spans.get(name, 0.0) + time.time() - t0
+        return
+    stack = _local.__dict__.setdefault("stack", [])
+    children = [0.0]
+    stack.append(children)
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.record_function(
+                name, ", ".join(f"{k}={v}" for k, v in args.items()) or None):
+            yield
+    finally:
+        sec = time.perf_counter() - t0
+        stack.pop()
+        if stack:
+            stack[-1][0] += sec
+        with _lock:
+            t = _totals.setdefault(name, [0.0, 0.0, 0])
+            t[0] += sec
+            t[1] += sec - children[0]
+            t[2] += 1
 
-    def as_dict(self) -> Dict[str, float]:
-        return dict(self.spans)
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """{name: {"s", "self_s", "calls"}} of the spans recorded under a
+    profiler since the last ``reset_span_totals``."""
+    with _lock:
+        return {k: {"s": s, "self_s": own, "calls": int(n)} for k, (s, own, n) in _totals.items()}
+
+
+def reset_span_totals() -> None:
+    with _lock:
+        _totals.clear()
+
+
+@contextlib.contextmanager
+def stage_span(name: str, times: Optional[Dict[str, float]], device) -> Iterator[None]:
+    """``span(name)``; with ``times`` a dict, the region also ends in a
+    synchronize of ``device`` (a card) and adds its host seconds to
+    ``times[name]``."""
+    with span(name):
+        t0 = time.perf_counter()
+        yield
+        if times is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -73,11 +98,4 @@ def profile_trace(log_dir: Optional[str] = None) -> Iterator[None]:
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range in the profiler's timeline."""
-    with torch.profiler.record_function(name):
         yield

@@ -6,7 +6,7 @@ JAX's raises (``AssertionError``, the same message) and passes where it
 passes; ``coder/native.pmf_to_quantized_cdf_native`` equals JAX's native
 builder and the Python ``pmf_to_quantized_cdf``; ``rate_distortion_loss``
 equals JAX's within LOSS_RTOL (float32 sums in another order); and
-``utils/profiling`` nests a trace, an annotation and a synchronising span."""
+``utils/profiling``'s spans nest inside a trace and count there."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,7 @@ from cra5_tpu_torch.entropy import gc_update, get_scale_table
 from cra5_tpu_torch.entropy.cdf import CdfTable, pmf_to_quantized_cdf
 from cra5_tpu_torch.ops.rdoq import rdoq
 from cra5_tpu_torch.train.loss import rate_distortion_loss
-from cra5_tpu_torch.utils.profiling import Timings, annotate, profile_trace
+from cra5_tpu_torch.utils.profiling import profile_trace, reset_span_totals, span, span_totals
 
 LOSS_RTOL = 1e-5  # float32 means of a few thousand terms, summed in another order
 
@@ -137,13 +137,22 @@ def test_rate_distortion_loss_equals_jax():
 
 # ---------------------------------------------------------------- profiling
 def test_timings_trace_and_annotation_nest(tmp_path):
-    t = Timings()
+    """Spans nest inside a written trace, where they count; outside a
+    profiler, and with no ``log_dir``, they count nothing."""
+    reset_span_totals()
     with profile_trace(str(tmp_path)):
-        with annotate("outer"), t.span("a", block_on={"x": [torch.ones(3)]}):
-            with t.span("a"):
+        with span("outer", note=1):
+            with span("inner"):
                 torch.ones(64, 64) @ torch.ones(64, 64)
-    with profile_trace(None), t.span("b"):
+            with span("inner"):
+                pass
+    with profile_trace(None), span("b"):
         pass
-    assert set(t.as_dict()) == {"a", "b"} and t.as_dict()["a"] > 0
+    t = span_totals()
+    assert set(t) == {"outer", "inner"} and t["inner"]["calls"] == 2 and t["outer"]["s"] > 0
+    assert t["outer"]["self_s"] == pytest.approx(t["outer"]["s"] - t["inner"]["s"])
     traces = list(tmp_path.glob("*.json"))
-    assert len(traces) == 1 and b"outer" in traces[0].read_bytes()
+    assert len(traces) == 1
+    data = traces[0].read_bytes()
+    assert b"outer" in data and b"inner" in data
+    reset_span_totals()
