@@ -369,7 +369,8 @@ hyper_width path in their dtype); the last is {"ok": true, "device":
     python3 chip_smoke.py --configs
 
 run phases 1 and 2 and then only the coder kernels of phase 3 (K1 on z and
-y, K2 on z, K3 on y: exact, event ms and device us, no chain floor), only
+y, K2 on z, K3 on y, K9 and K10 on a y stream with ~10^5 escapes: exact,
+event ms and device us, no chain floor), only
 K7 and K8 (exact, event ms and device us, torch.roll beside K8; no launch
 floor or host breakdown), only the dist phases (10), only the tp phase
 (10b), only the zoo phase (11), only the serve phase (12), only the
@@ -653,7 +654,93 @@ def coder_rows(dev, rng, floor: bool = True) -> tuple:
         f"bound {bound:.4f} ms (bytes)")
     rows["rans_decode_sorted"] = dict(max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=bound,
                                       bound_by="bytes", library_ms=None)
+    rows.update(container_rows(dev, rng, y_coder, y_idx))
     return rows, gc_table, y_sym, y_idx
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Median host milliseconds of a call (perf_counter; work that ends
+    on the card ends in a synchronize inside ``fn``)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def container_rows(dev, rng, coder, idx, escape_frac: float = 0.04) -> dict:
+    """K9 and K10 on a 268v-geometry y stream with ``escape_frac`` of its
+    symbols escaped (~10^5 escapes): each exactly against the host's
+    reference (``assemble_container``, ``container_arrays``), timed by CUDA
+    events and device time beside its bytes bound, and the host ms of a
+    stream's finalize and upload down the card's route (K9 and one copy
+    out; one copy in and K10) and down the host's (the arrays' reads and
+    ``assemble_container``; ``container_arrays`` and three copies in)."""
+    from cra5_tpu_torch.coder import rans_kernels as rk
+    from cra5_tpu_torch.coder.lane_coder import (LaneCoder, assemble_container, container_arrays,
+                                                 parse_v2_header)
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    sym = sample_symbols(rng, coder.table, idx, escape_frac)
+    h = coder.encode_dispatch(t(sym), t(idx))
+    n, K, sort, states, words, escs, safe = h
+    nw, ne = words.numel(), escs.numel()
+
+    def host_pack():
+        st, wd, es = states.cpu().numpy(), words.cpu().numpy(), escs.cpu().numpy()
+        return assemble_container(n, K, nw, ne, sort, bool(safe.item()), st.view(np.uint32),
+                                  wd.view(np.uint16), es)
+
+    data = host_pack()
+    hdr = parse_v2_header(data)
+    if LaneCoder.encode_finalize_many([h]) != [data]:
+        raise RuntimeError("K9: the card's container differs from assemble_container's")
+    image = rk.container_write(n, sort, states, words, escs, safe).cpu().numpy()
+    size = int(image[:8].view("<i8")[0])
+    if size != len(data) or image[8:8 + size].tobytes() != data:
+        raise RuntimeError("K9 container_write differs from assemble_container")
+    k9 = lambda: rk.container_write(n, sort, states, words, escs, safe)
+    k9_ms, k9_us = timed_ms(k9, 20), device_us(k9)
+    k9_bound = bytes_bound_ms(4 * K + 2 * nw + 4 * ne + 8 + len(data))
+
+    dev_image = t(np.frombuffer(data, np.uint8).copy())
+    got = rk.container_read(dev_image, K, nw, ne)
+    ref = container_arrays(data, hdr)
+    if not all(np.array_equal(g.cpu().numpy(), r) for g, r in zip(got, ref)):
+        raise RuntimeError("K10 container_read differs from container_arrays")
+    k10 = lambda: rk.container_read(dev_image, K, nw, ne)
+    k10_ms, k10_us = timed_ms(k10, 20), device_us(k10)
+    k10_bound = bytes_bound_ms(len(data) + 4 * K + 2 * nw + 4 * ne)
+
+    def sync(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    fin_card = host_ms(sync(lambda: LaneCoder.encode_finalize_many([h])))
+    fin_host = host_ms(sync(host_pack))
+    up_card = host_ms(sync(lambda: coder._upload(data, n=n)))
+    up_host = host_ms(sync(lambda: [torch.from_numpy(a).to(dev)
+                                    for a in container_arrays(data, parse_v2_header(data))]))
+    st, wd, es = ref
+    pack_ms = host_ms(lambda: assemble_container(n, K, nw, ne, sort, hdr[5], st.view(np.uint32),
+                                                 wd.view(np.uint16), es))
+    parse_ms = host_ms(lambda: container_arrays(data, parse_v2_header(data)))
+    log(f"[container y] (K, words, escapes) = ({K}, {nw}, {ne}), {len(data)} B; K9 exact "
+        f"(assemble_container's bytes), kernel {k9_ms:.4f} ms, device {k9_us:.2f} us, bound "
+        f"{k9_bound:.4f} ms (bytes); K10 exact (container_arrays), kernel {k10_ms:.4f} ms, "
+        f"device {k10_us:.2f} us, bound {k10_bound:.4f} ms (bytes); their plain versions on the "
+        f"host: assemble_container {pack_ms:.3f} ms, container_arrays {parse_ms:.3f} ms; a "
+        f"stream's finalize {fin_card:.3f} ms (K9) "
+        f"against {fin_host:.3f} ms (the reads and assemble_container), its upload "
+        f"{up_card:.3f} ms (K10) against {up_host:.3f} ms (container_arrays and three copies)")
+    return {"container_write": dict(max_abs_err=0, ms=k9_ms, plain_ms=pack_ms, bound_ms=k9_bound,
+                                    bound_by="bytes", library_ms=None),
+            "container_read": dict(max_abs_err=0, ms=k10_ms, plain_ms=parse_ms,
+                                   bound_ms=k10_bound, bound_by="bytes", library_ms=None)}
 
 
 def phase_kernels(dev) -> dict:
@@ -1575,6 +1662,7 @@ def phase_main_path(dev) -> dict:
     want = {k: 0 for k in launches}
     want.update(rans_encode=2, rans_decode_generic=1, rans_decode_sorted=1,
                 flash_attention_forward=7)
+    want = _with_containers(want)
     if launches != want:
         raise RuntimeError(f"launch counts {launches}, expected {want}")
     y_str, z_str = out["strings"][0][0], out["strings"][1][0]
@@ -1674,6 +1762,7 @@ def phase_calibrated_roundtrip(codec, x, dev, uncal: dict) -> dict:
     want = {k: 0 for k in launches}
     want.update(rans_encode=2, rans_decode_generic=2 - k3, rans_decode_sorted=k3,
                 flash_attention_forward=7)
+    want = _with_containers(want)
     if launches != want:
         raise RuntimeError(f"calibrated roundtrip launches {launches}, expected {want}")
     with torch.inference_mode():
@@ -2085,6 +2174,7 @@ def chain_159(dev, card: str, ds, ckpt: str, layout: list, tmp: str) -> dict:
     want = {k: 0 for k in launches["recompress"]}
     want.update(rans_encode=2 * len(fields), flash_attention_forward=sum(
         v for k, v in flash_per_forward(layout, len(fields)).items() if k.startswith("g_a")))
+    want = _with_containers(want)
     if launches["recompress"] != want:
         raise RuntimeError(f"[{tag}] recompress launches {launches['recompress']}, expected "
                            f"{want}")
@@ -2117,6 +2207,7 @@ def chain_159(dev, card: str, ds, ckpt: str, layout: list, tmp: str) -> dict:
     want = {k: 0 for k in launches["serve"]}
     want.update(rans_decode_generic=2 * len(decodes) - k3, rans_decode_sorted=k3,
                 flash_attention_forward=g_s * len(decodes))
+    want = _with_containers(want)
     if launches["serve"] != want or line["decoded"] != len(served) or line["kernel_fallbacks"]:
         raise RuntimeError(f"[{tag}] serve launches {launches['serve']} (expected {want}), "
                            f"line {line}")
@@ -2443,6 +2534,7 @@ def phase_api(dev) -> dict:
         want = {k: 0 for k in launches}
         want.update(rans_encode=2, rans_decode_generic=2 - k3, rans_decode_sorted=k3,
                     flash_attention_forward=14)
+        want = _with_containers(want)
         if launches != want:
             raise RuntimeError(f"API launches {launches}, expected {want}")
         with torch.inference_mode():
@@ -3247,7 +3339,9 @@ ZOO_RUNS = (
     ("cheng2020-anchor", 6, [], 1),
     ("mbt2018-mean", 8, ["--entropy-estimation"], 2),
 )
-RANS = ("rans_encode", "rans_decode_generic", "rans_decode_sorted")
+# the coder's kernels: K1-K3, and K9/K10, which write and read each stream's container
+RANS = ("rans_encode", "rans_decode_generic", "rans_decode_sorted", "container_write",
+        "container_read")
 
 
 def _zoo_folder(root: str, name: str, n: int, shape, seed: int) -> str:
@@ -3285,8 +3379,8 @@ def _stream_kernels(out: dict) -> tuple:
             _, K, _, _, srt, safe, _ = parse_v2_header(s)
             k = "rans_decode_sorted" if srt and safe else "rans_decode_generic"
             rows.append((group, K, srt, safe, len(s), "K3" if k.endswith("sorted") else "K2"))
-            want["rans_encode"] += 1
-            want[k] += 1
+            for kernel in ("rans_encode", k, "container_write", "container_read"):
+                want[kernel] += 1
     return rows, want
 
 
@@ -3751,6 +3845,7 @@ def phase_serve(dev, card: str) -> dict:
         want = {k: 0 for k in launches}
         want.update(rans_decode_generic=len(decodes) + len(decodes) - k3,
                     rans_decode_sorted=k3, flash_attention_forward=g_s_global * len(decodes))
+        want = _with_containers(want)
         if launches != want or line["decoded"] != len(served) or line["kernel_fallbacks"]:
             raise RuntimeError(f"[serve] launches {launches} (expected {want}), line {line}")
         y_heads = [(h[0], h[1], h[2], h[4], h[5]) for h in heads.values()]
@@ -4496,8 +4591,8 @@ def video_roundtrip(codec, clip: np.ndarray, tag: str, card: str) -> dict:
         for part, s in (("y", ys[0]), ("z", zs[0])):
             _, K, esc, _, srt, safe, _ = parse_v2_header(s)
             k = "rans_decode_sorted" if srt and safe else "rans_decode_generic"
-            want["rans_encode"] += 1
-            want[k] += 1
+            for kernel in ("rans_encode", k, "container_write", "container_read"):
+                want[kernel] += 1
             routes.append((f"{label} {part}", K, srt, safe, len(s), esc,
                            "K3" if k.endswith("sorted") else "K2"))
     got = {k: launches.get(k, 0) for k in RANS}
@@ -4604,10 +4699,23 @@ TRAIN_STEP_LAUNCHES = {"flash_attention_forward": 14, "flash_attention_backward_
                        "flash_attention_backward_dkv": 7}  # a 268v remat step
 
 
+def _with_containers(want: dict, reads=None) -> dict:
+    """``want`` with the container kernels' launches beside the coder's:
+    one K9 a stream K1 wrote, and one K10 a stream read (``reads``; by
+    default one a decode, K2 + K3)."""
+    want = dict(want)
+    want["container_write"] = want.get("rans_encode", 0)
+    want["container_read"] = (want.get("rans_decode_generic", 0)
+                              + want.get("rans_decode_sorted", 0) if reads is None else reads)
+    return want
+
+
 def _launch_gate(tag: str, got: dict, want: dict, decodes: int = 0, sorted_y=None) -> None:
     """got equals want (every other counter 0), K2 and K3 together equal
-    ``decodes`` and, where given, K3 equals ``sorted_y``."""
+    ``decodes`` and, where given, K3 equals ``sorted_y``; K9 equals K1's
+    count in want, K10 ``decodes`` (``_with_containers``)."""
     dec = ("rans_decode_generic", "rans_decode_sorted")
+    want = _with_containers(want, decodes)
     rest = {k: v for k, v in got.items() if k not in dec}
     n_dec = sum(got.get(k, 0) for k in dec)
     if (rest != {k: want.get(k, 0) for k in rest} or n_dec != decodes
@@ -5175,6 +5283,7 @@ def switch_sorted_lanes(codec, enc: dict, card: str) -> dict:
         want = dict.fromkeys(got, 0)
         want.update(rans_encode=2, **{"rans_decode_sorted" if route == "K3"
                                       else "rans_decode_generic": 1})
+        want = _with_containers(want)
         ok = (a == b and torch.equal(dec, sym) and got == want
               and (srt and safe) == (route == "K3") and K == default_num_lanes(n))
         log(f"[switches sorted {mode}] y {n} symbols on {K} lanes, sorted {srt}, kernel-safe "
@@ -5449,6 +5558,10 @@ def main(args) -> int:
                                "cra5_tpu/coder/rans_pallas.py:569"),
         "rans_decode_generic": ("rans_decode_generic", "cra5_tpu_torch/csrc/rans_decode.cu",
                                 "cra5_tpu/coder/rans_pallas.py:705"),
+        "container_write": ("container_write", "cra5_tpu_torch/csrc/crx2_container.cu",
+                            "none: the JAX package packs containers on the host"),
+        "container_read": ("container_read", "cra5_tpu_torch/csrc/crx2_container.cu",
+                           "none: the JAX package parses containers on the host"),
         "flash_attn_fwd": ("flash_attention_forward", "cra5_tpu_torch/csrc/flash_attn_fwd.cu",
                            "cra5_tpu/ops/attention.py:102"),
         "flash_attn_fwd_f32": ("flash_attention_forward", "cra5_tpu_torch/csrc/flash_attn_fwd.cu",

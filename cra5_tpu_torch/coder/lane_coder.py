@@ -24,6 +24,16 @@ z stream included, goes to the lane decode K2 (``rans_decode_generic``,
 the counterpart of the TPU's ``decode_scan_pallas`` and
 ``decode_rowplan_pallas``); encode always goes to K1 (``rans_encode``). On
 the CPU those wrappers run their plain versions.
+
+The container's bytes follow the coder's device too. On the card K9
+(``container_write``) writes a stream's whole byte image, header, words
+and escape varints, and K10 (``container_read``) splits an image back
+into states, words and escapes, so each stream crosses between host and
+card as one copy of its bytes; the host keeps the header checks
+(``parse_v2_header``, the escape terminator count) and the copies into
+and out of pinned memory. On the CPU the container is packed and parsed
+by ``assemble_container`` and ``container_arrays``, the reference the
+kernels are held to.
 """
 
 from __future__ import annotations
@@ -38,6 +48,13 @@ from ..device import resolve_device
 from ..entropy.cdf import CdfTable
 from ..utils.profiling import span
 from .rans_kernels import (
+    KERNEL_SAFE_FLAG,
+    MAGIC,
+    MERGED_FLAG,
+    SORTED_FLAG,
+    container_layout,
+    container_read,
+    container_write,
     lane_decode_plain,
     rans_decode_generic,
     rans_decode_sorted,
@@ -48,10 +65,7 @@ from .rans_kernels import (
 )
 
 PRECISION = 16
-MAGIC = 0x32585243  # "CRX2" little-endian
-SORTED_FLAG = 1 << 31  # K bit 31: index-sorted lane assignment
-KERNEL_SAFE_FLAG = 1 << 30  # K bit 30: every step spans <= 2 cdf rows
-MERGED_FLAG = 1 << 29  # K bit 29: tiny cdf buckets merged
+EMPTY_CONTAINER = struct.pack("<IIIII", MAGIC, 0, 1, 0, 0) + struct.pack("<I", 1 << 16)
 
 
 def default_num_lanes(n_symbols: int) -> int:
@@ -155,6 +169,12 @@ def parse_v2_header(data: bytes):
     if len(data) < need:
         raise ValueError(f"truncated CRX2 stream: header promises {need} bytes, got {len(data)}")
     return n, K, n_esc, n_words, sorted_mode, kernel_safe, merged
+
+
+def escape_terminators(data: bytes, offset: int) -> int:
+    """How many bytes of ``data`` from ``offset`` on have bit 7 clear: the
+    varints the escape region can end (a decoder needs n_esc of them)."""
+    return int(np.count_nonzero(np.frombuffer(memoryview(data)[offset:], np.uint8) < 0x80))
 
 
 def container_arrays(data: bytes, hdr):
@@ -319,21 +339,38 @@ class LaneCoder:
 
     @staticmethod
     def encode_finalize_many(handles) -> List[bytes]:
-        """Move each dispatched encode's compacted buffers to the host and
-        pack its container."""
-        out = []
-        for h in handles:
+        """Each dispatched encode's container as bytes. On the card, K9
+        writes every image, each is copied into pinned memory, and one wait
+        on the current stream of each device ends them all; on the CPU the
+        compacted buffers are packed on the host."""
+        out: List[Optional[bytes]] = [None] * len(handles)
+        staged, streams = [], {}
+        for i, h in enumerate(handles):
             if h is None:
-                out.append(struct.pack("<IIIII", MAGIC, 0, 1, 0, 0) + struct.pack("<I", 1 << 16))
+                out[i] = EMPTY_CONTAINER
                 continue
             n, K, sort, states, stream, escs, safe = h
-            states = states.cpu().numpy().view(np.uint32)
-            stream = stream.cpu().numpy().view(np.uint16)
-            escs = escs.cpu().numpy()
-            safe = bool(safe.item())
+            if states.device.type == "cuda":
+                image = container_write(n, sort, states, stream, escs, safe)
+                host = torch.empty(image.shape, dtype=torch.uint8, pin_memory=True)
+                host.copy_(image, non_blocking=True)
+                staged.append((i, stream.numel(), escs.numel(), host))
+                streams.setdefault(states.device, torch.cuda.current_stream(states.device))
+                continue
+            states = states.numpy().view(np.uint32)
+            stream = stream.numpy().view(np.uint16)
+            escs = escs.numpy()
+            safe = bool(safe)
             with span("coder/pack", words=stream.size, escapes=escs.size):  # host work alone
-                out.append(assemble_container(n, K, stream.size, escs.size, sort, safe,
-                                              states, stream, escs))
+                out[i] = assemble_container(n, K, stream.size, escs.size, sort, safe,
+                                            states, stream, escs)
+        for s in streams.values():
+            s.synchronize()
+        for i, nw, ne, host in staged:
+            image = host.numpy()
+            with span("coder/pack", words=nw, escapes=ne):  # host work alone
+                size = int(image[:8].view("<i8")[0])
+                out[i] = image[8:8 + size].tobytes()
         return out
 
     # -- decode -----------------------------------------------------------
@@ -343,16 +380,35 @@ class LaneCoder:
         return [self._upload(d, n=n) for d in datas]
 
     def _upload(self, data, hdr=None, n: Optional[int] = None):
-        """A container's header (parsed unless given) and its arrays, read
-        on the host and then copied to the device; raises unless the stream
-        holds ``n`` symbols, where ``n`` is given."""
+        """A container's header (parsed unless given) and its arrays on
+        the coder's device; raises unless the stream holds ``n`` symbols,
+        where ``n`` is given. On the card the bytes cross once, through
+        pinned memory, and K10 splits them; on the CPU the host parses."""
         data = _unwrap_bytes(data)
+        if self.device.type != "cuda":
+            with span("coder/parse", bytes=len(data)):  # host work alone
+                hdr = self._check_header(data, hdr, n)
+                arrays = container_arrays(data, hdr)
+            return (hdr, *(torch.from_numpy(a) for a in arrays))
+        host = torch.empty(len(data), dtype=torch.uint8, pin_memory=True)
+        staging = host.numpy()
         with span("coder/parse", bytes=len(data)):  # host work alone
-            hdr = parse_v2_header(data) if hdr is None else hdr
-            if n is not None and hdr[0] != n:
-                raise ValueError(f"symbol count mismatch: stream {hdr[0]}, indexes {n}")
-            arrays = container_arrays(data, hdr)
-        return (hdr, *(torch.from_numpy(a).to(self.device) for a in arrays))
+            hdr = self._check_header(data, hdr, n)
+            _, K, n_esc, n_words = hdr[:4]
+            at = container_layout(K, n_words, n_esc).escapes
+            if n_esc and escape_terminators(data, at) < n_esc:
+                raise ValueError("truncated escape side channel")
+            staging[:] = np.frombuffer(data, np.uint8)
+        image = torch.empty(len(data), dtype=torch.uint8, device=self.device)
+        image.copy_(host, non_blocking=True)
+        return (hdr, *container_read(image, K, n_words, n_esc))
+
+    @staticmethod
+    def _check_header(data, hdr, n: Optional[int]):
+        hdr = parse_v2_header(data) if hdr is None else hdr
+        if n is not None and hdr[0] != n:
+            raise ValueError(f"symbol count mismatch: stream {hdr[0]}, indexes {n}")
+        return hdr
 
     def decode_uploaded_batch(self, handle, indexes: torch.Tensor) -> torch.Tensor:
         """Decode the streams of ``upload_batch`` against (B, ...) indexes."""

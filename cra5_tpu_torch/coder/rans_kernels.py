@@ -1,9 +1,12 @@
-"""The lane-rANS kernels K1-K3, each beside its plain PyTorch version.
+"""The lane-rANS kernels K1-K3, each beside its plain PyTorch version, and
+the container kernels K9/K10.
 
 Counterpart of ``cra5_tpu/coder/rans_pallas.py``. A wrapper given CUDA
 tensors launches its hand-written kernel (``csrc/rans_encode.cu``,
-``csrc/rans_decode.cu``) and counts the launch; given CPU tensors it runs
-the plain version, which repeats the kernel's arithmetic step by step.
+``csrc/rans_decode.cu``, ``csrc/crx2_container.cu``) and counts the
+launch; given CPU tensors it runs the plain version, which repeats the
+kernel's arithmetic step by step (for K9/K10, the host's own packer and
+parser, ``lane_coder.assemble_container`` and ``container_arrays``).
 There is no other route: a kernel that fails to build or launch raises.
 
 The decode kernels K2/K3 share one skeleton (``cra5_rans_decode``): the
@@ -23,8 +26,9 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -32,6 +36,11 @@ from .. import kernels
 PRECISION = 16
 LANE_L = 1 << PRECISION
 MAX_LANES = 1 << 20  # the CRX2 header's bound on K
+MAGIC = 0x32585243  # "CRX2" little-endian
+SORTED_FLAG = 1 << 31  # K bit 31: index-sorted lane assignment
+KERNEL_SAFE_FLAG = 1 << 30  # K bit 30: every step spans <= 2 cdf rows
+MERGED_FLAG = 1 << 29  # K bit 29: tiny cdf buckets merged
+HEADER_BYTES = 20
 SORTED_MIN_LANES = 2048  # "auto" sorts streams of at least this many lanes
 
 
@@ -428,3 +437,107 @@ def rans_decode_sorted(cdf, r0, r1, split, states, words, max_values, offsets, s
                                        words, max_values, offsets, M, K)
     kernels.count(rans_decode_sorted)
     return values, sentinel
+
+
+# ------------------------------------------------------------------ K9, K10
+class ContainerLayout(NamedTuple):
+    """Byte offsets in a v2 container of K lanes, ``nw`` words and ``ne``
+    escapes (``docs/FORMATS.md`` section 3): the states after the 20-byte
+    header, the words after the states, the escape varints after the
+    words; ``capacity`` is the most bytes the container can take, every
+    varint at its longest (5 bytes)."""
+
+    states: int
+    words: int
+    escapes: int
+    capacity: int
+
+
+def container_layout(K: int, nw: int, ne: int) -> ContainerLayout:
+    words = HEADER_BYTES + 4 * K
+    escapes = words + 2 * nw
+    return ContainerLayout(HEADER_BYTES, words, escapes, escapes + 5 * ne)
+
+
+@kernels.counted
+def container_write(n: int, sorted_mode: bool, states: torch.Tensor, words: torch.Tensor,
+                    escs: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
+    """K9: the byte image of the v2 container of ``n`` symbols with the
+    final lane states (K,) int32 [u32], the stream words (nw,) int16 [u16]
+    and the escape values (ne,) int32, sorted or not (``safe``, a 0-d bool,
+    the encoder's kernel-safe verdict, read only for a sorted stream).
+    Returns (8 + ``container_layout(K, nw, ne).capacity``,) uint8: bytes
+    0-7 hold the container's size (int64, little-endian), the container
+    starts at byte 8, and what lies past its end is unspecified."""
+    _require(states, "states", torch.int32, 1)
+    _require(words, "words", torch.int16, 1)
+    _require(escs, "escs", torch.int32, 1)
+    _require(safe, "safe", torch.bool, 0)
+    dev = _same_device(states, words, escs, safe)
+    K, nw, ne = states.numel(), words.numel(), escs.numel()
+    if not 1 <= K <= MAX_LANES or not 0 <= n <= 1 << 30:
+        raise ValueError(f"K={K} lanes and n={n} symbols: the CRX2 header allows 1 to "
+                         f"{MAX_LANES} lanes and at most 2**30 symbols")
+    size = 8 + container_layout(K, nw, ne).capacity
+    if dev.type == "cpu":  # the plain version is the host's packer
+        from .lane_coder import assemble_container
+
+        data = assemble_container(n, K, nw, ne, sorted_mode, bool(safe),
+                                  states.numpy().view(np.uint32), words.numpy().view(np.uint16),
+                                  escs.numpy())
+        out = torch.zeros(size, dtype=torch.uint8)
+        out[:8] = torch.tensor([len(data)], dtype=torch.int64).view(torch.uint8)
+        out[8:8 + len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        return out
+    if size >= 1 << 31:  # the kernel counts bytes in 32 bits
+        raise ValueError(f"a container of up to {size} bytes exceeds the kernel's 2**31")
+    lib = kernels.lib()
+    out = torch.empty(size, dtype=torch.uint8, device=dev)
+    tiles = lib.cra5_container_write_tiles(ne)
+    scratch = torch.empty(1 + tiles, dtype=torch.int64, device=dev)  # the tiles' look-back
+    kflags = K | (SORTED_FLAG | MERGED_FLAG if sorted_mode else 0)
+    status = lib.cra5_container_write(
+        states.data_ptr(), words.data_ptr(), escs.data_ptr(), safe.data_ptr(), n, kflags, K, nw,
+        ne, scratch.data_ptr(), scratch.numel(), out.data_ptr(), kernels.raw_stream(dev.index))
+    kernels.check(status, "container_write")
+    kernels.count(container_write)
+    return out
+
+
+@kernels.counted
+def container_read(image: torch.Tensor, K: int, nw: int, ne: int) -> Tuple[torch.Tensor, ...]:
+    """K10: the arrays of a v2 container's byte image (``image`` (L,)
+    uint8) whose header gave K lanes, ``nw`` words and ``ne`` escapes:
+    (states (K,) int32 [u32], words (nw,) int16 [u16], escapes (ne,)
+    int32), each in its own allocation. Escape r is read from the bytes
+    after the r-th byte of the escape region with bit 7 clear, at most 5
+    of them, as ``lane_coder.zigzag_varint_decode`` reads it. The caller
+    checks that the region holds ``ne`` such bytes: past those K10 reads 0,
+    and the CPU route raises as ``container_arrays`` does."""
+    _require(image, "image", torch.uint8, 1)
+    dev = _same_device(image)
+    lay = container_layout(K, nw, ne)
+    if not 1 <= K <= MAX_LANES or nw < 0 or ne < 0 or image.numel() < lay.escapes:
+        raise ValueError(f"an image of {image.numel()} bytes holds no container of {K} lanes "
+                         f"and {nw} words")
+    if dev.type == "cpu":  # the plain version is the host's parser
+        from .lane_coder import container_arrays
+
+        arrays = container_arrays(image.numpy().tobytes(), (None, K, ne, nw))
+        return tuple(torch.from_numpy(a) for a in arrays)
+    if image.numel() >= 1 << 31:  # the kernel counts bytes in 32 bits
+        raise ValueError(f"an image of {image.numel()} bytes exceeds the kernel's 2**31")
+    if image.data_ptr() % 16:  # the escape region is read in 16-byte loads
+        raise ValueError("image must start at a 16-byte aligned address")
+    lib = kernels.lib()
+    states = torch.empty(K, dtype=torch.int32, device=dev)
+    words = torch.empty(nw, dtype=torch.int16, device=dev)
+    escs = torch.empty(ne, dtype=torch.int32, device=dev)
+    tiles = lib.cra5_container_read_tiles(image.numel(), lay.escapes, ne)
+    scratch = torch.empty(1 + tiles, dtype=torch.int64, device=dev)  # the tiles' look-back
+    status = lib.cra5_container_read(
+        image.data_ptr(), image.numel(), K, nw, ne, scratch.data_ptr(), scratch.numel(),
+        states.data_ptr(), words.data_ptr(), escs.data_ptr(), kernels.raw_stream(dev.index))
+    kernels.check(status, "container_read")
+    kernels.count(container_read)
+    return states, words, escs

@@ -43,12 +43,16 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                       ctypes.c_double)
+_P, _I, _U, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong,
+                           ctypes.c_float, ctypes.c_double)
 _SIGNATURES = {
     "cra5_rans_encode": [_P, _P, _I, _I, _P, _P, _P, _P],
     "cra5_rans_decode": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                          _I, _I, _I, _I, _P, _P, _P, _P],
+    "cra5_container_write": [_P, _P, _P, _P, _U, _U, _I, _LL, _LL, _P, _LL, _P, _P],
+    "cra5_container_read": [_P, _LL, _I, _LL, _LL, _P, _LL, _P, _P, _P, _P],
+    "cra5_container_write_tiles": [_LL],
+    "cra5_container_read_tiles": [_LL, _LL, _LL],
     "cra5_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "cra5_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -64,6 +68,8 @@ _SIGNATURES = {
     "cra5_perm_expand": [_P, _P, _P, _I, _I, _I, _P],
     "cra5_perm_dynroll": [_P, _P, _P, _I, _I, _P],
 }
+
+_RESTYPES = {"cra5_container_write_tiles": _LL, "cra5_container_read_tiles": _LL}  # else int
 
 _lib = None
 build_info: Dict[str, object] = {}
@@ -182,7 +188,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, _I)
         _lib = handle
     return _lib
 

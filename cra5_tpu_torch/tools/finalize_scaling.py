@@ -11,9 +11,11 @@ Two phases:
 
   record   run ONE compress (entropy side calibrated unless
            --no-calibrate, reusing the bench's calibration cache) and
-           capture the exact inputs the port's codec hands to
-           ``coder/lane_coder.py::assemble_container`` after its copies to
-           the host, with the assembled containers, into an .npz.
+           save its containers, z streams then y, with the host arrays
+           ``coder/lane_coder.py::assemble_container`` packs each from (read
+           back from the container by ``parse_v2_header`` and
+           ``container_arrays``: on the card K9 writes the containers and the
+           host packs nothing), into an .npz.
            ``--model 268`` on the card lands the bench's field (``--amp``
            or ``--target-bytes`` move the bin size); ``--model tiny
            --device cpu`` serves the tests.
@@ -72,24 +74,16 @@ def _record(args) -> int:
     if amp != 1.0:
         x = x * amp
 
+    out = codec.compress(x)
     recorded = []
-    real_assemble = lane_coder.assemble_container
-
-    def spy(n, K, nw, ne, sorted_mode, safe, states, stream, escs):
-        out = real_assemble(n, K, nw, ne, sorted_mode, safe, states, stream, escs)
+    for data in [*out["strings"][1], *out["strings"][0]]:  # the order the codec packs them
+        hdr = lane_coder.parse_v2_header(data)
+        n, K, ne, nw, srt, safe, _ = hdr
+        states, stream, escs = lane_coder.container_arrays(data, hdr)
         recorded.append(dict(
-            n=n, K=K, nw=nw, ne=ne, sorted=int(sorted_mode), safe=int(safe),
-            states=np.asarray(states, np.uint32), stream=np.asarray(stream, np.uint16),
-            escs=np.asarray(escs, np.int32), container=np.frombuffer(out, np.uint8)))
-        return out
-
-    lane_coder.assemble_container = spy
-    try:
-        codec.compress(x)  # warm (recorded, then cleared)
-        recorded.clear()
-        out = codec.compress(x)
-    finally:
-        lane_coder.assemble_container = real_assemble
+            n=n, K=K, nw=nw, ne=ne, sorted=int(srt), safe=int(safe),
+            states=states.view(np.uint32), stream=stream.view(np.uint16), escs=escs,
+            container=np.frombuffer(data, np.uint8)))
     total = sum(len(grp[0]) for grp in out["strings"])
     payload = {"n_streams": np.int64(len(recorded)), "bin_bytes": np.int64(total),
                "amp": np.float64(amp)}

@@ -10,27 +10,32 @@ tests. This file imports no JAX, and it uses no fixture of
 
 Shapes are small and ragged (lane counts and sequence lengths off the
 kernels' tile and block sizes). K1-K3, the generic lane decode, K7 and K8
-must equal their plain versions exactly; K4-K6 must agree within the bf16
-and float32 tolerances stated below.
+must equal their plain versions exactly, K9 and K10 the host's container
+code (``assemble_container``, ``container_arrays``) byte for byte; K4-K6
+must agree within the bf16 and float32 tolerances stated below.
 """
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import _crx2_cases as crx2
 from cra5_tpu_torch import kernels
 from cra5_tpu_torch.coder import rans_kernels as rk
 from cra5_tpu_torch.coder.lane_coder import (
     LaneCoder,
     _sort_by_index,
+    assemble_container,
     merge_tiny_buckets,
     parse_v2_header,
     sorted_rows,
 )
 from cra5_tpu_torch.entropy import EntropyBottleneck, eb_update, gc_update, get_scale_table
 from cra5_tpu_torch.entropy.cdf import CdfTable
+from cra5_tpu_torch.utils.profiling import reset_span_totals, span_totals
 from cra5_tpu_torch.profiling import perm_probe as pp
 from cra5_tpu_torch.ops.attention import (
     anydim_supports,
@@ -769,6 +774,18 @@ def _side_stream_case(name, rng, card, gc_table):
             rows = (t(idx).reshape(-1, K),)
         args = (coder._cdf, *rows, states, words, coder._max_values, coder._offsets)
         return getattr(rk, name), args, len(args) - 1, exact  # late: the offsets
+    if name == "container_write":
+        states, words, escs = crx2.arrays(rng, 300, 20001, 4000, "mixed")
+        args = (900, True, t(states.view(np.int32)), t(words.view(np.int16)), t(escs),
+                torch.tensor(True, device=card))
+        same = lambda a, b: torch.equal(a[:8 + int(a[:8].cpu().numpy().view("<i8")[0])],
+                                        b[:8 + int(b[:8].cpu().numpy().view("<i8")[0])])
+        return rk.container_write, args, 4, same  # late: the escapes
+    if name == "container_read":
+        states, words, escs = crx2.arrays(rng, 300, 20001, 4000, "mixed")
+        data = assemble_container(900, 300, 20001, 4000, False, False, states, words, escs)
+        return (rk.container_read, (t(np.frombuffer(data, np.uint8).copy()), 300, 20001, 4000), 0,
+                exact)
     if name == "flash_attention_forward":
         q, k, v = (t(rng.standard_normal((1, 2, 300, 64), np.float32)).to(torch.bfloat16)
                    for _ in range(3))
@@ -780,7 +797,8 @@ def _side_stream_case(name, rng, card, gc_table):
 
 
 @pytest.mark.parametrize("name", ["expand", "dynroll", "rans_encode", "rans_decode_generic",
-                                  "rans_decode_sorted", "flash_attention_forward",
+                                  "rans_decode_sorted", "container_write", "container_read",
+                                  "flash_attention_forward",
                                   "flash_attention_backward_dq", "flash_attention_backward_dkv"])
 def test_wrappers_launch_on_the_callers_stream(card, rng, gc_table, name):
     """Every kernel wrapper launches on the current stream. One input
@@ -1216,3 +1234,136 @@ def test_268v_sized_unsorted_y_decodes_on_k2(card, rng, gc_table):
     assert rk.rans_decode_generic.launches == before + 1
     assert _equal(got, rk.lane_decode_plain(*args))
     np.testing.assert_array_equal(coder.decode(data, idx), sym)
+
+
+def _to_card(card, states, words, escs):
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).view(dt)).to(card)
+    return t(states, np.int32), t(words, np.int16), t(escs, np.int32)
+
+
+@pytest.mark.parametrize("case", crx2.CARD_CASES + crx2.LAYOUT_CASES,
+                         ids=[c[0] for c in crx2.CARD_CASES + crx2.LAYOUT_CASES])
+def test_container_kernels_equal_the_host_reference(card, case):
+    """K9's image of the host arrays is ``assemble_container``'s bytes, and
+    K10 reads back ``container_arrays``'s, at the main path's streams
+    (the 268v y and z, y at 16 384 lanes, an image codec's stream) and at
+    the layout's edges; one launch each."""
+    _, K, nw, ne, srt, safe, kind = case
+    states, words, escs = crx2.arrays(np.random.default_rng(K + nw), K, nw, ne, kind)
+    want = assemble_container(3 * K + ne, K, nw, ne, srt, safe, states, words, escs)
+    before = (rk.container_write.launches, rk.container_read.launches)
+    out = rk.container_write(3 * K + ne, srt, *_to_card(card, states, words, escs),
+                             torch.tensor(safe, device=card))
+    host = out.cpu().numpy()
+    size = int(host[:8].view("<i8")[0])
+    assert out.numel() == 8 + rk.container_layout(K, nw, ne).capacity
+    assert size == len(want) and host[8:8 + size].tobytes() == want
+    image = torch.from_numpy(np.frombuffer(want, np.uint8).copy()).to(card)
+    got = rk.container_read(image, K, nw, ne)
+    for g, w in zip(got, crx2.reference_arrays(want)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+    assert (rk.container_write.launches, rk.container_read.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("kind", ["random", "overlong", "trailing"])
+@pytest.mark.parametrize("ne", [1, 7, 300, 40000])
+def test_container_read_on_fuzzed_escape_regions_equals_the_plain_decoder(card, kind, ne):
+    rng = np.random.default_rng(ne + len(kind))
+    for nw in (11, 12):  # the region at 2 and 0 mod 4 of the image
+        words = rng.integers(0, 1 << 16, nw).astype(np.uint16)
+        data = crx2.with_region(3, words, ne, crx2.escape_region(rng, kind, ne))
+        image = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(card)
+        got = rk.container_read(image, 3, nw, ne)
+        for g, w in zip(got, crx2.reference_arrays(data)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def test_lane_coder_on_the_card_packs_and_parses_with_one_k9_and_one_k10_a_stream(
+        card, rng, gc_table, eb_table):
+    """A y stream (sorted, 2048 lanes) and a z stream of a batch: the card's
+    containers are the CPU coder's bytes, one K9 a stream; the card reads
+    them back with one K10 a stream and decodes them on K3 and K2."""
+    idx_y = rng.integers(20, 23, 2048 * 6 + 100).astype(np.int32)
+    idx_z = np.repeat(np.arange(16, dtype=np.int32), 96)
+    coders = [(LaneCoder(gc_table, num_lanes=2048, device=card),
+               LaneCoder(gc_table, num_lanes=2048, device="cpu"), idx_y),
+              (LaneCoder(eb_table, num_lanes=32, device=card),
+               LaneCoder(eb_table, num_lanes=32, device="cpu"), idx_z)]
+    syms = [_sample(rng, c[0].table, c[2], 0.05) for c in coders]
+    t = lambda a: torch.from_numpy(a).to(card)
+    before = {k: getattr(rk, k).launches for k in ("container_write", "container_read",
+                                                    "rans_decode_sorted", "rans_decode_generic")}
+    handles = [gpu.encode_dispatch(t(sym), t(idx)) for (gpu, _, idx), sym in zip(coders, syms)]
+    streams = LaneCoder.encode_finalize_many(handles)
+    assert rk.container_write.launches == before["container_write"] + 2
+    for (gpu, cpu, idx), sym, data in zip(coders, syms, streams):
+        assert data == cpu.encode(sym, idx) and parse_v2_header(data)[2] > 0
+        np.testing.assert_array_equal(gpu.decode(data, idx), sym)
+    got = {k: getattr(rk, k).launches - v for k, v in before.items()}
+    assert got == {"container_write": 2, "container_read": 2, "rans_decode_sorted": 1,
+                   "rans_decode_generic": 1}
+
+
+def test_card_streams_equal_the_jax_golden_vectors(card):
+    """The JAX LaneCoder's golden streams (tests/goldens, unsorted on 4
+    lanes and sorted on 128): the card writes them byte for byte through
+    K1 and K9, and reads them through K10."""
+    gold = Path(__file__).resolve().parent / "goldens"
+    z = np.load(gold / "rans_golden.npz")
+    table = CdfTable(z["quantized_cdf"], z["cdf_length"], z["offset"])
+    s = np.load(gold / "sorted_golden.npz")
+    for sym, idx, name, kw in ((z["sym"], z["idx"], "stream_v2.bin", {}),
+                               (s["sym"], s["idx"], "stream_v2_sorted.bin",
+                                dict(num_lanes=128, sorted_lanes=True))):
+        data = (gold / name).read_bytes()
+        coder = LaneCoder(table, device=card, **kw)
+        assert coder.encode(sym, idx) == data, name
+        np.testing.assert_array_equal(coder.decode(data, idx), sym)
+
+
+@pytest.mark.parametrize("which", range(11))
+def test_malformed_streams_raise_the_cpus_error_on_the_card(card, gc_table, which):
+    data = crx2.valid_stream(gc_table, np.random.default_rng(5), card)
+    assert data == crx2.valid_stream(gc_table, np.random.default_rng(5), "cpu")
+    name, bad, n, pattern = crx2.malformed_streams(data)[which]
+    errors = []
+    for dev in ("cpu", card):
+        with pytest.raises(ValueError, match=pattern) as e:
+            LaneCoder(gc_table, num_lanes=64, device=dev).upload_batch([bad], n)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1], name
+
+
+def test_codec_profile_on_the_card_keeps_the_coder_spans_free_of_device_work(card):
+    """A tiny v2 roundtrip profiled on the card: 2 coder/pack and 2
+    coder/parse spans, holding no torch operator (K9, K10 and the copies
+    launch outside them), and one K9 and one K10 a stream."""
+    from cra5_tpu_torch.models.vaeformer import VAEformer, VAEformerCodec, vaeformer_tiny
+
+    codec = VAEformerCodec(VAEformer(vaeformer_tiny(), device=card).reset_parameters(5))
+    codec.update()
+    x = np.random.default_rng(7).standard_normal((1, 8, 41, 40)).astype(np.float32)
+    out = codec.compress(x)
+    codec.decompress(out["strings"], out["z_shape"])
+    reset_span_totals()
+    before = (rk.container_write.launches, rk.container_read.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = codec.compress(x)
+        codec.decompress(out["strings"], out["z_shape"])
+        torch.cuda.synchronize()
+    assert (rk.container_write.launches, rk.container_read.launches) == (before[0] + 2,
+                                                                          before[1] + 2)
+    evs = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id(),
+            e.is_user_annotation()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CPU]
+    ranges = [e for e in evs if e[4]]
+    coder = [e for e in ranges if e[0] in ("coder/pack", "coder/parse")]
+    assert sorted(e[0] for e in coder) == ["coder/pack"] * 2 + ["coder/parse"] * 2
+    for name, s, e, thread, _ in coder:
+        inside = [o[0] for o in evs if not o[4] and o[3] == thread and s <= o[1] <= e]
+        assert inside == [], (name, inside)
+    t = span_totals()
+    assert t["coder/pack"]["calls"] == 2 and t["coder/parse"]["calls"] == 2
+    reset_span_totals()
