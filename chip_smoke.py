@@ -251,7 +251,7 @@ result line is printed then:
      eval_model run and each roundtrip and read just after show K1 and K2
      (and K3 at CLIC size) on the v2 runs, no coder kernel on InvCompress
      and the entropy estimation, and no other kernel anywhere (no flash
-     kernel: Swin windows hold 16 tokens). Its launches join the coder
+     kernel: Swin windows hold 16 or 64 tokens). Its launches join the coder
      rows of the kernels line.
   15. video phase (each line carries the card's name and power limit):
      ScaleSpaceFlow in float32 with TF32 off. At the tiny test widths
@@ -4382,7 +4382,7 @@ def phase_context(dev, card: str) -> dict:
     are zeroed just before each eval_model run and each roundtrip and read
     just after; the v2 runs must launch K1 and K2 (and K3 at CLIC size),
     InvCompress and the entropy estimation no coder kernel, and no run any
-    other kernel (no flash kernel: Swin windows hold 16 tokens). Every
+    other kernel (no flash kernel: Swin windows hold 16 or 64 tokens). Every
     run's launches join the kernels line's coder rows."""
     import os
     import tempfile

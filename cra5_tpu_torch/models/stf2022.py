@@ -7,8 +7,7 @@ by name: a 2x2 patch embed and four Swin stages with patch merging
 GELU conv ``h_a``, separate ``h_mean_s`` / ``h_scale_s`` with subpel
 upsampling, and ``charm``: per slice, mean and scale from the hyper
 parameters and the decoded support slices, and a latent residual
-prediction (``lrp``). ``CharmSlices`` and ``CharmCodec`` serve TCM 2023
-too.
+prediction (``slice_residual``). ``CharmCodec`` serves TCM 2023 too.
 
 ``CharmCodec`` (a ``codec._SliceCodec``: v2 always, as the JAX package's)
 codes each slice as one stream a sample and decodes it (K2, or K3 when
@@ -30,6 +29,7 @@ from ..entropy import EntropyBottleneck, GaussianConditional
 from ..entropy.ops import quantize_ste
 from ..nn.conv import conv2d, native_conv, subpel_conv3x3
 from ..nn.swin import SwinStage, reset_swin_parameters_
+from ..utils.profiling import span
 from .codec import _SliceCodec
 from .google import CompressionModel, _ConvStack, _medians
 
@@ -60,19 +60,21 @@ class CharmSlices(nn.Module):
             setattr(self, f"lrp_transforms_{i}",
                     _cc_stack(widths, s, M + s * min(i + 1, max_support + 1), device))
 
-    def slice_params(self, latent_means: torch.Tensor, latent_scales: torch.Tensor,
-                     y_hat_slices: Sequence[torch.Tensor], i: int):
+    def slice_entropy(self, latent_means: torch.Tensor, latent_scales: torch.Tensor,
+                      y_hat_slices: Sequence[torch.Tensor], i: int):
+        """(mu, sigma, lrp_in) of slice i: lrp_in is what ``slice_residual``
+        reads besides the slice's y_hat (the means and the support)."""
         support = list(y_hat_slices[: self.max_support])
-        mu = getattr(self, f"cc_mean_transforms_{i}")(torch.cat([latent_means] + support, dim=1))
+        mean_in = torch.cat([latent_means] + support, dim=1)
+        mu = getattr(self, f"cc_mean_transforms_{i}")(mean_in)
         sigma = getattr(self, f"cc_scale_transforms_{i}")(
             torch.cat([latent_scales] + support, dim=1))
-        return mu, sigma
+        return mu, sigma, mean_in
 
-    def lrp(self, latent_means: torch.Tensor, y_hat_slices: Sequence[torch.Tensor],
-            y_hat_slice: torch.Tensor, i: int) -> torch.Tensor:
-        support = list(y_hat_slices[: self.max_support])
-        lrp_in = torch.cat([latent_means] + support + [y_hat_slice], dim=1)
-        return 0.5 * torch.tanh(getattr(self, f"lrp_transforms_{i}")(lrp_in))
+    def slice_residual(self, lrp_in: torch.Tensor, y_hat_slice: torch.Tensor,
+                       i: int) -> torch.Tensor:
+        x = torch.cat([lrp_in, y_hat_slice], dim=1)
+        return 0.5 * torch.tanh(getattr(self, f"lrp_transforms_{i}")(x))
 
 
 class _PatchEmbed2(nn.Module):
@@ -110,7 +112,8 @@ class _CharmModel(CompressionModel):
     """The charm device surface shared by STF and TCM: analysis, the two
     hyper syntheses, synthesis, and the training forward; subclasses build
     g_a, g_s, h_a, h_mean_s, h_scale_s and the slice transforms, and give
-    ``slice_params`` and ``slice_lrp``."""
+    ``slice_entropy`` (mu, sigma and what the lrp reads) and
+    ``slice_residual`` (the lrp)."""
 
     CODEC_KIND = "charm"
     downsampling_factor = 64
@@ -137,13 +140,12 @@ class _CharmModel(CompressionModel):
         y_hat_slices: List[torch.Tensor] = []
         likelihoods: List[torch.Tensor] = []
         for i, y_slice in enumerate(torch.chunk(y, self.num_slices, dim=1)):
-            mu, sigma = self.slice_params(latent_means, latent_scales, y_hat_slices, i)
+            mu, sigma, lrp_in = self.slice_entropy(latent_means, latent_scales, y_hat_slices, i)
             _, lk = self.gaussian_conditional(y_slice, sigma, means=mu, training=training,
                                               generator=generator)
             likelihoods.append(lk)
             y_hat_slice = quantize_ste(y_slice - mu) + mu
-            y_hat_slices.append(
-                y_hat_slice + self.slice_lrp(latent_means, y_hat_slices, y_hat_slice, i))
+            y_hat_slices.append(y_hat_slice + self.slice_residual(lrp_in, y_hat_slice, i))
         x_hat = self.g_s(torch.cat(y_hat_slices, dim=1))
         return {"x_hat": x_hat,
                 "likelihoods": {"y": torch.cat(likelihoods, dim=1), "z": z_likelihoods}}
@@ -218,16 +220,19 @@ class SymmetricalTransFormer2022(_CharmModel):
         x = x.reshape(B, ed, 2, 2, H, W).permute(0, 1, 4, 2, 5, 3).reshape(B, ed, 2 * H, 2 * W)
         return self.end_conv_out(x)
 
-    def slice_params(self, latent_means, latent_scales, y_hat_slices, i: int):
-        return self.charm.slice_params(latent_means, latent_scales, y_hat_slices, i)
+    def slice_entropy(self, latent_means, latent_scales, y_hat_slices, i: int):
+        return self.charm.slice_entropy(latent_means, latent_scales, y_hat_slices, i)
 
-    def slice_lrp(self, latent_means, y_hat_slices, y_hat_slice, i: int):
-        return self.charm.lrp(latent_means, y_hat_slices, y_hat_slice, i)
+    def slice_residual(self, lrp_in, y_hat_slice, i: int):
+        return self.charm.slice_residual(lrp_in, y_hat_slice, i)
 
 
 class CharmCodec(_SliceCodec):
     """The channel-slice codec of STF and TCM: one v2 stream a slice and a
-    sample."""
+    sample. Each slice's towers are spans inside ``compress/encode_y`` and
+    ``decompress/decode_y``: ``charm/params`` (the slice model: mu and
+    sigma; args slice and support channels) and ``charm/lrp`` (the latent
+    residual prediction), so those stages' own launches are the coder's."""
 
     def _symbols(self, y_slice: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
         return torch.round(y_slice - mu).to(torch.int32)
@@ -236,26 +241,32 @@ class CharmCodec(_SliceCodec):
         """A slice's GC rows; the decoder's must equal the encoder's."""
         return self._gc_indexes(sigma)
 
-    def _slice_hat(self, sym, mu, latent_means, y_hat_slices, i: int) -> torch.Tensor:
+    def _params(self, hyper, y_hat_slices, i: int):
+        m, (latent_means, latent_scales) = self.model, hyper
+        support = latent_means.shape[1] + sum(
+            s.shape[1] for s in y_hat_slices[: m.max_support])
+        with span("charm/params", slice=i, support=support):
+            return m.slice_entropy(latent_means, latent_scales, y_hat_slices, i)
+
+    def _slice_hat(self, sym, mu, lrp_in, i: int) -> torch.Tensor:
         """Slice i's y_hat from its symbols: + mu in float32, + lrp."""
-        y_hat_slice = sym.to(torch.float32) + mu
-        return y_hat_slice + self.model.slice_lrp(latent_means, y_hat_slices, y_hat_slice, i)
+        with span("charm/lrp", slice=i):
+            y_hat_slice = sym.to(torch.float32) + mu
+            return y_hat_slice + self.model.slice_residual(lrp_in, y_hat_slice, i)
 
     def _encode_slices(self, y: torch.Tensor, hyper) -> list:
-        m, (latent_means, latent_scales) = self.model, hyper
         handles, y_hat_slices = [], []
-        for i, y_slice in enumerate(torch.chunk(y, m.num_slices, dim=1)):
-            mu, sigma = m.slice_params(latent_means, latent_scales, y_hat_slices, i)
+        for i, y_slice in enumerate(torch.chunk(y, self.model.num_slices, dim=1)):
+            mu, sigma, lrp_in = self._params(hyper, y_hat_slices, i)
             sym = self._symbols(y_slice, mu)
             handles += self._gc_coder.encode_dispatch_batch(sym, self._indexes(sigma))
-            y_hat_slices.append(self._slice_hat(sym, mu, latent_means, y_hat_slices, i))
+            y_hat_slices.append(self._slice_hat(sym, mu, lrp_in, i))
         return handles
 
     def _decode_slices(self, ups: list, B: int, hyper, W: int) -> torch.Tensor:
-        m, (latent_means, latent_scales) = self.model, hyper
         y_hat_slices: List[torch.Tensor] = []
-        for i in range(m.num_slices):
-            mu, sigma = m.slice_params(latent_means, latent_scales, y_hat_slices, i)
+        for i in range(self.model.num_slices):
+            mu, sigma, lrp_in = self._params(hyper, y_hat_slices, i)
             sym = self._decode(ups[i * B:(i + 1) * B], self._indexes(sigma))
-            y_hat_slices.append(self._slice_hat(sym, mu, latent_means, y_hat_slices, i))
+            y_hat_slices.append(self._slice_hat(sym, mu, lrp_in, i))
         return torch.cat(y_hat_slices, dim=1)

@@ -1,12 +1,23 @@
-"""TCM 2023 (Liu et al., "Learned Image Compression with Mixed
-Transformer-CNN Architectures").
+"""TCM 2023 (Liu, Sun, Katto, "Learned Image Compression with Mixed
+Transformer-CNN Architectures", CVPR 2023, arXiv:2303.14978), at its
+published block (LIC_TCM ``models/tcm.py``).
 
-Counterpart of ``cra5_tpu/models/tcm2023.py``, module by module and name
-by name: ConvTransBlock stages (a residual-conv branch and a Swin branch
-over split channels, fused by a 1x1), residual down- and up-sampling
-transforms, ConvTrans hyper transforms (z of ``hyper_channels`` = 192),
-and the charm slice model whose supports pass through SWAtten
-window-attention gates before the cc transforms. Coding is
+ConvTransBlock stages (a residual-conv branch, ``ResidualBlock(c) + c``,
+and a Swin branch over split channels, fused by a 1x1), residual down- and
+up-sampling transforms, ConvTrans hyper transforms (z of
+``hyper_channels`` = 192, hyper windows of 4), and the charm slice model
+whose supports pass through SWAtten gates before the cc transforms. A
+SWAtten gate is Cheng 2020's attention block on ``inter_dim`` channels
+with a Swin pair (W, then SW) at the head of its mask branch, between a
+1x1 in and a 1x1 out; its units end in a ReLU, as CompressAI's
+``AttentionBlock`` units do (``nn/conv.py::_ResidualUnit``, which
+cheng2020, ELIC and InvCompress share, has none). The latent residual
+prediction reads the attended mean support. Every Swin block keeps its
+window and shift at every input (``SwinBlock(fixed_window=True)``).
+
+This is not the JAX package's form (window 4, a Swin trunk gate, the raw
+support into the lrp, no second residual on the conv branch; ROADMAP
+C21): the port's TCM is held to ``tests/reference_tcm2023.py``. Coding is
 ``stf2022.CharmCodec``'s (``CODEC_KIND = "charm"``).
 """
 
@@ -15,6 +26,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional
@@ -31,12 +43,13 @@ from .stf2022 import _CharmModel
 
 
 class _TokensSwin(nn.Module):
-    """A SwinBlock over an NCHW tensor (named ``swin``)."""
+    """A fixed-window SwinBlock over an NCHW tensor (named ``swin``)."""
 
     def __init__(self, dim: int, head_dim: int, window_size: int, shifted: bool, device=None):
         super().__init__()
         self.swin = SwinBlock(dim, max(1, dim // head_dim), window_size,
-                              window_size // 2 if shifted else 0, device=device)
+                              window_size // 2 if shifted else 0, fixed_window=True,
+                              device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
@@ -60,33 +73,57 @@ class ConvTransBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cx, tx = torch.split(self.conv1_1(x), [self.conv_dim, x.shape[1] - self.conv_dim], dim=1)
-        out = self.conv1_2(torch.cat([self.conv_block(cx), self.trans_block(tx)], dim=1))
+        out = self.conv1_2(torch.cat([self.conv_block(cx) + cx, self.trans_block(tx)], dim=1))
         return x + out
 
 
+class _AttentionUnit(nn.Module):
+    """CompressAI's ``AttentionBlock`` unit: 1x1 to c/2, 3x3, 1x1 to c,
+    ReLU between, + the input, then a ReLU."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        c = channels
+        self.c1 = conv2d(c, c // 2, 1, 1, device=device)
+        self.c2 = conv2d(c // 2, c // 2, 3, 1, device=device)
+        self.c3 = conv2d(c // 2, c, 1, 1, device=device)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.c2(F.relu(self.c1(v))))
+        return F.relu(v + self.c3(h))
+
+
 class SWAtten(nn.Module):
-    """Swin-window attention gate: 1x1 in to ``inter_dim``, a Swin trunk, a
-    shifted Swin + 1x1 mask, a sigmoid gate, 1x1 out."""
+    """The slice model's gate: h = 1x1 in to ``inter_dim``; a trunk of three
+    units; a mask branch of a Swin pair (W, SW), three units and a 1x1;
+    1x1 out of h + trunk * sigmoid(mask)."""
 
     def __init__(self, in_dim: int, output_dim: int, head_dim: int, window_size: int,
                  inter_dim: int = 128, device=None):
         super().__init__()
         d = device
         self.in_conv = conv2d(in_dim, inter_dim, 1, 1, d)
-        self.trunk = _TokensSwin(inter_dim, head_dim, window_size, False, device=d)
-        self.mask_swin = _TokensSwin(inter_dim, head_dim, window_size, True, device=d)
+        for i in range(3):
+            setattr(self, f"trunk_{i}", _AttentionUnit(inter_dim, d))
+        self.mask_swin_0 = _TokensSwin(inter_dim, head_dim, window_size, False, device=d)
+        self.mask_swin_1 = _TokensSwin(inter_dim, head_dim, window_size, True, device=d)
+        for i in range(3):
+            setattr(self, f"mask_{i}", _AttentionUnit(inter_dim, d))
         self.mask_conv = conv2d(inter_dim, inter_dim, 1, 1, d)
         self.out_conv = conv2d(inter_dim, output_dim, 1, 1, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.in_conv(x)
-        gate = torch.sigmoid(self.mask_conv(self.mask_swin(h)))
-        return self.out_conv(h + self.trunk(h) * gate)
+        a, b = h, self.mask_swin_1(self.mask_swin_0(h))
+        for i in range(3):
+            a = getattr(self, f"trunk_{i}")(a)
+            b = getattr(self, f"mask_{i}")(b)
+        return self.out_conv(h + a * torch.sigmoid(self.mask_conv(b)))
 
 
 class _TCMStage(nn.Module):
-    """``depth`` ConvTransBlocks on 2 ``dim`` channels, then the resample
-    ``(kind, out, arg)``: "rbs" | "rbu" | "conv" | "subpel"."""
+    """``depth`` ConvTransBlocks on 2 ``dim`` channels (W, SW, ...), then the
+    resample ``(kind, out, arg)``: "rbs" | "rbu" | "conv" | "subpel"."""
 
     def __init__(self, dim: int, depth: int, head_dim: int, window_size: int,
                  resample: Tuple, device=None):
@@ -116,11 +153,13 @@ class TCM2023(_CharmModel):
     N = 128
     M = 320
     hyper_channels = 192
+    hyper_window = 4
+    hyper_head_dim = 32
 
     def __init__(self, config: Tuple[int, ...] = (2, 2, 2, 2, 2, 2),
                  head_dim: Tuple[int, ...] = (8, 16, 32, 32, 16, 8), N: Optional[int] = None,
                  M: Optional[int] = None, num_slices: int = 5, max_support_slices: int = 5,
-                 in_channel: int = 3, window_size: int = 4, device=None):
+                 in_channel: int = 3, window_size: int = 8, device=None):
         self.config, self.head_dim = tuple(config), tuple(head_dim)
         self.num_slices, self.max_support_slices = num_slices, max_support_slices
         self.window_size = window_size
@@ -133,6 +172,7 @@ class TCM2023(_CharmModel):
     def _build(self) -> None:
         N, M, d, ws = self.N, self.M, self.device, self.window_size
         cfg, hd, hc, C = self.config, self.head_dim, self.hyper_channels, self.in_channel
+        hw, hhd = self.hyper_window, self.hyper_head_dim
         self.g_a_in = ResidualBlockWithStride(C, 2 * N, 2, d)
         for i in range(3):
             setattr(self, f"m_down{i + 1}", _TCMStage(
@@ -143,11 +183,11 @@ class TCM2023(_CharmModel):
                 N, cfg[3 + i], hd[3 + i], ws, ("rbu", 2 * N, 2) if i < 2 else ("subpel", C, 2),
                 d))
         self.h_a_in = ResidualBlockWithStride(M, 2 * N, 2, d)
-        self.ha_down1 = _TCMStage(N, cfg[0], 32, 4, ("conv", hc, 2), d)
+        self.ha_down1 = _TCMStage(N, cfg[0], hhd, hw, ("conv", hc, 2), d)
         self.h_mean_in = ResidualBlockUpsample(hc, 2 * N, 2, d)
-        self.hs_up1 = _TCMStage(N, cfg[3], 32, 4, ("subpel", M, 2), d)
+        self.hs_up1 = _TCMStage(N, cfg[3], hhd, hw, ("subpel", M, 2), d)
         self.h_scale_in = ResidualBlockUpsample(hc, 2 * N, 2, d)
-        self.hs_up2 = _TCMStage(N, cfg[3], 32, 4, ("subpel", M, 2), d)
+        self.hs_up2 = _TCMStage(N, cfg[3], hhd, hw, ("subpel", M, 2), d)
 
         s = self.slice_size
         cc = (("conv", 224, 3, 1), ("gelu",), ("conv", 128, 3, 1), ("gelu",), ("conv", s, 3, 1))
@@ -156,7 +196,7 @@ class TCM2023(_CharmModel):
             for kind in ("mean", "scale"):
                 setattr(self, f"atten_{kind}_{i}", SWAtten(sup, out, 16, ws, 128, d))
                 setattr(self, f"cc_{kind}_transforms_{i}", _ConvStack(cc, out, d))
-            setattr(self, f"lrp_transforms_{i}", _ConvStack(cc, sup + s, d))
+            setattr(self, f"lrp_transforms_{i}", _ConvStack(cc, out + s, d))
         self.entropy_bottleneck = EntropyBottleneck(hc, device=d)
         self.gaussian_conditional = GaussianConditional()
 
@@ -181,15 +221,15 @@ class TCM2023(_CharmModel):
     def h_scale_s(self, z_hat: torch.Tensor) -> torch.Tensor:
         return self.hs_up2(self.h_scale_in(z_hat))
 
-    def slice_params(self, latent_means, latent_scales, y_hat_slices: Sequence[torch.Tensor],
-                     i: int):
+    def slice_entropy(self, latent_means, latent_scales, y_hat_slices: Sequence[torch.Tensor],
+                      i: int):
+        """(mu, sigma, the attended mean support the lrp reads) of slice i."""
         support = list(y_hat_slices[: self.max_support])
         mean_support = getattr(self, f"atten_mean_{i}")(torch.cat([latent_means] + support, 1))
         scale_support = getattr(self, f"atten_scale_{i}")(torch.cat([latent_scales] + support, 1))
         return (getattr(self, f"cc_mean_transforms_{i}")(mean_support),
-                getattr(self, f"cc_scale_transforms_{i}")(scale_support))
+                getattr(self, f"cc_scale_transforms_{i}")(scale_support), mean_support)
 
-    def slice_lrp(self, latent_means, y_hat_slices: Sequence[torch.Tensor], y_hat_slice, i: int):
-        support = list(y_hat_slices[: self.max_support])
-        lrp_in = torch.cat([latent_means] + support + [y_hat_slice], dim=1)
+    def slice_residual(self, mean_support, y_hat_slice, i: int):
+        lrp_in = torch.cat([mean_support, y_hat_slice], dim=1)
         return 0.5 * torch.tanh(getattr(self, f"lrp_transforms_{i}")(lrp_in))

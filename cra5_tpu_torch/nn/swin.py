@@ -8,13 +8,21 @@ with ``norm`` and ``reduction``, ``blocks_{i}``), so a flax tree loads
 into these modules. Windows shrink to ``min(window, H, W)``; the shift is
 0 when ``min(H, W) <= window``; inputs are padded bottom and right to a
 multiple of the window; the shifted mask is additive -100, the softmax
-float32, GELU exact. Windows hold window**2 tokens (16 at the codecs'
-window of 4), far below ``nn/blocks.py``'s flash route, so attention is
-the plain matmul + softmax, as the JAX package leaves it to XLA.
+float32, GELU exact. ``SwinBlock(fixed_window=True)`` (TCM's blocks) keeps
+its window and shift at every input, a grid smaller than the window padded
+up to it. Windows hold window**2 tokens (16 or 64 at the codecs' windows
+of 4 and 8), far below ``nn/blocks.py``'s flash route, so attention is the
+plain matmul + softmax, as the JAX package leaves it to XLA, in chunks of
+windows whose float32 logits stay within ``ATTN_CHUNK_BYTES`` (a 4K
+frame's first TCM stage has 32 640 windows of 16 heads: 8.6 GB of logits
+at once). The attention between the qkv and output projections is the
+span ``swin/attn`` (args: windows, heads, tokens, head_dim).
 
-The relative-position index and the shift mask are numpy arrays cached by
-shape; each call makes its device copies on the caller's stream, so no
-device tensor is shared across CUDA streams.
+The relative-position index and the shift regions are numpy arrays cached
+by shape; each call makes its device copies on the caller's stream, so no
+device tensor is shared across CUDA streams. The shifted mask is made on
+the device a chunk at a time from each window's region labels (nW x N
+int8), not copied over as the (nW, N, N) float mask.
 
 A flax block sizes its bias table from the window its first input gives
 it (``min(window, H, W)``). A PyTorch module is sized when it is built:
@@ -33,10 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .blocks import Dense, LayerNorm, Mlp, window_partition, window_reverse
 from .init import lecun_normal_, trunc_normal_
 
 LN_EPS = 1e-5
+ATTN_CHUNK_BYTES = 1 << 30  # the float32 logits of one chunk of windows
+MASKED = -100.0
 
 
 @functools.lru_cache(maxsize=64)
@@ -56,20 +67,19 @@ def _relative_position_index(wh: int, ww: int, th: Optional[int] = None,
 
 
 @functools.lru_cache(maxsize=64)
-def _shift_attn_mask(Hp: int, Wp: int, window: int, shift: int) -> Optional[np.ndarray]:
-    """(nW, N, N) additive mask keeping the rolled-in regions apart."""
+def _shift_regions(Hp: int, Wp: int, window: int, shift: int) -> Optional[np.ndarray]:
+    """(nW, N) int8 labels of the rolled-in regions each window's tokens
+    come from; tokens of two labels do not attend to each other."""
     if shift == 0:
         return None
-    img = np.zeros((1, Hp, Wp, 1), np.float32)
+    img = np.zeros((1, Hp, Wp, 1), np.int8)
     cnt = 0
     for h in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
         for w in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
             img[:, h, w, :] = cnt
             cnt += 1
     wins = img.reshape(1, Hp // window, window, Wp // window, window, 1)
-    wins = wins.transpose(0, 1, 3, 2, 4, 5).reshape(-1, window * window)
-    mask = wins[:, None, :] - wins[:, :, None]
-    return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+    return wins.transpose(0, 1, 3, 2, 4, 5).reshape(-1, window * window)
 
 
 def _lecun_dense_(lin: nn.Linear, generator: Optional[torch.Generator]) -> None:
@@ -101,36 +111,47 @@ class SwinWindowAttention(nn.Module):
         _lecun_dense_(self.proj, generator)
 
     def forward(self, x: torch.Tensor, window: Tuple[int, int],
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                regions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B * nW, N, C) windows of ``window`` (at most the table's);
-        mask: (nW, N, N) additive, or None."""
+        regions: (nW, N) labels of the shifted grid (``_shift_regions``),
+        or None."""
         Bw, N, C = x.shape
-        hd = self.dim // self.num_heads
-        idx = _relative_position_index(*window, *self.window_size)
-        rel = torch.from_numpy(idx.reshape(-1)).to(x.device)
-        bias = self.relative_position_bias_table[rel].reshape(N, N, self.num_heads)
-        bias = bias.permute(2, 0, 1)[None]  # (1, nH, N, N)
-
-        qkv = self.qkv(x).reshape(Bw, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        logits = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float() + bias.float()
-        if mask is not None:
-            nW = mask.shape[0]
-            logits = logits.reshape(Bw // nW, nW, self.num_heads, N, N) + mask[None, :, None]
-            logits = logits.reshape(Bw, self.num_heads, N, N)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(Bw, N, C)
+        nH = self.num_heads
+        hd = self.dim // nH
+        qkv = self.qkv(x).reshape(Bw, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
+        with span("swin/attn", windows=Bw, heads=nH, tokens=N, head_dim=hd):
+            idx = _relative_position_index(*window, *self.window_size)
+            rel = torch.from_numpy(idx.reshape(-1)).to(x.device)
+            bias = self.relative_position_bias_table[rel].reshape(N, N, nH)
+            bias = bias.permute(2, 0, 1)[None].float()  # (1, nH, N, N)
+            per = max(1, ATTN_CHUNK_BYTES // (4 * nH * N * N))
+            out = torch.empty(Bw, N, C, dtype=x.dtype, device=x.device)
+            for s in range(0, Bw, per):
+                e = min(s + per, Bw)
+                q, k, v = qkv[0, s:e], qkv[1, s:e], qkv[2, s:e]
+                logits = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float() + bias
+                if regions is not None:
+                    lab = regions[torch.arange(s, e, device=x.device) % regions.shape[0]]
+                    apart = (lab[:, None, :] != lab[:, :, None])[:, None]
+                    logits = logits + torch.where(apart, MASKED, 0.0)
+                probs = torch.softmax(logits, dim=-1).to(x.dtype)
+                out[s:e] = torch.matmul(probs, v).transpose(1, 2).reshape(e - s, N, C)
         return self.proj(out)
 
 
 class SwinBlock(nn.Module):
     """Pre-norm Swin block over (B, H*W, C) tokens: (shifted) window
-    attention and an MLP, each residual."""
+    attention and an MLP, each residual. ``fixed_window``: the window and
+    the shift hold at every input (the grid padded to a multiple of the
+    window), where by default they shrink to a small input as the JAX
+    package's do."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 4, shift_size: int = 0,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True, device=None):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, fixed_window: bool = False,
+                 device=None):
         super().__init__()
         self.dim, self.window_size, self.shift_size = dim, window_size, shift_size
+        self.fixed_window = fixed_window
         self.norm1 = LayerNorm(dim, eps=LN_EPS, device=device)
         self.attn = SwinWindowAttention(dim, (window_size, window_size), num_heads, qkv_bias,
                                         device=device)
@@ -140,8 +161,11 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, N, C = x.shape
         win = self.window_size
-        shift = self.shift_size if min(H, W) > win else 0
-        win_eff = min(win, H, W)
+        if self.fixed_window:
+            shift, win_eff = self.shift_size, win
+        else:
+            shift = self.shift_size if min(H, W) > win else 0
+            win_eff = min(win, H, W)
 
         shortcut = x
         x = self.norm1(x).reshape(B, H, W, C)
@@ -151,11 +175,11 @@ class SwinBlock(nn.Module):
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         Hp, Wp = H + pad_b, W + pad_r
 
-        mask = None
+        regions = None
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = torch.from_numpy(_shift_attn_mask(Hp, Wp, win_eff, shift)).to(x.device)
-        xw = self.attn(window_partition(x, win_eff, win_eff), (win_eff, win_eff), mask)
+            regions = torch.from_numpy(_shift_regions(Hp, Wp, win_eff, shift)).to(x.device)
+        xw = self.attn(window_partition(x, win_eff, win_eff), (win_eff, win_eff), regions)
         x = window_reverse(xw, win_eff, win_eff, Hp, Wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))

@@ -117,8 +117,9 @@ def charm_feed(pm, jcodec, v):
     """The port charm model's device methods fed the JAX codec's."""
     feed(pm, {"analysis": lambda x: jcodec._analysis(v, x),
               "hyper_params_from_z": lambda z: jcodec._hyper(v, z),
-              "slice_params": lambda lm, ls, sl, i: jcodec._slice_params(v, lm, ls, sl, i),
-              "slice_lrp": lambda lm, sl, ys, i: jcodec._slice_lrp(v, lm, sl, ys, i),
+              "slice_entropy": lambda lm, ls, sl, i: (
+                  *jcodec._slice_params(v, lm, ls, sl, i), (lm, sl)),
+              "slice_residual": lambda lrp_in, ys, i: jcodec._slice_lrp(v, *lrp_in, ys, i),
               "synthesis": lambda y: jcodec._synthesis(v, y)})
 
 

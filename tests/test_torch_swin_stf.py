@@ -109,10 +109,13 @@ def test_patch_merging_and_split_match_jax():
 
 @pytest.mark.parametrize("shape", [(8, 12, 4, 2), (8, 8, 4, 2), (4, 8, 2, 1), (8, 8, 4, 0)])
 def test_shift_mask_and_index_equal_jax(shape):
-    got, want = PS._shift_attn_mask(*shape), JS._shift_attn_mask(*shape)
-    assert (got is None) == (want is None)
+    """The port masks token pairs of two region labels by MASKED: the mask
+    those labels make is JAX's additive mask."""
+    regions, want = PS._shift_regions(*shape), JS._shift_attn_mask(*shape)
+    assert (regions is None) == (want is None)
     if want is not None:
-        assert got.dtype == want.dtype and np.array_equal(got, want)
+        got = np.where(regions[:, None, :] != regions[:, :, None], PS.MASKED, 0.0)
+        assert np.array_equal(got.astype(want.dtype), want)
     w = shape[2]
     assert np.array_equal(PS._relative_position_index(w, w), JS._relative_position_index(w, w))
 
@@ -147,12 +150,12 @@ def test_stf_device_halves_match_jax():
         slices = []
         for i, y_slice in enumerate(jnp.split(a["y"], jm.num_slices, axis=1)):
             mu, sigma = jc._slice_params(v, lm, ls, tuple(slices), i)
-            got = pm.slice_params(t(lm), t(ls), [t(s) for s in slices], i)
+            got = pm.slice_entropy(t(lm), t(ls), [t(s) for s in slices], i)
             close(got[0], mu, f"mu {i}")
             close(got[1], sigma, f"sigma {i}")
             y_hat = jnp.round(y_slice - mu) + mu
             lrp = jc._slice_lrp(v, lm, tuple(slices), y_hat, i)
-            close(pm.slice_lrp(t(lm), [t(s) for s in slices], t(y_hat), i), lrp, f"lrp {i}")
+            close(pm.slice_residual(got[2], t(y_hat), i), lrp, f"lrp {i}")
             slices.append(y_hat + lrp)
         y_hat = jnp.concatenate(slices, 1)
         close(pm.synthesis(t(y_hat)), jc._synthesis(v, y_hat), "synthesis")

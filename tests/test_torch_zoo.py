@@ -244,18 +244,25 @@ def test_zoo_tables_keep_every_key_and_build_the_ported():
 @pytest.mark.parametrize("arch", ["elic2022", "stf", "tcm2023", "invcompress"])
 def test_context_model_architectures_build_at_the_jax_widths(arch):
     """q4 of each: every parameter of the port's model at the shape of the
-    JAX model's leaf (jax.eval_shape of its init; TCM at 128x128, where its
-    hyper stages' windows are the full 4 x 4, ROADMAP C13), and load_model
-    gives the codec its CODEC_KIND names."""
+    JAX model's leaf (jax.eval_shape of its init), TCM's at its published
+    block's, the plain reference's names and shapes (ROADMAP C21), and
+    load_model gives the codec its CODEC_KIND names."""
     from cra5_tpu_torch.convert import to_flax_params
 
     model, codec = P.load_model(arch, 4, device="cpu")
-    hw = 128 if arch == "tcm2023" else 64
-    want = jax.eval_shape(J.create_model(arch, 4).init, jax.random.PRNGKey(0),
-                          jax.ShapeDtypeStruct((1, 3, hw, hw), jnp.float32))
-    flat = lambda t, p="": {k2: v2 for k, v in t.items() for k2, v2 in (  # noqa: E731
-        flat(v, f"{p}/{k}").items() if isinstance(v, dict) else [(f"{p}/{k}", tuple(v.shape))])}
-    assert flat(to_flax_params(model, dict(model.named_parameters()))) == flat(want["params"])
+    if arch == "tcm2023":
+        import reference_tcm2023
+
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        assert shapes == reference_tcm2023.param_shapes({})
+    else:
+        want = jax.eval_shape(J.create_model(arch, 4).init, jax.random.PRNGKey(0),
+                              jax.ShapeDtypeStruct((1, 3, 64, 64), jnp.float32))
+        flat = lambda t, p="": {k2: v2 for k, v in t.items() for k2, v2 in (  # noqa: E731
+            flat(v, f"{p}/{k}").items() if isinstance(v, dict) else
+            [(f"{p}/{k}", tuple(v.shape))])}
+        assert flat(to_flax_params(model, dict(model.named_parameters()))) == flat(
+            want["params"])
     kind = {"elic": "ElicCodec", "charm": "CharmCodec", "autoregressive": "AutoregressiveCodec"}
     assert type(codec).__name__ == kind[model.CODEC_KIND]
 
